@@ -1,20 +1,23 @@
-"""bfsr_tpu_torch — PyTorch + CUDA port of the LINF-LP learned-prior
-inference path, for one NVIDIA H100 (sm_90a).
+"""bfsr_tpu_torch — PyTorch + CUDA port of the LINF-LP and SRFlow-LP
+learned-prior inference paths, for one NVIDIA H100 (sm_90a).
 
 The JAX package ``bfsr_tpu`` beside it is the reference this port is
 tested against; this package imports ``torch`` and never ``jax`` (nor any
 ``bfsr_tpu`` module, whose import pulls jax in).
 
 * ``bfsr_tpu_torch.models``    — EDSR encoder, LINF Fourier head + pointwise
-                                 flow, UNet prior (``nn.Module`` s whose
-                                 ``state_dict`` keys are the reference's).
+                                 flow, UNet prior; SRFlow's RRDB, Glow
+                                 pyramid and two-branch prior
+                                 (``nn.Module`` s whose ``state_dict`` keys
+                                 are the reference's).
 * ``bfsr_tpu_torch.ops``       — plain tensor ops (``nn``, ``interp``,
-                                 ``pointwise_flow``) and ``ops.cuda``: the
-                                 hand-written kernels, each beside its plain
-                                 PyTorch twin.
-* ``bfsr_tpu_torch.pipelines`` — ``LINFPredictor``: whole-image inference.
+                                 ``pointwise_flow``, ``flows``) and
+                                 ``ops.cuda``: the hand-written kernels,
+                                 each beside its plain PyTorch twin.
+* ``bfsr_tpu_torch.pipelines`` — ``LINFPredictor``, ``SRFlowLPPredictor``:
+                                 whole-image inference.
 * ``bfsr_tpu_torch.convert``   — JAX parameter pytrees -> port modules.
-* ``bfsr_tpu_torch.entry``     — the flagship / tiny model from a seed.
+* ``bfsr_tpu_torch.entry``     — the flagship / tiny models from a seed.
 
 Images are NHWC at every public function, as in the JAX package.
 """

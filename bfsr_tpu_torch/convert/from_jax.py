@@ -2,15 +2,19 @@
 
 The reverse of ``bfsr_tpu/convert/torch_import.py``: it builds a
 reference-keyed ``state_dict`` from a ``bfsr_tpu`` params pytree, so
-``bfsr_tpu.convert.torch_import.convert_linf`` / ``convert_unet`` map the
-port's ``state_dict`` back to the same pytree.
+``bfsr_tpu.convert.torch_import.convert_linf`` / ``convert_unet`` /
+``convert_srflow`` / ``convert_srflow_unet`` map the port's ``state_dict``
+back to the same pytree.
 
 * conv: HWIO -> OIHW;
 * the LINF MLP, stored as linears (in, out) -> 1x1 convs (out, in, 1, 1);
 * the phase linear (in, out) -> (out, in);
 * flow ``w``/``b`` as they are, per layer (``w_inv``/``logabsdet`` are
   recomputed in float64 by ``freeze()``);
-* BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+* BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+* SRFlow actnorm bias/logs (C,) -> (1, C, 1, 1), Conv2dZeros logs (C,) ->
+  (C, 1, 1), invconv ``w`` (C, C) as it is (``w_inv`` and the folds are
+  recomputed in float64 by ``freeze()``).
 
 Leaves may be numpy arrays or anything ``np.asarray`` takes; this module
 imports no jax.
@@ -92,6 +96,89 @@ def unet_state_dict(params):
         _double_conv(sd, f"up_layers.{i}.conv", p)
     _conv(sd, "outc.conv", params["outc"])
     return sd
+
+
+def rrdb_state_dict(params, prefix=""):
+    """Reference-keyed state_dict of an RRDBNet with its x4 head."""
+    sd = {}
+    _conv(sd, prefix + "conv_first", params["conv_first"])
+    for i, blk in enumerate(params["trunk"]):
+        for j in (1, 2, 3):
+            _dense5(sd, f"{prefix}RRDB_trunk.{i}.RDB{j}", blk[f"rdb{j}"])
+    for name, key in (("trunk_conv", "trunk_conv"), ("upconv1", "upconv1"),
+                      ("upconv2", "upconv2"), ("HRconv", "hr_conv"),
+                      ("conv_last", "conv_last")):
+        _conv(sd, prefix + name, params[key])
+    return sd
+
+
+def _actnorm(sd, prefix, p):
+    sd[prefix + ".bias"] = _t(p["bias"]).reshape(1, -1, 1, 1)
+    sd[prefix + ".logs"] = _t(p["logs"]).reshape(1, -1, 1, 1)
+
+
+def _flow_tower(sd, prefix, p):
+    for idx, key in ((0, "conv1"), (2, "conv2")):
+        _conv(sd, f"{prefix}.{idx}", {"w": p[key]["w"]})
+        _actnorm(sd, f"{prefix}.{idx}.actnorm", p[key]["actnorm"])
+    _conv_zeros(sd, f"{prefix}.4", p["out"])
+
+
+def _conv_zeros(sd, prefix, p):
+    _conv(sd, prefix, p)
+    sd[prefix + ".logs"] = _t(p["logs"]).reshape(-1, 1, 1)
+
+
+def flow_step_state_dict(p, prefix=""):
+    """Reference-keyed state_dict of one flow step (actnorm, invconv and,
+    for a conditional step, the affine coupling)."""
+    sd = {}
+    _actnorm(sd, prefix + "actnorm", p["actnorm"])
+    sd[prefix + "invconv.weight"] = _t(p["invconv"]["w"])
+    if "affine" in p:
+        _flow_tower(sd, prefix + "affine.fFeatures", p["affine"]["fFeatures"])
+        _flow_tower(sd, prefix + "affine.fAffine", p["affine"]["fAffine"])
+    return sd
+
+
+def srflow_state_dict(params, plan):
+    """Reference-keyed state_dict of an SRFlowNet (``RRDB.*`` and
+    ``flowUpsamplerNet.layers.{i}.*``, aligned with ``plan``)."""
+    sd = rrdb_state_dict(params["rrdb"], prefix="RRDB.")
+    for i, (entry, p) in enumerate(zip(plan, params["flow"]["layers"])):
+        pre = f"flowUpsamplerNet.layers.{i}"
+        if entry["kind"] in ("step_nc", "step_cond"):
+            sd.update(flow_step_state_dict(p, pre + "."))
+        elif entry["kind"] == "split":
+            _conv_zeros(sd, pre + ".conv", p["conv"])
+    return sd
+
+
+def srflow_unet_state_dict(params):
+    """Reference-keyed state_dict of the SRFlow-LP two-branch prior."""
+    sd = {}
+    for b in (0, 1):
+        p = params[f"branch{b}"]
+        _dense5(sd, f"input_proj{b}", p["input_proj"])
+        _double_conv(sd, f"inc{b}", p["inc"])
+        for i, q in enumerate(p["down"]):
+            _double_conv(sd, f"down_layers{b}.{i}.maxpool_conv.1", q)
+        for i, q in enumerate(p["up"]):
+            _double_conv(sd, f"up_layers{b}.{i}.conv", q)
+        _conv(sd, f"outc{b}.conv", p["outc"])
+    return sd
+
+
+def load_srflow(model, params):
+    """Install JAX SRFlowNet params into a port ``SRFlowNet``, freeze it."""
+    model.load_state_dict(srflow_state_dict(params, model.plan))
+    return model.freeze()
+
+
+def load_srflow_unet(prior, params):
+    """Install JAX two-branch prior params into a port ``SRFlowUNet``."""
+    prior.load_state_dict(srflow_unet_state_dict(params))
+    return prior.freeze()
 
 
 def load_linf(model, params):

@@ -1,4 +1,4 @@
-"""The flagship LINF-LP model on a device, from a seed.
+"""The flagship LINF-LP and SRFlow-LP models on a device, from a seed.
 
 The counterpart of ``__graft_entry__._flagship`` / ``entry``: an
 EDSR-baseline encoder (16 blocks, 64 ch), a 10-layer pointwise flow, a
@@ -10,6 +10,15 @@ Weights are random, drawn from
 ``torch.Generator().manual_seed(seed)``; the flow weights get ``+ I``, as
 trained checkpoints are well conditioned and random ones make the inverse
 chain explode.
+
+``build_srflow_lp`` is the same for SRFlow-LP: the network_G and
+prior_model of ``configs/srflow/SRFlow-LP_DF2K_4X.yml`` (RRDB nf 64,
+nb 23, gc 32; K 16, L 3, hidden 64, stackRRDB [1, 8, 15, 22] concat,
+fea_up0; prior UNet depth 3, dim 64, bilinear), with the flow made live
+(``SRFlowNet.reset_parameters``); ``tiny=True`` gives
+``tests/test_srflow.py``'s size (nf 8, nb 2, gc 4, K 2, hidden 8) with a
+depth-2, dim-8 prior, which K3 (Cout 4) and K5 (hidden 8) do not take: it
+runs on the CPU only.
 """
 
 import numpy as np
@@ -77,3 +86,36 @@ def entry(device, seed=0, tiny=False, lr_size=32, scale=4):
     args = example_inputs(device, (lr_size, lr_size),
                           (lr_size * scale, lr_size * scale), seed)
     return predictor.predict, args
+
+
+def srflow_specs(tiny=False):
+    """(srflow spec, srflow-unet spec) of the SRFlow-LP flagship (or tiny)
+    configuration."""
+    if tiny:
+        return ({"name": "srflow", "args": {
+                    "nf": 8, "nb": 2, "gc": 4, "K": 2, "L": 3,
+                    "hidden_channels": 8, "stack_blocks": (0, 1)}},
+                {"name": "srflow-unet", "args": {"depth": 2, "dim": 8}})
+    return ({"name": "srflow", "args": {
+                "nf": 64, "nb": 23, "gc": 32, "K": 16, "L": 3,
+                "hidden_channels": 64, "stack_blocks": (1, 8, 15, 22)}},
+            {"name": "srflow-unet", "args": {"depth": 3, "dim": 64,
+                                             "bilinear": True}})
+
+
+@torch.no_grad()
+def build_srflow_lp(device, seed=0, tiny=False):
+    """(frozen SRFlowNet, frozen SRFlowUNet), eval mode, on ``device``."""
+    device = torch.device(device)
+    if tiny and device.type == "cuda":
+        raise ValueError("the tiny SRFlow-LP config runs on the CPU only: "
+                         "K3 takes Cout 8-64 and K5 hidden 64")
+    flow_spec, prior_spec = srflow_specs(tiny)
+    gen = seeded(seed)
+    model = registry.make(flow_spec)
+    model.reset_parameters(gen)
+    prior = registry.make(prior_spec)
+    prior.reset_parameters(gen)
+    return (model.to(device).eval().freeze(),
+            prior.to(device).eval().freeze())
+

@@ -1,0 +1,108 @@
+"""RRDBNet (the ESRGAN trunk) as SRFlow's conditioning network, eval mode.
+
+The counterpart of ``bfsr_tpu/models/rrdb.py`` in its plain NHWC form
+(``init_rrdb``, ``_dense_block``, ``rrdb_apply_steps``): conv_first ->
+nb RRDBs (3 residual dense blocks each, residual scale 0.2) ->
+trunk_conv + skip, then nearest-up x2 through upconv1 and a bilinear
+down-resize to half size: the maps SRFlow's flow levels read.  The x4
+head's weights (upconv2, HRconv, conv_last) load with the reference's
+``state_dict``, but nothing on the eval path computes with them.
+The TPU layouts of the trunk (batch-to-space, scatter, space-to-depth)
+are not ported: they compute the same sums.
+
+``forward(x, kernels=True)`` runs every dense-block conv on
+``conv3x3_cat`` (the K3 kernel for a CUDA tensor) over the block's
+implicit concat, as ``rrdb._dense_block_s2d`` runs them on the TPU
+kernel, with the LeakyReLU of conv1-4 in the kernel's epilogue;
+``kernels=False`` runs the reference order with explicit concats.  The
+other convs (conv_first, trunk_conv, upconv1) stay ``F.conv2d``.  ``freeze()`` keeps the dense-block weights in K3's layout.
+
+``state_dict`` keys are the reference's: ``conv_first``,
+``RRDB_trunk.{i}.RDB{1,2,3}.conv{1..5}``, ``trunk_conv``, ``upconv1``,
+``upconv2``, ``HRconv``, ``conv_last``.
+"""
+
+import torch
+from torch import nn
+
+from bfsr_tpu_torch.models.base import Model, seeded
+from bfsr_tpu_torch.models.unet import DenseBlock5C
+from bfsr_tpu_torch.ops import nn as fnn
+from bfsr_tpu_torch.ops.interp import resize_bilinear, resize_nearest
+
+
+class RRDB(nn.Module):
+    def __init__(self, nf, gc):
+        super().__init__()
+        self.RDB1 = DenseBlock5C(nf, gc, nf)
+        self.RDB2 = DenseBlock5C(nf, gc, nf)
+        self.RDB3 = DenseBlock5C(nf, gc, nf)
+
+    def forward(self, x, kernels=True):
+        out = x
+        for rdb in (self.RDB1, self.RDB2, self.RDB3):
+            y = rdb.forward_cat([out]) if kernels else rdb(out)
+            out = y * 0.2 + out
+        return out * 0.2 + x
+
+
+def _conv(x, conv):
+    return fnn.conv2d(x, conv.weight, conv.bias)
+
+
+class RRDBNet(Model):
+    """Built by ``SRFlowNet`` (no registry name of its own in the port)."""
+
+    def __init__(self, in_nc=3, out_nc=3, nf=64, nb=23, gc=32, scale=4):
+        super().__init__()
+        if scale != 4:
+            raise NotImplementedError("the port runs SRFlow at scale 4")
+        self.args = dict(in_nc=in_nc, out_nc=out_nc, nf=nf, nb=nb, gc=gc,
+                         scale=scale)
+        self.conv_first = nn.Conv2d(in_nc, nf, 3, padding=1)
+        self.RRDB_trunk = nn.ModuleList([RRDB(nf, gc) for _ in range(nb)])
+        self.trunk_conv = nn.Conv2d(nf, nf, 3, padding=1)
+        self.upconv1 = nn.Conv2d(nf, nf, 3, padding=1)
+        self.upconv2 = nn.Conv2d(nf, nf, 3, padding=1)
+        self.HRconv = nn.Conv2d(nf, nf, 3, padding=1)
+        self.conv_last = nn.Conv2d(nf, out_nc, 3, padding=1)
+        self.reset_parameters(seeded(0))
+
+    def reset_parameters(self, generator):
+        """``init_rrdb``'s distributions: dense-block convs xavier-normal
+        x 0.1 with zero bias, the other convs torch's default."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                fnn.init_conv_(m, generator)
+        for blk in self.RRDB_trunk:
+            for rdb in (blk.RDB1, blk.RDB2, blk.RDB3):
+                for c in rdb.convs():
+                    fnn.init_conv_(c, generator, "xavier_normal", 0.1)
+
+    @torch.no_grad()
+    def freeze(self):
+        for blk in self.RRDB_trunk:
+            for rdb in (blk.RDB1, blk.RDB2, blk.RDB3):
+                rdb.freeze()
+        return self
+
+    def forward(self, x, block_idxs=(), kernels=True):
+        """``rrdb_apply_steps`` for the maps SRFlow's conditioning reads:
+        x (1, h, w, 3) -> dict of ``block_{i}`` taps, ``fea_up1`` (the trunk
+        output), ``fea_up2`` (upconv1 of its nearest-up x2) and ``fea_up0``
+        (its bilinear down-resize to h/2).  The x4 head (``fea_up4``,
+        HRconv, conv_last) is not computed: the flow does not read it."""
+        fea = _conv(x, self.conv_first)
+        res = {}
+        t = fea
+        for idx, blk in enumerate(self.RRDB_trunk):
+            t = blk(t, kernels)
+            if idx in block_idxs:
+                res[f"block_{idx}"] = t
+        last = fea + _conv(t, self.trunk_conv)
+        h, w = x.shape[1], x.shape[2]
+        res["fea_up1"] = last
+        res["fea_up2"] = _conv(resize_nearest(last, (h * 2, w * 2)),
+                               self.upconv1)
+        res["fea_up0"] = resize_bilinear(last, (h // 2, w // 2))
+        return res

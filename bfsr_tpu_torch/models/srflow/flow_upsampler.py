@@ -1,0 +1,171 @@
+"""FlowUpsamplerNet: SRFlow's Glow pyramid as a static layer plan, eval.
+
+The counterpart of ``bfsr_tpu/models/srflow/flow_upsampler.py`` in its
+NHWC form (no space-to-depth level 1).  ``build_plan`` is the same plan:
+for scale 4, L=3, K=16, two unconditional steps per level and the split
+at level 1,
+
+  level 1: squeeze(3->12)   2x[actnorm,invconv]  16x[actnorm,invconv,affine]
+           split (12 -> pass 6, eps 6)
+  level 2: squeeze(6->24)   2x[...]              16x[...]
+  level 3: squeeze(24->96)  2x[...]              16x[...]
+
+``layers`` holds one module per plan entry, so the ``state_dict`` keys are
+the reference's ``layers.{i}.{actnorm,invconv,affine.fFeatures.{0,2,4},
+affine.fAffine.{0,2,4}}`` and ``layers.{i}.conv`` (the split).
+
+``freeze()`` does what ``cache_flow_inverses`` does (the folded actnorm +
+invconv of every step, inverse in float64) and packs each conditional
+step's weights for K5 (``ops.cuda.flow_step.pack_step``); call it again
+after changing the weights.  ``encode`` / ``decode`` run every
+conditional step through K5 (``flow_step_forward`` / ``_reverse``: the
+kernel for a CUDA tensor, its twin for a CPU one) with ``kernels=True``,
+and through the unfused ``an_invconv_fused`` + ``cond_affine`` with
+``kernels=False``.
+"""
+
+import math
+
+import torch
+from torch import nn
+
+from bfsr_tpu_torch.ops import flows
+from bfsr_tpu_torch.ops.cuda.flow_step import (flow_step_forward,
+                                               flow_step_reverse, pack_step)
+
+LEVEL_NAMES = {4: {0: "fea_up4", 1: "fea_up2", 2: "fea_up1", 3: "fea_up0",
+                   4: "fea_up-1"}}
+
+
+def build_plan(scale=4, L=3, K=16, additional_steps=2, split_enable=True,
+               consume_ratio=0.5, base_c=3):
+    """(plan, final_c); plan entries {'kind': 'squeeze' | 'step_nc' |
+    'step_cond' | 'split', 'level', 'c'[, 'consume']}."""
+    if isinstance(K, int):
+        K = [K] * (L + 1)
+    plan = []
+    c, h = base_c, 160  # only log2 ratios of the reference's 160 matter
+    for level in range(1, L + 1):
+        c, h = c * 4, h // 2
+        lvl = int(round(math.log2(160 / h)))
+        plan.append({"kind": "squeeze", "level": lvl, "c": c})
+        for _ in range(additional_steps):
+            plan.append({"kind": "step_nc", "level": lvl, "c": c})
+        for _ in range(K[level]):
+            plan.append({"kind": "step_cond", "level": lvl, "c": c})
+        if split_enable and level < L - 1:
+            n_consume = int(round(c * consume_ratio))
+            plan.append({"kind": "split", "level": lvl, "c": c,
+                         "consume": n_consume})
+            c -= n_consume
+    return plan, c
+
+
+class FlowStep(nn.Module):
+    """actnorm -> invconv [-> conditional affine coupling]."""
+
+    def __init__(self, c, c_cond=None, hidden=64):
+        super().__init__()
+        self.actnorm = flows.ActNorm(c)
+        self.invconv = flows.InvConv1x1(c)
+        self.affine = (flows.CondAffine(c, c_cond, hidden)
+                       if c_cond is not None else None)
+        self.hidden = hidden
+        self.fold = None     # fold_actnorm_invconv, by freeze()
+        self.register_buffer("kpacked", None, persistent=False)
+
+    @torch.no_grad()
+    def freeze(self):
+        self.fold = flows.fold_actnorm_invconv(self.actnorm, self.invconv)
+        if self.affine is not None:
+            self.kpacked = pack_step(self.actnorm, self.invconv, self.affine)
+
+    def forward_step(self, x, rec=None, kernels=True):
+        if self.affine is not None and kernels:
+            return flow_step_forward(x, rec, self.kpacked, self.hidden)
+        x = flows.an_invconv_fused(x, self.fold)
+        if self.affine is not None:
+            x = flows.cond_affine(x, rec, self.affine)
+        return x
+
+    def reverse_step(self, x, rec=None, kernels=True):
+        if self.affine is not None and kernels:
+            return flow_step_reverse(x, rec, self.kpacked, self.hidden)
+        if self.affine is not None:
+            x = flows.cond_affine(x, rec, self.affine, reverse=True)
+        return flows.an_invconv_fused(x, self.fold, reverse=True)
+
+
+class FlowUpsamplerNet(nn.Module):
+    def __init__(self, plan, cond_channels=320, hidden=64):
+        super().__init__()
+        self.plan = plan
+        layers = []
+        for e in plan:
+            if e["kind"] == "squeeze":
+                layers.append(nn.Identity())
+            elif e["kind"] == "step_nc":
+                layers.append(FlowStep(e["c"]))
+            elif e["kind"] == "step_cond":
+                layers.append(FlowStep(e["c"], cond_channels, hidden))
+            else:
+                layers.append(flows.Split2d(e["c"]))
+        self.layers = nn.ModuleList(layers)
+
+    def steps(self):
+        return [m for m in self.layers if isinstance(m, FlowStep)]
+
+    @torch.no_grad()
+    def freeze(self):
+        for m in self.steps():
+            m.freeze()
+        return self
+
+    def frozen(self):
+        return all(m.fold is not None for m in self.steps())
+
+    @torch.no_grad()
+    def precompute_ft(self, conds):
+        """Per-step conditioning records (``flows.cond_affine_cache_batched``),
+        one batched pass per level; a list aligned with the plan (None for
+        entries without one).  conds: {level: (1, h, w, C_cond)}."""
+        by_level = {}
+        for i, e in enumerate(self.plan):
+            if e["kind"] == "step_cond":
+                by_level.setdefault(e["level"], []).append(i)
+        out = [None] * len(self.plan)
+        for lvl, idxs in by_level.items():
+            recs = flows.cond_affine_cache_batched(
+                conds[lvl], [self.layers[i].affine for i in idxs])
+            for i, r in zip(idxs, recs):
+                out[i] = r
+        return out
+
+    def encode(self, gt, cache, kernels=True):
+        """gt (1, H, W, 3) -> [eps of each split..., z_final]."""
+        x, epses = gt, []
+        for e, m, rec in zip(self.plan, self.layers, cache):
+            kind = e["kind"]
+            if kind == "squeeze":
+                x = flows.squeeze2d(x)
+            elif kind == "split":
+                x, eps = flows.split2d(x, m)
+                epses.append(eps)
+            else:
+                x = m.forward_step(x, rec, kernels)
+        return epses + [x]
+
+    def decode(self, epses, cache, kernels=True):
+        """The inverse: epses back to front, z_final first."""
+        epses = list(epses)
+        x = epses.pop()
+        for e, m, rec in zip(reversed(self.plan), reversed(self.layers),
+                             reversed(cache)):
+            kind = e["kind"]
+            if kind == "squeeze":
+                x = flows.unsqueeze2d(x)
+            elif kind == "split":
+                x = flows.split2d(x, m, reverse=True, eps=epses.pop())
+            else:
+                x = m.reverse_step(x, rec, kernels)
+        return x

@@ -1,14 +1,16 @@
 """Hand-written CUDA kernels: build, load, launch counts.
 
 Every kernel source lives in ``bfsr_tpu_torch/csrc/*.cu`` and exposes a
-plain C entry.  At first use, ``library()`` compiles all of them with
-``nvcc`` for ``sm_90a`` into one shared library under
-``bfsr_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-the sources and flags, and loads it with ``ctypes``.  Nothing here runs at
+plain C entry.  At first use, ``library()`` compiles each of them with
+its own ``nvcc`` for ``sm_90a``, all at once, links the objects into one
+shared library under ``bfsr_tpu_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the sources and flags, and loads it
+with ``ctypes``.  Nothing here runs at
 import time: a machine without ``nvcc`` or a card imports the package and
 uses the plain twins for CPU tensors.
 
-Each kernel wrapper (``linf_flow``, ``linf_info``, ``conv3x3``) dispatches
+Each kernel wrapper (``linf_flow``, ``linf_info``, ``conv3x3``,
+``flow_step``) dispatches
 on the device of its tensors: a CPU tensor goes to its plain PyTorch twin,
 a CUDA tensor launches the kernel or raises.  There is no fallback between
 the two.  A wrapper adds one to ``LAUNCHES[name]`` where it launches its
@@ -30,11 +32,12 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"linf_flow_forward": 0, "linf_flow_inverse": 0,
-            "linf_info": 0, "conv3x3_cat": 0}
+            "linf_info": 0, "conv3x3_cat": 0,
+            "flow_step_forward": 0, "flow_step_reverse": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +50,8 @@ _SIGNATURES = {
                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "conv3x3_cat": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                     ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "flow_step_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flow_step_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -84,15 +89,37 @@ def _build():
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{h.hexdigest()[:16]}.{os.getpid()}"
+    jobs = []
+    for src in (s for s in srcs if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = []
+    try:
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+            logs.append(out)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, so)
-    (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    (BUILD_DIR / "ptxas.log").write_text("".join(logs))
     return so
 
 

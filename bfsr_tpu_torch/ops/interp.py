@@ -1,14 +1,17 @@
 """Resampling ops with PyTorch numerical semantics, NHWC layout.
 
-The counterpart of ``bfsr_tpu/ops/interp.py`` for the two the inference
-path uses:
+The counterpart of ``bfsr_tpu/ops/interp.py`` for the three the inference
+paths use:
 
 * ``grid_sample_bilinear_separable`` — ``F.grid_sample(mode='bilinear',
   padding_mode='border', align_corners=False)`` on a *regular* grid, as
   two axis interpolations: the LR add-back of the LINF pixel model;
 * ``resize_bilinear`` — ``F.interpolate(mode='bilinear')`` with torch's
-  per-axis source positions, both ``align_corners`` settings: the UNet's
-  up path and LR-embedding resize.
+  per-axis source positions, both ``align_corners`` settings: the UNets'
+  up paths, the LINF LR-embedding resize, SRFlow's LR-up image and its
+  ``fea_up0`` down-resize;
+* ``resize_nearest`` — ``F.interpolate(mode='nearest')``: the RRDB
+  up path and the block-stack concat of the SRFlow conditioning.
 
 Coordinates follow the LINF convention: axis 0 of a coord is the height.
 """
@@ -70,3 +73,18 @@ def resize_bilinear(x, out_hw, align_corners=False):
     xh = top + (x[:, y1] - top) * wy[None, :, None, None]
     left = xh[:, :, x0]
     return left + (xh[:, :, x1] - left) * wx[None, None, :, None]
+
+
+def _nearest_index(in_size, out_size, device):
+    """floor(i * in / out) in float32, as ``bfsr_tpu/ops/interp.py``."""
+    i = torch.arange(out_size, dtype=torch.float32, device=device)
+    idx = torch.floor(i * (in_size / out_size)).long()
+    return torch.clamp(idx, 0, in_size - 1)
+
+
+def resize_nearest(x, out_hw):
+    """F.interpolate(mode='nearest') on NHWC: (B, H, W, C) -> (B, h, w, C)."""
+    _, H, W, _ = x.shape
+    iy = _nearest_index(H, out_hw[0], x.device)
+    ix = _nearest_index(W, out_hw[1], x.device)
+    return x[:, iy][:, :, ix]

@@ -87,21 +87,26 @@ def init_conv_(conv, generator, mode="torch", gain=1.0):
 
     mode='torch' — U(+-1/sqrt(fan_in)) weight and bias, torch's Conv2d
     default; 'kaiming_normal_fan_in' — N(0, 2/fan_in) * gain weight, zero
-    bias (the UNet's DenseBlock_5C).
+    bias (the UNet's DenseBlock_5C); 'xavier_normal' — N(0, 2/(fan_in +
+    fan_out)) * gain weight, zero bias (the RRDB dense blocks).
     """
     fan_in = conv.weight[0].numel()
+    fan_out = conv.weight.shape[0] * conv.weight[0, 0].numel()
     if mode == "torch":
         bound = 1.0 / fan_in ** 0.5
         conv.weight.uniform_(-bound, bound, generator=generator)
         if conv.bias is not None:
             conv.bias.uniform_(-bound, bound, generator=generator)
-    elif mode == "kaiming_normal_fan_in":
-        conv.weight.normal_(0.0, (2.0 / fan_in) ** 0.5 * gain,
-                            generator=generator)
-        if conv.bias is not None:
-            conv.bias.zero_()
+        return
+    if mode == "kaiming_normal_fan_in":
+        std = (2.0 / fan_in) ** 0.5 * gain
+    elif mode == "xavier_normal":
+        std = (2.0 / (fan_in + fan_out)) ** 0.5 * gain
     else:
         raise ValueError(mode)
+    conv.weight.normal_(0.0, std, generator=generator)
+    if conv.bias is not None:
+        conv.bias.zero_()
 
 
 @torch.no_grad()

@@ -5,10 +5,13 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's main path — LINF-LP learned-prior inference at the
-flagship configuration (EDSR-baseline 16x64 encoder, 10-layer pointwise
-flow, 256-wide info MLP, UNet depth 3 / dim 64; random weights from seed
-0) — and fails (non-zero exit, no result line) if any phase fails:
+It drives the port's two main paths at their flagship configurations,
+random weights from seed 0 — LINF-LP learned-prior inference
+(EDSR-baseline 16x64 encoder, 10-layer pointwise flow, 256-wide info MLP,
+UNet depth 3 / dim 64) and SRFlow-LP learned-prior inference
+(``configs/srflow/SRFlow-LP_DF2K_4X.yml``: RRDB 64 x 23, Glow pyramid
+K 16 / L 3 / hidden 64, two-branch UNet prior depth 3 / dim 64) — and
+fails (non-zero exit, no result line) if any phase fails:
 
 1. a CUDA device must be present; prints the card's name and power limit;
 2. builds every kernel from ``bfsr_tpu_torch/csrc`` (prints the seconds);
@@ -24,12 +27,24 @@ flow, 256-wide info MLP, UNet depth 3 / dim 64; random weights from seed
    again at the ragged LR 96x80 -> HR 300x250;
 5. times the kernel path and the twin path (2 warm-ups, 3 blocks of 5
    predicts each, synchronised) and prints median/best ms per image, HR
-   MP/s, and a per-kernel device-time profile of one kernel-path predict.
+   MP/s, and a per-kernel device-time profile of one kernel-path predict;
+6. SRFlow-LP: holds K5 (forward and reverse) against its twin at each
+   flow level's shape of a 512^2 image and K3 at an RRDB dense-block conv
+   (5 inputs, 192 -> 64 at 128^2), then runs ``SRFlowLPPredictor.predict``
+   at LR 128x128 -> HR 512x512 and at the ragged LR 101x85 (padded to
+   102x86, cropped back to 404x340) with the launch counters reset first:
+   the output must be finite and of the right shape, K5 must have
+   launched 48 times each way and K3 at all, and the image must agree with
+   the twin path; then times both paths and profiles one 512^2 predict,
+   split into its stages (RRDB, precompute_ft, encode, prior, decode).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
-route, source, the TPU kernel it replaces, its launches in the 512^2
-predict, its max abs error and its time beside the twin's); the last line
-is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
+route, source, the TPU kernel it replaces, its launches in its paths'
+512^2 predicts, its max abs error, its time beside the twin's and the one
+PyTorch call's that computes the same function, where there is one, and
+its bound: the least time the card could take for the same work); the
+last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": N}}``.
 """
 
 import json
@@ -40,8 +55,19 @@ import time
 
 LR, HR = (128, 128), (512, 512)
 RAGGED_LR, RAGGED_HR = (96, 80), (300, 250)
+SRFLOW_RAGGED_LR = (101, 85)
+# K5 (atol, rtol): tests/test_flow_step_kernel.py's step tolerance; the
+# SRFlow-LP image: docs/PARITY.md's; its unclipped output relative to its
+# largest value, since a random flow's image lies mostly outside [0, 1]
 TOL = {"linf_flow_forward": 1e-5, "linf_flow_inverse": 1e-4,
-       "linf_info": (2e-4, 1e-4), "conv3x3_cat": 1e-4, "image": 1e-3}
+       "linf_info": (2e-4, 1e-4), "conv3x3_cat": 1e-4, "image": 1e-3,
+       "flow_step_forward": (2e-4, 2e-4), "flow_step_reverse": (2e-4, 2e-4),
+       "srflow_image": 5e-3, "srflow_unclipped_rel": 1e-3}
+# H100 SXM published peaks at 700 W (NVIDIA's data sheet)
+PEAK_F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+LINF_KERNELS = ("linf_flow_forward", "linf_flow_inverse", "linf_info",
+                "conv3x3_cat")
 KERNELS = {
     "linf_flow_forward": ("bfsr_tpu_torch/csrc/linf_flow.cu",
                           "bfsr_tpu/ops/pallas/linf_flow.py:47"),
@@ -51,6 +77,10 @@ KERNELS = {
                   "bfsr_tpu/ops/pallas/linf_info.py:73"),
     "conv3x3_cat": ("bfsr_tpu_torch/csrc/conv3x3.cu",
                     "bfsr_tpu/ops/pallas/s2d_conv.py:128"),
+    "flow_step_forward": ("bfsr_tpu_torch/csrc/flow_step.cu",
+                          "bfsr_tpu/ops/pallas/flow_step.py:261"),
+    "flow_step_reverse": ("bfsr_tpu_torch/csrc/flow_step.cu",
+                          "bfsr_tpu/ops/pallas/flow_step.py:303"),
 }
 
 
@@ -74,8 +104,24 @@ def gpu_time_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def compare(name, kernel_fn, plain_fn, tol, flops=None, label=""):
-    """Run both once, check agreement, time both; returns a result dict."""
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops, n_bytes):
+    """The least time for the work: the larger of its operations over the
+    f32 peak and its bytes (each input read once, each output written
+    once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
+            n_bytes=None, library_fn=None):
+    """Run both once, check agreement, time both (and ``library_fn``, one
+    PyTorch call computing the same function, where there is one); with
+    ``n_bytes`` also the bound.  Returns a result dict."""
     import torch
 
     from bfsr_tpu_torch.ops import cuda
@@ -100,14 +146,24 @@ def compare(name, kernel_fn, plain_fn, tol, flops=None, label=""):
                            f"max abs err {max_abs:.3e} ({tol_s}), max |ref| "
                            f"{float(ref.abs().max()):.3e}")
     ms, plain_ms = gpu_time_ms(kernel_fn), gpu_time_ms(plain_fn)
+    library_ms = gpu_time_ms(library_fn) if library_fn else None
     rate = ""
     if flops:
         rate = (f"  {flops / ms / 1e6:.1f} GFLOP/s vs twin "
                 f"{flops / plain_ms / 1e6:.1f}")
+    out = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms}
+    extra = ""
+    if library_ms is not None:
+        extra += f", library {library_ms:.4f} ms"
+    if n_bytes is not None:
+        out.update(bound(flops or 0, n_bytes))
+        extra += (f", bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+                  f"{(flops or 0) / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)")
     log(f"check {name}{label}: max_abs_err {max_abs:.3e} ({tol_s}), max |ref| "
         f"{float(ref.abs().max()):.3e}; kernel {ms:.4f} ms, twin "
-        f"{plain_ms:.4f} ms{rate}")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        f"{plain_ms:.4f} ms{extra}{rate}")
+    return out
 
 
 def check_kernels(model, prior, inputs, ragged_inputs):
@@ -129,10 +185,13 @@ def check_kernels(model, prior, inputs, ragged_inputs):
             args = (coef, freq, cy, cx, phase, model.mlp())
             C, n = coef.shape[-1], cy.shape[0] * cx.shape[0]
             flops = 2 * n * sum(w.shape[0] * w.shape[1] for w, _ in model.mlp())
+            out_dim = model.mlp()[-1][0].shape[0]
             r = compare("linf_info",
                         lambda: linf_info.affine_info(*args, model.mlp_packed),
                         lambda: linf_info.affine_info_plain(*args),
-                        TOL["linf_info"], flops, f" {tag} C={C}")
+                        TOL["linf_info"], flops, f" {tag} C={C}",
+                        nbytes(coef, freq, cy, cx, phase, model.mlp_packed)
+                        + 4 * out_dim * n)
             results.setdefault("linf_info", []).append(r)
             if tag == "ragged":
                 continue
@@ -140,17 +199,22 @@ def check_kernels(model, prior, inputs, ragged_inputs):
             flow = model.imnet
             x = gt.reshape(-1, 3).contiguous()
             z = linf_flow.flow_forward_plain(flow.w, flow.b, x, info)
+            # per query and layer: a 3x3 matvec + bias (21 flop) and the
+            # affine coupling of 3 channels (sigmoid, scale, shift: 15)
+            n_layers = flow.w.shape[0] - 1
+            k1_flops = n * (36 * n_layers + 21)
+            k1_bytes = nbytes(flow.w, flow.b, x, info) + x.numel() * 4
             results["linf_flow_forward"] = [compare(
                 "linf_flow_forward",
                 lambda: linf_flow.flow_forward(flow.w, flow.b, x, info),
                 lambda: linf_flow.flow_forward_plain(flow.w, flow.b, x, info),
-                TOL["linf_flow_forward"], label=f" N={n}")]
+                TOL["linf_flow_forward"], k1_flops, f" N={n}", k1_bytes)]
             results["linf_flow_inverse"] = [compare(
                 "linf_flow_inverse",
                 lambda: linf_flow.flow_inverse(flow.w_inv, flow.b, z, info),
                 lambda: linf_flow.flow_inverse_plain(flow.w_inv, flow.b, z,
                                                      info),
-                TOL["linf_flow_inverse"], label=f" N={n}")]
+                TOL["linf_flow_inverse"], k1_flops, f" N={n}", k1_bytes)]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -173,21 +237,39 @@ def check_kernels(model, prior, inputs, ragged_inputs):
          [randn(1, H, W, 64), randn(1, H, W, 64)], up_dc[0], s_up, b_up,
          "lrelu"),
     ]
-    for label, xs, conv, s, b, act in cases:
-        w = conv.weight
-        with torch.inference_mode():
-            flops = 2 * 9 * w.shape[1] * w.shape[0] * xs[0].shape[1] * xs[0].shape[2]
-            results.setdefault("conv3x3_cat", []).append(compare(
-                "conv3x3_cat",
-                lambda: conv3x3.conv3x3_cat(xs, w, s, b, act,
-                                            kweight=conv.kweight),
-                lambda: conv3x3.conv3x3_cat_plain(xs, w, s, b, act),
-                TOL["conv3x3_cat"], flops, f" {label}"))
+    for case in cases:
+        results.setdefault("conv3x3_cat", []).append(check_k3(*case))
     return results
 
 
+def check_k3(label, xs, conv, s, b, act):
+    """K3 against its twin on one conv of the path, with its frozen weight
+    layout (kweight); the library call is cuDNN f32 (TF32 off) on the
+    concatenated NCHW input with the scale folded into the weight: the
+    same conv and epilogue, without the activation."""
+    import torch
+    import torch.nn.functional as F
+
+    from bfsr_tpu_torch.ops.cuda import conv3x3
+
+    w = conv.weight
+    H, W = xs[0].shape[1], xs[0].shape[2]
+    with torch.inference_mode():
+        flops = 2 * 9 * w.shape[1] * w.shape[0] * H * W
+        xcat = torch.cat(xs, -1).permute(0, 3, 1, 2).contiguous()
+        wl = w if s is None else w * s[:, None, None, None]
+        n_bytes = nbytes(*xs, conv.kweight, *[t for t in (s, b) if t is not None])
+        return compare(
+            "conv3x3_cat",
+            lambda: conv3x3.conv3x3_cat(xs, w, s, b, act, kweight=conv.kweight),
+            lambda: conv3x3.conv3x3_cat_plain(xs, w, s, b, act),
+            TOL["conv3x3_cat"], flops, f" {label}",
+            n_bytes + 4 * w.shape[0] * H * W,
+            lambda: F.conv2d(xcat, wl, b, padding=1))
+
+
 def check_predict(model, prior, inputs, label):
-    """Phase 4: the main path through the kernels vs through the twins."""
+    """Phase 4: the LINF-LP path through the kernels vs through the twins."""
     import torch
 
     from bfsr_tpu_torch.ops import cuda
@@ -204,7 +286,7 @@ def check_predict(model, prior, inputs, label):
     torch.cuda.synchronize()
     if out.shape != (1, *coord.shape[1:3], 3) or not torch.isfinite(out).all():
         raise RuntimeError(f"predict {label}: bad output {tuple(out.shape)}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in LINF_KERNELS if launches[k] == 0]
     if missing:
         raise RuntimeError(f"predict {label}: kernels not launched: {missing}")
     err = float((out - ref).abs().max())
@@ -217,28 +299,23 @@ def check_predict(model, prior, inputs, label):
     return launches
 
 
-def time_paths(model, prior, inputs, label, blocks=3, per_block=5):
-    """Phase 5: ms/image of the kernel and twin paths, interleaved."""
+def time_paths(paths, mp, label, blocks=3, per_block=5):
+    """ms/image of each path (name -> fn), 2 warm-ups each, then blocks
+    interleaved twin, kernel, kernel, twin, twin, kernel."""
     import torch
 
-    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
-
-    inp, coord, cell, gt = inputs
-    paths = {"kernel": LINFPredictor(model, prior, kernels=True),
-             "twin": LINFPredictor(model, prior, kernels=False)}
-    for p in paths.values():
+    for fn in paths.values():
         for _ in range(2):
-            p.predict(inp, coord, cell, gt)
+            fn()
     torch.cuda.synchronize()
     times = {k: [] for k in paths}
     order = ["twin", "kernel", "kernel", "twin", "twin", "kernel"][:2 * blocks]
     for k in order:
         t0 = time.perf_counter()
         for _ in range(per_block):
-            paths[k].predict(inp, coord, cell, gt)
+            paths[k]()
         torch.cuda.synchronize()
         times[k].append((time.perf_counter() - t0) * 1e3 / per_block)
-    mp = coord.shape[1] * coord.shape[2] / 1e6
     out = {}
     for k, ts in times.items():
         med, best = statistics.median(ts), min(ts)
@@ -249,43 +326,178 @@ def time_paths(model, prior, inputs, label, blocks=3, per_block=5):
     return out
 
 
-def profile_predict(model, prior, inputs, unprofiled_ms):
-    """One kernel-path predict under torch.profiler: device time by kernel
-    (device-side events only, so a CPU op and its kernels are not counted
-    twice), the busy share of the profiled wall time, and an estimate of
-    the idle share of an unprofiled predict (``unprofiled_ms``, the median
-    of this run's timing blocks)."""
+def profile_predict(fn, unprofiled_ms, label, top=14):
+    """One kernel-path predict ``fn()`` under torch.profiler: device time
+    by kernel (device-side events only, so a CPU op and its kernels are
+    not counted twice), the busy share of the profiled wall time, and an
+    estimate of the idle share of an unprofiled predict (``unprofiled_ms``,
+    the median of this run's timing blocks)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
-
-    pred = LINFPredictor(model, prior, kernels=True)
-    inp, coord, cell, gt = inputs
-    pred.predict(inp, coord, cell, gt)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict(inp, coord, cell, gt)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.self_device_time_total, e.key, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"profile {label}: the profiler recorded no device time (not "
+            f"measured)")
         return
     busy = sum(r[0] for r in rows) / 1e3
-    log(f"profile: one 512^2 kernel-path predict: {busy:.3f} ms of kernels in "
-        f"{wall_ms:.3f} ms wall under the profiler (busy share "
+    log(f"profile {label}: one kernel-path predict: {busy:.3f} ms of kernels "
+        f"in {wall_ms:.3f} ms wall under the profiler (busy share "
         f"{100 * busy / wall_ms:.1f}%), {sum(r[2] for r in rows)} launches; "
         f"idle share of an unprofiled predict, estimated against this run's "
         f"median {unprofiled_ms:.3f} ms: "
         f"{100 * max(0.0, 1 - busy / unprofiled_ms):.1f}%")
-    for dev_us, key, count in sorted(rows, reverse=True)[:14]:
-        log(f"profile: {dev_us / 1e3:8.3f} ms {100 * dev_us / 1e3 / busy:5.1f}% "
-            f"x{count} {key[:100]}")
+    for dev_us, key, count in sorted(rows, reverse=True)[:top]:
+        log(f"profile {label}: {dev_us / 1e3:8.3f} ms "
+            f"{100 * dev_us / 1e3 / busy:5.1f}% x{count} {key[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# SRFlow-LP
+# ---------------------------------------------------------------------------
+
+
+def k5_work(c, hid, hw, packed):
+    """(flops, bytes) of one K5 launch on an (H, W, C) state: per pixel the
+    folded 1x1 (2 C^2), conv1 (2 * 9 * cn * hid), conv2 (2 hid^2) and
+    conv3 (2 * 9 * hid * C); the state, its record (2C + hid) and the
+    output moved once, and the step's weights read once."""
+    cn = c // 2
+    px = hw[0] * hw[1]
+    flops = px * (2 * c * c + 2 * 9 * cn * hid + 2 * hid * hid
+                  + 2 * 9 * hid * c)
+    return flops, 4 * px * (c + (2 * c + hid) + c) + nbytes(packed)
+
+
+def check_srflow_kernels(model, lr):
+    """K5 forward and reverse against the twin at each level's shape, on
+    the step's real weights and conditioning record (the first
+    conditional step of each level, for this LR image), and K3 at an RRDB
+    dense-block conv."""
+    import torch
+
+    from bfsr_tpu_torch.ops.cuda import flow_step as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.inference_mode():
+        cache = model.precompute_ft(model.rrdb_preprocess(lr, kernels=False))
+    results = {}
+    seen = set()
+    for e, step, rec in zip(model.plan, model.flowUpsamplerNet.layers, cache):
+        if e["kind"] != "step_cond" or e["level"] in seen:
+            continue
+        seen.add(e["level"])
+        c, hid = e["c"], step.hidden
+        hw = rec.shape[1:3]
+        x = torch.randn((1, *hw, c), generator=gen, device="cuda")
+        flops, n_bytes = k5_work(c, hid, hw, step.kpacked)
+        label = f" level {e['level']} ({hw[0]}, {hw[1]}, {c})"
+        with torch.inference_mode():
+            y = k5.flow_step_forward_plain(x, rec, step.kpacked, hid)
+            for name, fn, plain, inp in (
+                    ("flow_step_forward", k5.flow_step_forward,
+                     k5.flow_step_forward_plain, x),
+                    ("flow_step_reverse", k5.flow_step_reverse,
+                     k5.flow_step_reverse_plain, y)):
+                results.setdefault(name, []).append(compare(
+                    name, lambda: fn(inp, rec, step.kpacked, hid),
+                    lambda: plain(inp, rec, step.kpacked, hid), TOL[name],
+                    flops, label, n_bytes))
+    rdb = model.RRDB.RRDB_trunk[0].RDB1
+    nf, gc = rdb.conv1.weight.shape[1], rdb.conv1.weight.shape[0]
+    xs = [torch.randn((1, *lr.shape[1:3], ch), generator=gen, device="cuda")
+          for ch in [nf] + [gc] * 4]
+    results["conv3x3_cat"] = [check_k3(
+        f"RRDB dense conv5 5 inputs {nf + 4 * gc}->{nf} @{lr.shape[1]}^2",
+        xs, rdb.conv5, None, rdb.conv5.bias, None)]
+    return results
+
+
+def check_srflow_predict(model, prior, lr_img, label):
+    """The SRFlow-LP path through the kernels vs through the twins."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.srflow_eval import (SRFlowLPPredictor,
+                                                      pad_to_even)
+
+    n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
+    kernel_path = SRFlowLPPredictor(model, prior, kernels=True)
+    twin_path = SRFlowLPPredictor(model, prior, kernels=False)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    out = kernel_path.predict(lr_img)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    ref = twin_path.predict(lr_img)
+    h, w = lr_img.shape[:2]
+    if out.shape != (4 * h, 4 * w, 3) or not torch.isfinite(out).all():
+        raise RuntimeError(f"srflow predict {label}: bad output "
+                           f"{tuple(out.shape)}")
+    want = {"flow_step_forward": n_cond, "flow_step_reverse": n_cond}
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    if wrong or launches["conv3x3_cat"] == 0:
+        raise RuntimeError(f"srflow predict {label}: launches {launches}, "
+                           f"expected K5 {n_cond} each way and K3 > 0")
+    err = float((out - ref).abs().max())
+    x = pad_to_even(lr_img)
+    sr, sr_ref = kernel_path.run(x), twin_path.run(x)
+    torch.cuda.synchronize()
+    scale = float(sr_ref.abs().max())
+    rel = float((sr - sr_ref).abs().max()) / scale
+    inside = float(((sr_ref > 0) & (sr_ref < 1)).float().mean())
+    log(f"srflow predict {label}: shape {tuple(out.shape)}, finite, launches "
+        f"{json.dumps(launches)}, max |kernel - twin| {err:.3e} (tol "
+        f"{TOL['srflow_image']:g}); unclipped: max |kernel - twin| / max |twin|"
+        f" {rel:.3e} (tol {TOL['srflow_unclipped_rel']:g}), max |twin| "
+        f"{scale:.3f}, {100 * inside:.1f}% of it inside (0, 1)")
+    if not (err <= TOL["srflow_image"] and rel <= TOL["srflow_unclipped_rel"]
+            and torch.isfinite(sr).all()):
+        raise RuntimeError(f"srflow predict {label}: kernel path disagrees "
+                           f"with the twin path: {err:.3e} / {rel:.3e}")
+    return launches
+
+
+def profile_srflow_stages(model, prior, lr_img, label, reps=3):
+    """Device time of each stage of one kernel-path predict (CUDA events
+    between the stages, median of ``reps``)."""
+    import torch
+
+    from bfsr_tpu_torch.pipelines.srflow_eval import (STAGES,
+                                                      SRFlowLPPredictor,
+                                                      pad_to_even)
+
+    pred = SRFlowLPPredictor(model, prior)
+    x = pad_to_even(lr_img)
+    per = {s: [] for s in STAGES}
+    for _ in range(reps):
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        mark("start")
+        pred.run(x, mark)
+        torch.cuda.synchronize()
+        for (_, a), (stage, b) in zip(marks, marks[1:]):
+            per[stage].append(a.elapsed_time(b))
+    total = sum(statistics.median(v) for v in per.values())
+    log(f"stages {label}: " + ", ".join(
+        f"{s} {statistics.median(v):.3f} ms "
+        f"({100 * statistics.median(v) / total:.1f}%)" for s, v in per.items())
+        + f"; total {total:.3f} ms")
 
 
 def main():
@@ -295,8 +507,13 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
-    from bfsr_tpu_torch.entry import build_flagship, example_inputs
+    import numpy as np
+
+    from bfsr_tpu_torch.entry import (build_flagship, build_srflow_lp,
+                                      example_inputs)
     from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+    from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -313,29 +530,70 @@ def main():
             if any(k in line for k in ("entry function", "registers", "spill")):
                 log(f"ptxas: {line.strip()}")
 
+    # --- LINF-LP ---
     dev = torch.device("cuda")
     model, prior = build_flagship(dev, seed=0)
     inputs = example_inputs(dev, LR, HR, seed=0)
     ragged = example_inputs(dev, RAGGED_LR, RAGGED_HR, seed=0)
 
     checks = check_kernels(model, prior, inputs, ragged)
-    launches = check_predict(model, prior, inputs, "128x128->512x512")
+    launches = {"linf": check_predict(model, prior, inputs, "128x128->512x512")}
     check_predict(model, prior, ragged, "96x80->300x250")
-    medians = time_paths(model, prior, inputs, "128x128->512x512")
-    time_paths(model, prior, ragged, "96x80->300x250")
-    profile_predict(model, prior, inputs, medians["kernel"])
+    medians = {}
+    for tag, inp in (("128x128->512x512", inputs), ("96x80->300x250", ragged)):
+        paths = {k: (lambda p=LINFPredictor(model, prior, kernels=k == "kernel"),
+                     a=inp: p.predict(*a)) for k in ("kernel", "twin")}
+        mp = inp[1].shape[1] * inp[1].shape[2] / 1e6
+        medians[tag] = time_paths(paths, mp, tag)
+    profile_predict(lambda: LINFPredictor(model, prior).predict(*inputs),
+                    medians["128x128->512x512"]["kernel"], "linf 512^2")
+    del model, prior, inputs, ragged
+
+    # --- SRFlow-LP ---
+    t0 = time.perf_counter()
+    smodel, sprior = build_srflow_lp(dev, seed=0)
+    log(f"srflow: flagship built from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    lr = torch.as_tensor(rng.random((*LR, 3)), dtype=torch.float32,
+                         device=dev)
+    lr_ragged = torch.as_tensor(rng.random((*SRFLOW_RAGGED_LR, 3)),
+                                dtype=torch.float32, device=dev)
+    for name, rs in check_srflow_kernels(smodel, lr[None]).items():
+        checks.setdefault(name, []).extend(rs)
+    launches["srflow"] = check_srflow_predict(smodel, sprior, lr,
+                                              "128x128->512x512")
+    check_srflow_predict(smodel, sprior, lr_ragged, "101x85->404x340")
+    for tag, img in (("srflow 128x128->512x512", lr),
+                     ("srflow 101x85->404x340", lr_ragged)):
+        paths = {k: (lambda p=SRFlowLPPredictor(smodel, sprior,
+                                                kernels=k == "kernel"),
+                     a=img: p.predict(a)) for k in ("kernel", "twin")}
+        mp = 16 * img.shape[0] * img.shape[1] / 1e6
+        medians[tag] = time_paths(paths, mp, tag)
+    profile_srflow_stages(smodel, sprior, lr, "srflow 512^2")
+    profile_predict(lambda: SRFlowLPPredictor(smodel, sprior).predict(lr),
+                    medians["srflow 128x128->512x512"]["kernel"],
+                    "srflow 512^2", top=16)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rs = checks[name]
-        # times: the flagship-shape check; for K3 the sum of its three shapes
-        timed = rs if name == "conv3x3_cat" else rs[:1]
+        # K1 / K2: the flagship-shape check; K3: the sum of its four
+        # shapes; K5: the sum of its three levels (one launch each)
+        timed = rs if name.startswith(("conv3x3", "flow_step")) else rs[:1]
+        by_path = {p: ls[name] for p, ls in launches.items() if ls[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in timed),
             "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": timed[0]["bound_by"],
+            "library_ms": (sum(r["library_ms"] for r in timed)
+                           if timed[0]["library_ms"] is not None else None),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

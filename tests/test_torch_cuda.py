@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from bfsr_tpu_torch.ops import cuda as kcuda
-from bfsr_tpu_torch.ops.cuda import conv3x3, linf_flow, linf_info
+from bfsr_tpu_torch.ops.cuda import conv3x3, flow_step, linf_flow, linf_info
 
 pytestmark = pytest.mark.cuda
 
@@ -155,7 +155,9 @@ def test_small_predictor_kernel_path_matches_twins(dev):
     inputs = example_inputs(dev, (13, 10), (41, 29), seed=1)
     kcuda.reset_launch_counts()
     out = LINFPredictor(model, prior).predict(*inputs)
-    assert all(v > 0 for v in kcuda.LAUNCHES.values()), kcuda.LAUNCHES
+    linf_kernels = ("linf_flow_forward", "linf_flow_inverse", "linf_info",
+                    "conv3x3_cat")
+    assert all(kcuda.LAUNCHES[k] > 0 for k in linf_kernels), kcuda.LAUNCHES
     ref = LINFPredictor(model, prior, kernels=False).predict(*inputs)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-3)
@@ -174,3 +176,128 @@ def test_small_predictor_kernel_path_matches_twins(dev):
                                                     kernels=False),
                                rtol=0, atol=1e-3)
     assert torch.isfinite(log_p).all()
+
+
+def random_flow_step(c, hid=64, c_cond=320, seed=0):
+    """A frozen conditional FlowStep with live random weights (nonzero
+    actnorms and Conv2dZeros tails), and a matching random record."""
+    from bfsr_tpu_torch.models.srflow.flow_upsampler import FlowStep
+
+    g = _gen(seed)
+    step = FlowStep(c, c_cond, hid)
+    with torch.no_grad():
+        for name, t in step.named_parameters():
+            if name == "invconv.weight":
+                q, _ = np.linalg.qr(g.standard_normal((c, c)))
+                t.copy_(torch.from_numpy(q))
+            elif name.endswith("weight"):
+                t.copy_(torch.from_numpy(
+                    g.standard_normal(t.shape) / np.sqrt(t[0].numel())))
+            else:
+                t.copy_(torch.from_numpy(0.1 * g.standard_normal(t.shape)))
+    step.freeze()
+    return step
+
+
+def random_record(hw, c, hid=64, seed=1):
+    g = _gen(seed)
+    return np.concatenate([g.uniform(0.6, 1.0, (1, *hw, c)),
+                           0.5 * g.standard_normal((1, *hw, c)),
+                           g.standard_normal((1, *hw, hid))], -1)
+
+
+@pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
+                                  (96, (15, 9)), (96, (1, 3)),
+                                  (12, (64, 64))])
+def test_k5_matches_twin_and_float64(dev, c, hw):
+    step = random_flow_step(c, seed=c)
+    packed = step.kpacked
+    x = _gen(c + 7).standard_normal((1, *hw, c))
+    rec = random_record(hw, c)
+    xt, rt, pt = _t(x, dev), _t(rec, dev), packed.to(dev)
+    before = dict(kcuda.LAUNCHES)
+    y = flow_step.flow_step_forward(xt, rt, pt, 64)
+    back = flow_step.flow_step_reverse(y, rt, pt, 64)
+    assert kcuda.LAUNCHES["flow_step_forward"] == before["flow_step_forward"] + 1
+    assert kcuda.LAUNCHES["flow_step_reverse"] == before["flow_step_reverse"] + 1
+    torch.testing.assert_close(
+        y, flow_step.flow_step_forward_plain(xt, rt, pt, 64),
+        atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(
+        back, flow_step.flow_step_reverse_plain(y, rt, pt, 64),
+        atol=2e-4, rtol=2e-4)
+    y64 = flow_step.flow_step_forward_plain(
+        torch.from_numpy(x), torch.from_numpy(rec), packed.double(), 64)
+    np.testing.assert_allclose(y.cpu().numpy(), y64.numpy(), atol=2e-4,
+                               rtol=2e-4)
+    r64 = flow_step.flow_step_reverse_plain(
+        y.cpu().double(), torch.from_numpy(rec), packed.double(), 64)
+    np.testing.assert_allclose(back.cpu().numpy(), r64.numpy(), atol=2e-4,
+                               rtol=2e-4)
+    np.testing.assert_allclose(back.cpu().numpy(), x, atol=5e-4, rtol=5e-4)
+
+
+def test_k5_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    step = random_flow_step(12, hid=16)
+    x = torch.zeros((1, 4, 4, 12), device=dev)
+    rec = torch.zeros((1, 4, 4, 2 * 12 + 16), device=dev)
+    with pytest.raises(ValueError):   # K5 takes hidden 64 only
+        flow_step.flow_step_forward(x, rec, step.kpacked.to(dev), 16)
+    step = random_flow_step(48)
+    x = torch.zeros((1, 4, 4, 48), device=dev)
+    rec = torch.zeros((1, 4, 4, 2 * 48 + 64), device=dev)
+    with pytest.raises(ValueError):   # and C in 12 / 24 / 96
+        flow_step.flow_step_reverse(x, rec, step.kpacked.to(dev), 64)
+
+
+@pytest.mark.parametrize("cins,cout", [([64, 32, 32, 32, 32], 64),
+                                       ([64, 32], 32), ([64], 32)])
+def test_k3_at_rrdb_dense_block_shapes(dev, cins, cout):
+    g = _gen(sum(cins))
+    hw = (40, 37)
+    xs = [g.standard_normal((1, *hw, c)) for c in cins]
+    w = g.standard_normal((cout, sum(cins), 3, 3)) / np.sqrt(9 * sum(cins))
+    bias = g.standard_normal(cout)
+    act = "lrelu" if cout == 32 else None
+    xt = [_t(x, dev) for x in xs]
+    got = conv3x3.conv3x3_cat(xt, _t(w, dev), None, _t(bias, dev), act)
+    twin = conv3x3.conv3x3_cat_plain(xt, _t(w, dev), None, _t(bias, dev), act)
+    ref64 = conv3x3.conv3x3_cat_plain(
+        [torch.from_numpy(x) for x in xs], torch.from_numpy(w), None,
+        torch.from_numpy(bias), act)
+    torch.testing.assert_close(got, twin, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.cpu().numpy(), ref64.numpy(), atol=1e-4)
+
+
+def test_small_srflow_lp_kernel_path_matches_twins(dev):
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.models.base import seeded
+    from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
+
+    # the smallest config the kernels take: K3 Cout 16 (gc) / 16 (nf),
+    # K5 hidden 64
+    model = registry.make({"name": "srflow", "args": {
+        "nf": 16, "nb": 2, "gc": 16, "K": 2, "L": 3, "hidden_channels": 64,
+        "stack_blocks": (0, 1)}})
+    model.reset_parameters(seeded(3))
+    prior = registry.make({"name": "srflow-unet",
+                           "args": {"depth": 2, "dim": 16}})
+    prior.reset_parameters(seeded(4))
+    model = model.to(dev).eval().freeze()
+    prior = prior.to(dev).eval().freeze()
+    lr = _t(_gen(5).random((13, 10, 3)), dev)
+    kcuda.reset_launch_counts()
+    out = SRFlowLPPredictor(model, prior).predict(lr)
+    launches = dict(kcuda.LAUNCHES)
+    ref = SRFlowLPPredictor(model, prior, kernels=False).predict(lr)
+    assert out.shape == (52, 40, 3) and torch.isfinite(out).all()
+    assert launches["flow_step_forward"] == 6, launches
+    assert launches["flow_step_reverse"] == 6, launches
+    assert launches["conv3x3_cat"] == 2 * 3 * 5 + 2 * (5 + 2 + 2), launches
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-3)
+    # unclipped, where most of a random flow's image lies outside [0, 1]
+    x = lr[None, :12].contiguous()
+    sr = SRFlowLPPredictor(model, prior).run(x)
+    sr_ref = SRFlowLPPredictor(model, prior, kernels=False).run(x)
+    torch.testing.assert_close(sr, sr_ref, rtol=0,
+                               atol=1e-3 * float(sr_ref.abs().max()))
