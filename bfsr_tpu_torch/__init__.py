@@ -1,23 +1,26 @@
-"""bfsr_tpu_torch — PyTorch + CUDA port of the LINF-LP and SRFlow-LP
-learned-prior inference paths, for one NVIDIA H100 (sm_90a).
+"""bfsr_tpu_torch — PyTorch + CUDA port of the LINF-LP (pixel and patch
+model) and SRFlow-LP learned-prior inference paths and the LINF eval
+loop, for one NVIDIA H100 (sm_90a).
 
 The JAX package ``bfsr_tpu`` beside it is the reference this port is
 tested against; this package imports ``torch`` and never ``jax`` (nor any
 ``bfsr_tpu`` module, whose import pulls jax in).
 
-* ``bfsr_tpu_torch.models``    — EDSR encoder, LINF Fourier head + pointwise
-                                 flow, UNet prior; SRFlow's RRDB, Glow
-                                 pyramid and two-branch prior
-                                 (``nn.Module`` s whose ``state_dict`` keys
-                                 are the reference's).
+* ``bfsr_tpu_torch.models``    — EDSR encoder, LINF / LINFPatch Fourier
+                                 head + pointwise flow, UNet prior;
+                                 SRFlow's RRDB, Glow pyramid and
+                                 two-branch prior (``nn.Module`` s whose
+                                 ``state_dict`` keys are the reference's).
 * ``bfsr_tpu_torch.ops``       — plain tensor ops (``nn``, ``interp``,
                                  ``pointwise_flow``, ``flows``) and
                                  ``ops.cuda``: the hand-written kernels,
                                  each beside its plain PyTorch twin.
 * ``bfsr_tpu_torch.pipelines`` — ``LINFPredictor``, ``SRFlowLPPredictor``:
-                                 whole-image inference.
+                                 whole-image inference; ``eval_psnr``.
+* ``bfsr_tpu_torch.data``      — the paired eval wrappers (host numpy).
+* ``bfsr_tpu_torch.utils``     — coords, metrics (PSNR, SSIM), Averager.
 * ``bfsr_tpu_torch.convert``   — JAX parameter pytrees -> port modules.
-* ``bfsr_tpu_torch.entry``     — the flagship / tiny models from a seed.
+* ``bfsr_tpu_torch.entry``     — the full-size / tiny models from a seed.
 
 Images are NHWC at every public function, as in the JAX package.
 """

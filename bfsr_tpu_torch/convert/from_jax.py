@@ -53,7 +53,8 @@ def edsr_state_dict(params, prefix=""):
 
 
 def linf_state_dict(params):
-    """Reference-keyed state_dict of a LINF (pixel model, EDSR encoder)."""
+    """Reference-keyed state_dict of a LINF or LINF patch model (EDSR
+    encoder)."""
     sd = edsr_state_dict(params["encoder"], prefix="encoder.")
     _conv(sd, "coef", params["coef"])
     _conv(sd, "freq", params["freq"])
@@ -182,7 +183,8 @@ def load_srflow_unet(prior, params):
 
 
 def load_linf(model, params):
-    """Install JAX LINF params into a port ``LINF`` and freeze it."""
+    """Install JAX LINF params into a port ``LINF`` / ``LINFPatch`` and
+    freeze it."""
     model.load_state_dict(linf_state_dict(params))
     return model.freeze()
 

@@ -26,7 +26,12 @@
 // rows as two broadcast float4s; W streams through shared memory in
 // 32-row chunks; each thread accumulates 8 queries x 8 output channels in
 // registers.  Each layer's activations go back to the same shared tile, so
-// the hidden layers and the last linear run in the same block.
+// the hidden layers and the last linear run in the same block.  The last
+// linear runs in passes of 128 columns over the final hidden tile (one
+// for the pixel model's 60 rows, five for the d = 27 patch model's 540);
+// each pass is staged in the W region with the query index swizzled, so
+// that neither its stores nor its row-wise copy out conflict in shared
+// memory, and the hidden tile stays intact for the next pass.
 
 #include <cuda_runtime.h>
 
@@ -126,11 +131,11 @@ __device__ __forceinline__ void zero(float (&acc)[8][NB * 4]) {
     for (int j = 0; j < NB * 4; ++j) acc[i][j] = 0.f;
 }
 
-// xs[col][row] = act(acc + bias[col]) for col < ncols; then a barrier.
+// xs[col][row] = relu(acc + bias[col]) over all NB * 128 columns; then a
+// barrier.
 template <int NB>
 __device__ __forceinline__ void store_tile(const float (&acc)[8][NB * 4],
                                            const float* __restrict__ bias,
-                                           int ncols, bool relu,
                                            float* __restrict__ xs) {
   const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
 #pragma unroll
@@ -138,17 +143,37 @@ __device__ __forceinline__ void store_tile(const float (&acc)[8][NB * 4],
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = nb * 128 + tx * 4 + j;
-      if (col < ncols) {
-        const float bv = bias[col];
+      const float bv = bias[col];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float v = acc[i][nb * 4 + j] + bv;
-          xs[col * kMP + ty * 8 + i] = relu ? fmaxf(v, 0.f) : v;
-        }
+      for (int i = 0; i < 8; ++i) {
+        xs[col * kMP + ty * 8 + i] = fmaxf(acc[i][nb * 4 + j] + bv, 0.f);
       }
     }
   __syncthreads();
 }
+
+// ws[col][m ^ (col / 4 % 32)] = acc + bias[col] for col < ncols: one
+// pass's (128, kM) output tile, with the query index swizzled by the
+// writing thread's column group; then a barrier.
+__device__ __forceinline__ void stage_pass(const float (&acc)[8][4],
+                                           const float* __restrict__ bias,
+                                           int ncols, float* __restrict__ ws) {
+  const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = tx * 4 + j;
+    if (col < ncols) {
+      const float bv = bias[col];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) ws[col * kM + ((ty * 8 + i) ^ tx)] = acc[i][j] + bv;
+    }
+  }
+  __syncthreads();
+}
+
+// floats of the W staging region: a kKC-row W chunk, or one wide pass
+template <int C>
+constexpr int kWsFloats = kKC * C > 128 * kM ? kKC * C : 128 * kM;
 
 template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -170,8 +195,8 @@ linf_info_kernel(const float* __restrict__ coef, const float* __restrict__ freq,
   const float* b4 = w4 + C * out_dim;
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                          // [C][kMP]
-  float* ws = xs + C * kMP;                  // [kKC][C]
-  int* s_pix = reinterpret_cast<int*>(ws + kKC * C);  // [4][kM]
+  float* ws = xs + C * kMP;                  // [kKC][C], or one output pass
+  int* s_pix = reinterpret_cast<int*>(ws + kWsFloats<C>);  // [4][kM]
   float* s_ry = reinterpret_cast<float*>(s_pix + 4 * kM);
   float* s_rx = s_ry + 4 * kM;
   float* s_wt = s_rx + 4 * kM;
@@ -226,24 +251,32 @@ linf_info_kernel(const float* __restrict__ coef, const float* __restrict__ freq,
     __syncthreads();
     gemm_tile<NB>(acc, xs, w1 + static_cast<size_t>(k) * C * C, C, C, C, ws);
   }
-  store_tile<NB>(acc, b1, C, true, xs);
+  store_tile<NB>(acc, b1, xs);
 
   for (int l = 0; l < n_hidden; ++l) {
     const float* wl = wh + static_cast<size_t>(l) * (C * C + C);
     zero<NB>(acc);
     gemm_tile<NB>(acc, xs, wl, C, C, C, ws);
-    store_tile<NB>(acc, wl + C * C, C, true, xs);
+    store_tile<NB>(acc, wl + C * C, xs);
   }
 
-  // the last linear: out_dim <= 128 (60 at the flagship), one 128-col pass
-  float acc1[8][4];
-  zero<1>(acc1);
-  gemm_tile<1>(acc1, xs, w4, C, out_dim, out_dim, ws);
-  store_tile<1>(acc1, b4, out_dim, false, xs);
-
-  for (int e = tid; e < out_dim * kM; e += kThreads) {
-    const int o = e / kM, m = e % kM;
-    if (q0 + m < n) out[static_cast<size_t>(o) * n + q0 + m] = xs[o * kMP + m];
+  // the last linear in 128-col passes over the hidden tile (one pass for
+  // the pixel model's 60 rows, five for the patch model's 540), each
+  // staged in ws
+  for (int c0 = 0; c0 < out_dim; c0 += 128) {
+    const int ncols = min(128, out_dim - c0);
+    float acc1[8][4];
+    zero<1>(acc1);
+    gemm_tile<1>(acc1, xs, w4 + c0, C, out_dim, ncols, ws);
+    stage_pass(acc1, b4 + c0, ncols, ws);
+    for (int e = tid; e < ncols * kM; e += kThreads) {
+      const int o = e / kM, m = e % kM;
+      if (q0 + m < n) {
+        out[static_cast<size_t>(c0 + o) * n + q0 + m] =
+            ws[o * kM + (m ^ ((o / 4) % 32))];
+      }
+    }
+    __syncthreads();  // the next pass's W chunks overwrite ws
   }
 }
 
@@ -252,7 +285,7 @@ int launch(const float* coef, const float* freq, const float* coord_y,
            const float* coord_x, const float* phase, const float* mlp,
            float* out, int h, int w, int H, int W, int n_hidden, int out_dim,
            float shift_y, float shift_x, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(C) * kMP + kKC * C + 16 * kM)
+  const size_t smem = (static_cast<size_t>(C) * kMP + kWsFloats<C> + 16 * kM)
                       * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       linf_info_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -273,13 +306,13 @@ int launch(const float* coef, const float* freq, const float* coord_y,
 // b1 (C,), then per hidden layer W (C, C) and b (C,), then W (C, out_dim)
 // and b (out_dim,), each W (in, out) row-major; out: (out_dim, H*W).
 // shift_y = 1/h, shift_x = 1/w as f32.  C must be 128 or 256 and
-// 0 < out_dim <= 128.
+// 0 < out_dim <= 1024.
 extern "C" int linf_info(const void* coef, const void* freq,
                          const void* coord_y, const void* coord_x,
                          const void* phase, const void* mlp, void* out, int h,
                          int w, int H, int W, int C, int n_hidden, int out_dim,
                          float shift_y, float shift_x, void* stream) {
-  if (out_dim > 128 || out_dim <= 0 || n_hidden < 0) {
+  if (out_dim > 1024 || out_dim <= 0 || n_hidden < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (H <= 0 || W <= 0) return 0;

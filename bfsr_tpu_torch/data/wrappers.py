@@ -1,0 +1,100 @@
+"""Eval dataset wrappers for paired LR/HR images, host-side numpy.
+
+The counterpart of ``bfsr_tpu/data/wrappers.py``'s
+``sr-implicit-paired-fast`` and ``sr-implicit-paired-fast-patch`` (the
+wrappers of the LINF-LP eval configs).  A dataset is any sequence of
+(LR, HR) float32 HWC arrays in [0, 1].  Each item is a dict of arrays:
+``inp`` (h, w, 3), ``coord`` ((H, W, 2) grid centres in [-1, 1], axis 0
+the height), ``cell`` ((2,) = (2/H, 2/W)), ``gt`` (H, W, 3) and
+``gt_lr_up``, the up-down-up residual of the normalised LR image.
+
+The patch wrapper unfolds the residual into ps x ps patches at stride ps
+in (c, ky, kx) channel order and queries the patch centres.  Like the
+reference, it always pads the HR grid, even where ps divides it: a centre
+that falls in the padding gets zero coords, and ``eval_psnr`` crops the
+folded image back to ``gt``.
+
+``batches(dataset)`` adds the batch axis, as the JAX package's loader does
+at batch size 1.  The eval configs use these wrappers with no arguments;
+their train-time random crop and flips (``inp_size``, ``augment``) are not
+ported.
+"""
+
+import numpy as np
+
+from bfsr_tpu_torch.data.np_interp import resize_bilinear_np
+from bfsr_tpu_torch.registry import register
+from bfsr_tpu_torch.utils.coords import make_cell, make_coord
+
+
+def updownup_residual(img_lr, hr_hw):
+    """The LR image normalised to [-1, 1], bilinear up to ``hr_hw``, minus
+    its up-down-up copy (up to ``hr_hw``, down to the LR size, up again)."""
+    lr_up = resize_bilinear_np((img_lr - 0.5) / 0.5, hr_hw)
+    lr_up_down = resize_bilinear_np(lr_up, img_lr.shape[:2])
+    return (lr_up - resize_bilinear_np(lr_up_down, hr_hw)).astype(np.float32)
+
+
+def patchify_stride_ps(x_hwc, ps, pad_end_h, pad_end_w):
+    """Non-overlapping ps-stride unfold after zero end-padding; each
+    patch flattened in (c, ky, kx) order."""
+    x = np.pad(x_hwc, ((0, pad_end_h), (0, pad_end_w), (0, 0)))
+    H, W, C = x.shape
+    x = x.reshape(H // ps, ps, W // ps, ps, C).transpose(0, 2, 4, 1, 3)
+    return np.ascontiguousarray(x.reshape(H // ps, W // ps, C * ps * ps))
+
+
+def center_coords(coord_hw2, ps, pad_h, pad_w):
+    """The patch-centre coords of a zero end-padded coord grid."""
+    c = np.pad(coord_hw2, ((0, pad_h), (0, pad_w), (0, 0)))
+    return np.ascontiguousarray(c[ps // 2::ps, ps // 2::ps, :])
+
+
+@register("sr-implicit-paired-fast")
+class SRImplicitPairedFast:
+    """Paired LR/HR, whole images: the HR grid coords and the up-down-up
+    residual, the HR cropped to a multiple of the LR size."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        img_lr, img_hr = self.dataset[idx]
+        s = img_hr.shape[0] // img_lr.shape[0]
+        hr_hw = (img_lr.shape[0] * s, img_lr.shape[1] * s)
+        return {"inp": img_lr, "coord": make_coord(hr_hw, flatten=False),
+                "cell": make_cell(hr_hw), "gt": img_hr[:hr_hw[0], :hr_hw[1]],
+                "gt_lr_up": updownup_residual(img_lr, hr_hw)}
+
+
+@register("sr-implicit-paired-fast-patch")
+class SRImplicitPairedFastPatch:
+    """``sr-implicit-paired-fast`` with the residual unfolded into ps x ps
+    patches and the patch-centre coords."""
+
+    def __init__(self, dataset, patch_size=3):
+        self.dataset = dataset
+        self.patch_size = patch_size
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        base = SRImplicitPairedFast([self.dataset[idx]])[0]
+        ps = self.patch_size
+        h, w = base["coord"].shape[:2]
+        pad_h, pad_w = ps - h % ps, ps - w % ps  # always pads, as the reference
+        return {"inp": base["inp"],
+                "gt_lr_up": patchify_stride_ps(base["gt_lr_up"], ps, pad_h,
+                                               pad_w),
+                "coord": center_coords(base["coord"], ps, pad_h, pad_w),
+                "cell": base["cell"], "gt": base["gt"]}
+
+
+def batches(dataset):
+    """Each item of ``dataset`` as a batch of one (a leading axis)."""
+    for i in range(len(dataset)):
+        yield {k: np.asarray(v)[None] for k, v in dataset[i].items()}

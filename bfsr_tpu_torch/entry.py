@@ -1,4 +1,6 @@
-"""The flagship LINF-LP and SRFlow-LP models on a device, from a seed.
+"""The flagship LINF-LP, LINF-LP patch and SRFlow-LP models on a device,
+from a seed.  Each ``build_*`` function (and ``entry``) runs on
+``"cuda"`` unless the caller passes another device.
 
 The counterpart of ``__graft_entry__._flagship`` / ``entry``: an
 EDSR-baseline encoder (16 blocks, 64 ch), a 10-layer pointwise flow, a
@@ -10,6 +12,14 @@ Weights are random, drawn from
 ``torch.Generator().manual_seed(seed)``; the flow weights get ``+ I``, as
 trained checkpoints are well conditioned and random ones make the inverse
 chain explode.
+
+``build_linf_patch`` is the patch model of ``bench.py``'s patch workload:
+``linf-patch`` with ps = 3 (d = 27), the same encoder, flow L = 10, info
+MLP 1024 -> 256 -> 256 -> 256 -> 540, and a UNet prior with in_chans 27,
+depth 3, dim 64; the flow weights are ``w * 0.05 + I``, as in
+``bench.py``.  ``tiny=True`` gives ``tests/test_pallas_predictor.py``'s
+patch size (EDSR 2 x 16, L = 3, hidden 32, UNet depth 2 / dim 16) and runs
+on the CPU only.
 
 ``build_srflow_lp`` is the same for SRFlow-LP: the network_G and
 prior_model of ``configs/srflow/SRFlow-LP_DF2K_4X.yml`` (RRDB nf 64,
@@ -48,7 +58,7 @@ def flagship_specs(tiny=False):
 
 
 @torch.no_grad()
-def build_flagship(device, seed=0, tiny=False):
+def build_flagship(device="cuda", seed=0, tiny=False):
     """(frozen LINF, UNet prior), eval mode, on ``device``."""
     linf_spec, unet_spec = flagship_specs(tiny)
     gen = seeded(seed)
@@ -78,7 +88,7 @@ def example_inputs(device, lr_hw, hr_hw, seed=0):
             dev(make_cell((H, W))[None]), dev(gt_lr_up))
 
 
-def entry(device, seed=0, tiny=False, lr_size=32, scale=4):
+def entry(device="cuda", seed=0, tiny=False, lr_size=32, scale=4):
     """(fn, args): the learned-prior forward (encode z from the LR-up
     residual -> prior UNet -> flow inverse -> SR image) on ``device``."""
     model, prior = build_flagship(device, seed, tiny)
@@ -103,8 +113,57 @@ def srflow_specs(tiny=False):
                                              "bilinear": True}})
 
 
+def patch_specs(tiny=False):
+    """(linf-patch spec, unet spec) of the patch configuration (or its
+    tiny size)."""
+    linf_spec, unet_spec = flagship_specs(tiny)
+    linf_spec = {"name": "linf-patch",
+                 "args": {**linf_spec["args"], "patch_size": 3}}
+    unet_spec["args"]["in_chans"] = 27
+    return linf_spec, unet_spec
+
+
 @torch.no_grad()
-def build_srflow_lp(device, seed=0, tiny=False):
+def build_linf_patch(device="cuda", seed=0, tiny=False):
+    """(frozen LINFPatch, frozen UNet prior), eval mode, on ``device``."""
+    device = torch.device(device)
+    if tiny and device.type == "cuda":
+        raise ValueError("the tiny LINF-LP patch config runs on the CPU "
+                         "only: K2 takes hidden 128 or 256")
+    linf_spec, unet_spec = patch_specs(tiny)
+    gen = seeded(seed)
+    model = registry.make(linf_spec)
+    model.reset_parameters(gen)
+    eye = torch.eye(model.dim)
+    for lin in [*model.imnet.linears, model.imnet.last]:
+        lin._weight.mul_(0.05).add_(eye)
+    prior = registry.make(unet_spec)
+    prior.reset_parameters(gen)
+    model = model.to(device).eval().freeze()
+    return model, prior.to(device).eval().freeze()
+
+
+def example_patch_inputs(device, lr_hw, grid_hw, seed=0):
+    """(inp, coord, cell, gt_lr_up) of the ps = 3 patch model on
+    ``device``: the LR image, the regular patch-centre grid ``grid_hw``
+    (HR = 3 x grid) and a (1, Hq, Wq, 27) residual from
+    ``np.random.default_rng(seed)``, as ``bench.py``'s patch workload makes
+    them."""
+    rng = np.random.default_rng(seed)
+    (h, w), (Hq, Wq) = lr_hw, grid_hw
+    inp = rng.random((1, h, w, 3)).astype(np.float32)
+    gt_lr_up = (rng.random((1, Hq, Wq, 27)) - 0.5).astype(np.float32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return (dev(inp), dev(make_coord((Hq, Wq), flatten=False)[None]),
+            dev(make_cell((3 * Hq, 3 * Wq))[None]),
+            dev(gt_lr_up))
+
+
+@torch.no_grad()
+def build_srflow_lp(device="cuda", seed=0, tiny=False):
     """(frozen SRFlowNet, frozen SRFlowUNet), eval mode, on ``device``."""
     device = torch.device(device)
     if tiny and device.type == "cuda":

@@ -1,6 +1,7 @@
 """Registered 'flow' model: the LINF pointwise flow as a module.
 
-The counterpart of ``bfsr_tpu/models/flow_linf.py``.  ``state_dict`` keys
+The counterpart of ``bfsr_tpu/models/flow_linf.py``: d = 3 ps^2, 3 for
+the pixel model and 27 for the ps = 3 patch model.  ``state_dict`` keys
 are the reference's (``linears.{i}._weight``, ``linears.{i}.bias``,
 ``last._weight``, ``last.bias``).  ``freeze()`` stacks the weights and
 caches the float64 inverses as non-persistent buffers, so a reference
@@ -28,11 +29,12 @@ class NaiveLinear(nn.Module):
 class Flow(Model):
     registry_name = "flow"
 
-    def __init__(self, flow_layers=10, name="flow"):
+    def __init__(self, flow_layers=10, patch_size=1, name="flow"):
         super().__init__()
-        self.args = dict(flow_layers=flow_layers, name=name)
+        self.args = dict(flow_layers=flow_layers, patch_size=patch_size,
+                         name=name)
         self.n_layers = flow_layers
-        self.dim = 3  # the pixel model; the patch model (d = 27) waits
+        self.dim = 3 * patch_size * patch_size
         self.linears = nn.ModuleList([NaiveLinear(self.dim)
                                       for _ in range(flow_layers)])
         self.last = NaiveLinear(self.dim)

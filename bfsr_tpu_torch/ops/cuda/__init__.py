@@ -9,8 +9,8 @@ with ``ctypes``.  Nothing here runs at
 import time: a machine without ``nvcc`` or a card imports the package and
 uses the plain twins for CPU tensors.
 
-Each kernel wrapper (``linf_flow``, ``linf_info``, ``conv3x3``,
-``flow_step``) dispatches
+Each kernel wrapper (``linf_flow`` for K1 and K4, ``linf_info``,
+``conv3x3``, ``flow_step``) dispatches
 on the device of its tensors: a CPU tensor goes to its plain PyTorch twin,
 a CUDA tensor launches the kernel or raises.  There is no fallback between
 the two.  A wrapper adds one to ``LAUNCHES[name]`` where it launches its
@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"linf_flow_forward": 0, "linf_flow_inverse": 0,
+            "linf_flow_nd_forward": 0, "linf_flow_nd_inverse": 0,
             "linf_info": 0, "conv3x3_cat": 0,
             "flow_step_forward": 0, "flow_step_reverse": 0}
 
@@ -46,6 +47,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "linf_flow_forward": [_P, _P, _P, _P, _P, _I, _I, _P],
     "linf_flow_inverse": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "linf_flow_nd_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "linf_flow_nd_inverse": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "linf_info": [_P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "conv3x3_cat": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),

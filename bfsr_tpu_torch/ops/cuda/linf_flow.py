@@ -1,12 +1,16 @@
-"""K1: the d = 3 pointwise flow, forward (z only) and inverse.
+"""K1 and K4: the pointwise flow, forward (z only) and inverse.
 
-Kernel: ``bfsr_tpu_torch/csrc/linf_flow.cu``, which replaces
-``bfsr_tpu/ops/pallas/linf_flow.py:_forward_kernel`` / ``_inverse_kernel``.
+Kernels: ``bfsr_tpu_torch/csrc/linf_flow.cu`` (K1, d = 3), which replaces
+``bfsr_tpu/ops/pallas/linf_flow.py:_forward_kernel`` / ``_inverse_kernel``,
+and ``bfsr_tpu_torch/csrc/linf_flow_nd.cuh`` (K4, d in 12 / 27 / 48, the
+patch models; its C entries are ``linf_flow_nd_{forward,inverse}.cu``),
+which replaces ``_forward_kernel_nd`` / ``_inverse_kernel_nd``.
 
-Layouts: z and x are (N, 3) row-major; the affine info is channel-major
-(6L, N), as ``ops/cuda/linf_info.py`` writes it.  Any number of layers L.
-A CPU tensor runs the plain twin below; a CUDA tensor launches the kernel
-or raises.
+Layouts: z and x are (N, d) row-major; the affine info is channel-major
+(2dL, N), as ``ops/cuda/linf_info.py`` writes it: rows 2di..2di+d-1 are
+layer i's s, the next d rows its t.  Any number of layers L.  A CPU
+tensor runs the plain twin below; a CUDA tensor launches K1 (d = 3) or K4
+(``KERNEL_ND_DIMS``), or raises.
 """
 
 import torch
@@ -14,66 +18,75 @@ import torch
 from bfsr_tpu_torch.ops import cuda
 from bfsr_tpu_torch.ops.pointwise_flow import AFFINE_EPS
 
+KERNEL_ND_DIMS = (12, 27, 48)
 
-def _affine_cm(info_cm, i):
-    """Layer i's (scale, shift), each (N, 3), from (6L, N) info."""
-    s = info_cm[6 * i:6 * i + 3].T
-    t = info_cm[6 * i + 3:6 * i + 6].T
+
+def _affine_cm(info_cm, i, d):
+    """Layer i's (scale, shift), each (N, d), from (2dL, N) info."""
+    s = info_cm[2 * d * i:2 * d * i + d].T
+    t = info_cm[2 * d * i + d:2 * d * (i + 1)].T
     return torch.sigmoid(s + 2.0) + AFFINE_EPS, t
 
 
 def flow_forward_plain(w, b, x, info_cm):
-    """Plain twin of K1 forward: w (L+1, 3, 3), b (L+1, 3), x (N, 3),
-    info_cm (6L, N) -> z (N, 3)."""
-    n_layers = w.shape[0] - 1
+    """Plain twin of the forward kernels: w (L+1, d, d), b (L+1, d),
+    x (N, d), info_cm (2dL, N) -> z (N, d)."""
+    n_layers, d = w.shape[0] - 1, w.shape[-1]
     z = x
     for i in range(n_layers):
-        scale, shift = _affine_cm(info_cm, i)
+        scale, shift = _affine_cm(info_cm, i, d)
         z = (z @ w[i].T + b[i]) * scale + shift
     return z @ w[n_layers].T + b[n_layers]
 
 
 def flow_inverse_plain(w_inv, b, z, info_cm):
-    """Plain twin of K1 inverse with cached inverses w_inv (L+1, 3, 3)."""
-    n_layers = w_inv.shape[0] - 1
+    """Plain twin of the inverse kernels with cached inverses
+    w_inv (L+1, d, d)."""
+    n_layers, d = w_inv.shape[0] - 1, w_inv.shape[-1]
     x = (z - b[n_layers]) @ w_inv[n_layers].T
     for i in reversed(range(n_layers)):
-        scale, shift = _affine_cm(info_cm, i)
+        scale, shift = _affine_cm(info_cm, i, d)
         x = ((x - shift) / scale - b[i]) @ w_inv[i].T
     return x
 
 
 def _check(w, b, x, info_cm):
-    n_layers = w.shape[0] - 1
-    if w.shape[1:] != (3, 3) or b.shape != (n_layers + 1, 3):
-        raise ValueError(f"K1 takes d=3 flows: w {tuple(w.shape)}, "
-                         f"b {tuple(b.shape)}")
-    if x.ndim != 2 or x.shape[1] != 3:
-        raise ValueError(f"x must be (N, 3), got {tuple(x.shape)}")
-    if info_cm.shape != (6 * n_layers, x.shape[0]):
-        raise ValueError(f"info must be ({6 * n_layers}, {x.shape[0]}), got "
-                         f"{tuple(info_cm.shape)}")
-    return n_layers
+    n_layers, d = w.shape[0] - 1, w.shape[-1]
+    if w.shape[1:] != (d, d) or b.shape != (n_layers + 1, d):
+        raise ValueError(f"flow weights must be (L+1, d, d) and (L+1, d): "
+                         f"w {tuple(w.shape)}, b {tuple(b.shape)}")
+    if x.ndim != 2 or x.shape[1] != d:
+        raise ValueError(f"x must be (N, {d}), got {tuple(x.shape)}")
+    if info_cm.shape != (2 * d * n_layers, x.shape[0]):
+        raise ValueError(f"info must be ({2 * d * n_layers}, {x.shape[0]}), "
+                         f"got {tuple(info_cm.shape)}")
+    return n_layers, d
 
 
-def _run(name, plain, w, b, x, info_cm):
-    n_layers = _check(w, b, x, info_cm)
+def _run(direction, plain, w, b, x, info_cm):
+    n_layers, d = _check(w, b, x, info_cm)
     if x.device.type == "cpu":
         return plain(w, b, x, info_cm)
     if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
+        raise ValueError(f"linf_flow_{direction}: unsupported device "
+                         f"{x.device}")
+    if d != 3 and d not in KERNEL_ND_DIMS:
+        raise ValueError(f"the flow kernels take d = 3 (K1) or d in "
+                         f"{KERNEL_ND_DIMS} (K4); got d = {d}")
+    name = f"linf_flow_{direction}" if d == 3 else f"linf_flow_nd_{direction}"
     cuda.check_cuda(name, w, b, x, info_cm)
     out = torch.empty_like(x)
-    cuda.launch(name, cuda.ptr(w), cuda.ptr(b), cuda.ptr(x),
-                cuda.ptr(info_cm), cuda.ptr(out), x.shape[0], n_layers)
+    args = [cuda.ptr(w), cuda.ptr(b), cuda.ptr(x), cuda.ptr(info_cm),
+            cuda.ptr(out), x.shape[0], n_layers]
+    cuda.launch(name, *args, *(() if d == 3 else (d,)))
     return out
 
 
 def flow_forward(w, b, x, info_cm):
-    """z = flow(x): the K1 forward kernel on CUDA, the twin on CPU."""
-    return _run("linf_flow_forward", flow_forward_plain, w, b, x, info_cm)
+    """z = flow(x): K1 / K4 on CUDA, the twin on CPU."""
+    return _run("forward", flow_forward_plain, w, b, x, info_cm)
 
 
 def flow_inverse(w_inv, b, z, info_cm):
-    """x = flow^-1(z): the K1 inverse kernel on CUDA, the twin on CPU."""
-    return _run("linf_flow_inverse", flow_inverse_plain, w_inv, b, z, info_cm)
+    """x = flow^-1(z): K1 / K4 on CUDA, the twin on CPU."""
+    return _run("inverse", flow_inverse_plain, w_inv, b, z, info_cm)

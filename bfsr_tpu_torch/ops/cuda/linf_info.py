@@ -9,7 +9,8 @@ Inputs: coef, freq (1, h, w, C) NHWC — the Fourier head's conv outputs;
 coord_y (H,), coord_x (W,) — grid-center coordinates of the HR rows and
 columns; phase (C/2,) — the phase linear of the relative cell; mlp — list
 of (weight (out, in), bias) pairs: 4C -> C, (C -> C) x n_hidden,
-C -> out_dim.  Output: channel-major info (out_dim, H*W).
+C -> out_dim (60 for the pixel model, 2dL = 540 for the d = 27 patch
+model).  Output: channel-major info (out_dim, H*W).
 A CPU tensor runs the twin; a CUDA tensor launches the kernel or raises.
 The kernel reads the MLP as one buffer, ``pack_mlp(mlp)``; a frozen model
 packs it once (``LINF.freeze``).
@@ -25,7 +26,7 @@ from bfsr_tpu_torch.ops import cuda
 from bfsr_tpu_torch.ops import nn as fnn
 
 KERNEL_HIDDEN = (128, 256)
-KERNEL_MAX_OUT = 128
+KERNEL_MAX_OUT = 1024
 CHUNK_QUERIES = 16384  # twin: queries per chunk (bounds the 4C features)
 
 
@@ -108,7 +109,7 @@ def pack_mlp(mlp):
 
 
 def affine_info(coef, freq, coord_y, coord_x, phase, mlp, packed=None):
-    """K2 on CUDA (hidden 128 or 256, out_dim <= 128), the twin on CPU.
+    """K2 on CUDA (hidden 128 or 256, out_dim <= 1024), the twin on CPU.
     ``packed``: ``pack_mlp(mlp)`` if the caller keeps it, else packed here."""
     _check(coef, freq, coord_y, coord_x, phase, mlp)
     if coef.device.type == "cpu":

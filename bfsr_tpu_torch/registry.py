@@ -4,8 +4,10 @@ The same names and ``make(spec)`` semantics as ``bfsr_tpu/registry.py``:
 components register under a string name and are built from
 ``{'name': ..., 'args': {...}}`` dicts, which compose recursively (an
 ``encoder_spec`` lives inside a model spec).  Importing
-``bfsr_tpu_torch.models`` registers ``linf``, ``edsr-baseline``, ``flow``,
-``unet``, ``srflow`` and ``srflow-unet``.
+``bfsr_tpu_torch.models`` registers ``linf``, ``linf-patch``,
+``edsr-baseline``, ``flow``, ``unet``, ``srflow`` and ``srflow-unet``;
+importing ``bfsr_tpu_torch.data.wrappers`` registers
+``sr-implicit-paired-fast`` and ``sr-implicit-paired-fast-patch``.
 """
 
 import copy

@@ -5,10 +5,12 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's two main paths at their flagship configurations,
+It drives the port's three main paths at their full configurations,
 random weights from seed 0 — LINF-LP learned-prior inference
 (EDSR-baseline 16x64 encoder, 10-layer pointwise flow, 256-wide info MLP,
-UNet depth 3 / dim 64) and SRFlow-LP learned-prior inference
+UNet depth 3 / dim 64), its patch model (``bench.py``'s patch workload:
+ps = 3, d = 27, info MLP out 540, UNet in_chans 27) and SRFlow-LP
+learned-prior inference
 (``configs/srflow/SRFlow-LP_DF2K_4X.yml``: RRDB 64 x 23, Glow pyramid
 K 16 / L 3 / hidden 64, two-branch UNet prior depth 3 / dim 64) — and
 fails (non-zero exit, no result line) if any phase fails:
@@ -28,7 +30,17 @@ fails (non-zero exit, no result line) if any phase fails:
 5. times the kernel path and the twin path (2 warm-ups, 3 blocks of 5
    predicts each, synchronised) and prints median/best ms per image, HR
    MP/s, and a per-kernel device-time profile of one kernel-path predict;
-6. SRFlow-LP: holds K5 (forward and reverse) against its twin at each
+6. LINF-LP patch model: holds K4 (forward and inverse, d = 27, L = 10) and
+   K2 at out_dim 540 against their twins at the 172^2 centre grid of LR
+   128^2 -> HR 516^2 and at the 135x114 grid of the ragged LR 101x85 ->
+   HR 404x340 (the patch wrapper's padded grid), runs
+   ``LINFPredictor.predict`` at both with the launch counters reset (K4
+   once each way, K2 once, K3 43 times; the folded image finite, of shape
+   (1, 3 Hq, 3 Wq, 3) and within 5e-4 of the twin path), times both paths,
+   profiles one 516^2 predict, and runs ``eval_psnr`` over two in-memory
+   pairs through the ``sr-implicit-paired-fast-patch`` wrapper on both
+   paths (PSNRs finite and within 0.01 dB);
+7. SRFlow-LP: holds K5 (forward and reverse) against its twin at each
    flow level's shape of a 512^2 image and K3 at an RRDB dense-block conv
    (5 inputs, 192 -> 64 at 128^2), then runs ``SRFlowLPPredictor.predict``
    at LR 128x128 -> HR 512x512 and at the ragged LR 101x85 (padded to
@@ -40,9 +52,10 @@ fails (non-zero exit, no result line) if any phase fails:
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
-512^2 predicts, its max abs error, its time beside the twin's and the one
-PyTorch call's that computes the same function, where there is one, and
-its bound: the least time the card could take for the same work); the
+full-size predicts (512^2; 516^2 for the patch model), its max abs
+error, its time beside the twin's and the one PyTorch call's that
+computes the same function, where there is one, and its bound: the least
+time the card could take for the same work); the
 last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": N}}``.
 """
@@ -56,23 +69,37 @@ import time
 LR, HR = (128, 128), (512, 512)
 RAGGED_LR, RAGGED_HR = (96, 80), (300, 250)
 SRFLOW_RAGGED_LR = (101, 85)
+# the patch model: bench.py's 172^2 centre grid (HR 516^2) and the
+# wrapper's padded grid of a ragged x4 image
+PATCH_GRID, PATCH_RAGGED_LR = (172, 172), (101, 85)
 # K5 (atol, rtol): tests/test_flow_step_kernel.py's step tolerance; the
 # SRFlow-LP image: docs/PARITY.md's; its unclipped output relative to its
 # largest value, since a random flow's image lies mostly outside [0, 1]
 TOL = {"linf_flow_forward": 1e-5, "linf_flow_inverse": 1e-4,
        "linf_info": (2e-4, 1e-4), "conv3x3_cat": 1e-4, "image": 1e-3,
        "flow_step_forward": (2e-4, 2e-4), "flow_step_reverse": (2e-4, 2e-4),
-       "srflow_image": 5e-3, "srflow_unclipped_rel": 1e-3}
+       "srflow_image": 5e-3, "srflow_unclipped_rel": 1e-3,
+       "linf_flow_nd_forward": 2e-5, "linf_flow_nd_inverse": 2e-4,
+       "patch_image": 5e-4, "patch_psnr_db": 0.01}
 # H100 SXM published peaks at 700 W (NVIDIA's data sheet)
 PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 LINF_KERNELS = ("linf_flow_forward", "linf_flow_inverse", "linf_info",
                 "conv3x3_cat")
+# a patch predict's launches of each kernel (K3: 34 encoder convs, the
+# prior's 5 dense, 2 inc and 2 last-up convs)
+PATCH_LAUNCHES = {"linf_flow_nd_forward": 1, "linf_flow_nd_inverse": 1,
+                  "linf_info": 1, "conv3x3_cat": 43, "linf_flow_forward": 0,
+                  "linf_flow_inverse": 0}
 KERNELS = {
     "linf_flow_forward": ("bfsr_tpu_torch/csrc/linf_flow.cu",
                           "bfsr_tpu/ops/pallas/linf_flow.py:47"),
     "linf_flow_inverse": ("bfsr_tpu_torch/csrc/linf_flow.cu",
                           "bfsr_tpu/ops/pallas/linf_flow.py:26"),
+    "linf_flow_nd_forward": ("bfsr_tpu_torch/csrc/linf_flow_nd.cuh",
+                             "bfsr_tpu/ops/pallas/linf_flow.py:82"),
+    "linf_flow_nd_inverse": ("bfsr_tpu_torch/csrc/linf_flow_nd.cuh",
+                             "bfsr_tpu/ops/pallas/linf_flow.py:66"),
     "linf_info": ("bfsr_tpu_torch/csrc/linf_info.cu",
                   "bfsr_tpu/ops/pallas/linf_info.py:73"),
     "conv3x3_cat": ("bfsr_tpu_torch/csrc/conv3x3.cu",
@@ -500,6 +527,152 @@ def profile_srflow_stages(model, prior, lr_img, label, reps=3):
         + f"; total {total:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# LINF-LP, patch model (ps = 3, d = 27)
+# ---------------------------------------------------------------------------
+
+
+def patch_ragged_inputs(dev, seed=0):
+    """(inp, coord, cell, gt_lr_up) of a random LR 101x85 / HR 404x340
+    pair through the ``sr-implicit-paired-fast-patch`` wrapper: the
+    135x114 padded centre grid, with its residual patches."""
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch.data.wrappers import SRImplicitPairedFastPatch, batches
+
+    b = next(batches(SRImplicitPairedFastPatch([random_pair(
+        PATCH_RAGGED_LR, 4, seed)])))
+    inp = (b["inp"] - 0.5) / 0.5
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for a in (inp, b["coord"], b["cell"], b["gt_lr_up"]))
+
+
+def random_pair(lr_hw, scale, seed):
+    """An (LR, HR) pair of random images in [0, 1], float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hr = rng.random((lr_hw[0] * scale, lr_hw[1] * scale, 3))
+    return (rng.random((*lr_hw, 3)).astype(np.float32),
+            hr.astype(np.float32))
+
+
+def check_patch_kernels(model, inputs, ragged_inputs):
+    """K2 at out_dim 540 and K4 forward / inverse against their twins at
+    the patch path's grids."""
+    import torch
+
+    from bfsr_tpu_torch.ops.cuda import linf_flow, linf_info
+
+    results = {}
+    flow = model.imnet
+    n_layers, d = flow.w.shape[0] - 1, flow.w.shape[-1]
+    for tag, (inp, coord, cell, gt) in (("516^2", inputs),
+                                        ("ragged", ragged_inputs)):
+        with torch.inference_mode():
+            feat = model.gen_feat(inp, kernels=False)
+            coef, freq = model.head(feat)
+            phase = model.phase_of(cell, inp.shape[1], inp.shape[2])
+            cy = coord[0, :, 0, 0].contiguous()
+            cx = coord[0, 0, :, 1].contiguous()
+            args = (coef, freq, cy, cx, phase, model.mlp())
+            n = cy.shape[0] * cx.shape[0]
+            out_dim = model.mlp()[-1][0].shape[0]
+            flops = 2 * n * sum(w.shape[0] * w.shape[1] for w, _ in model.mlp())
+            results.setdefault("linf_info", []).append(compare(
+                "linf_info",
+                lambda: linf_info.affine_info(*args, model.mlp_packed),
+                lambda: linf_info.affine_info_plain(*args),
+                TOL["linf_info"], flops, f" patch {tag} out_dim={out_dim}",
+                nbytes(coef, freq, cy, cx, phase, model.mlp_packed)
+                + 4 * out_dim * n))
+            info = linf_info.affine_info_plain(*args)
+            x = gt.reshape(-1, d).contiguous()
+            z = linf_flow.flow_forward_plain(flow.w, flow.b, x, info)
+            # per query: L + 1 d x d matvecs + bias, and per layer the
+            # affine coupling of d channels (sigmoid, scale, shift: ~7)
+            k4_flops = n * ((n_layers + 1) * (2 * d * d + d) + 7 * d * n_layers)
+            k4_bytes = nbytes(flow.w, flow.b, x, info) + x.numel() * 4
+            label = f" patch {tag} N={n} d={d} L={n_layers}"
+            results.setdefault("linf_flow_nd_forward", []).append(compare(
+                "linf_flow_nd_forward",
+                lambda: linf_flow.flow_forward(flow.w, flow.b, x, info),
+                lambda: linf_flow.flow_forward_plain(flow.w, flow.b, x, info),
+                TOL["linf_flow_nd_forward"], k4_flops, label, k4_bytes))
+            results.setdefault("linf_flow_nd_inverse", []).append(compare(
+                "linf_flow_nd_inverse",
+                lambda: linf_flow.flow_inverse(flow.w_inv, flow.b, z, info),
+                lambda: linf_flow.flow_inverse_plain(flow.w_inv, flow.b, z,
+                                                     info),
+                TOL["linf_flow_nd_inverse"], k4_flops, label, k4_bytes))
+    return results
+
+
+def check_patch_predict(model, prior, inputs, label):
+    """The patch path through the kernels vs through the twins."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+
+    inp, coord, cell, gt = inputs
+    kernel_path = LINFPredictor(model, prior, kernels=True)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    out = kernel_path.predict(inp, coord, cell, gt)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    ref = LINFPredictor(model, prior, kernels=False).predict(inp, coord, cell,
+                                                             gt)
+    torch.cuda.synchronize()
+    want = (1, 3 * coord.shape[1], 3 * coord.shape[2], 3)
+    if tuple(out.shape) != want or not torch.isfinite(out).all():
+        raise RuntimeError(f"patch predict {label}: bad output "
+                           f"{tuple(out.shape)}, expected {want}")
+    wrong = {k: launches[k] for k, v in PATCH_LAUNCHES.items()
+             if launches[k] != v}
+    if wrong:
+        raise RuntimeError(f"patch predict {label}: launches {launches}, "
+                           f"expected {PATCH_LAUNCHES}")
+    err = float((out - ref).abs().max())
+    log(f"patch predict {label}: shape {tuple(out.shape)}, finite, launches "
+        f"{json.dumps(launches)}, max |kernel - twin| {err:.3e} (tol "
+        f"{TOL['patch_image']:g}), max |out| {float(out.abs().max()):.3f}")
+    if not err <= TOL["patch_image"]:
+        raise RuntimeError(f"patch predict {label}: kernel path disagrees "
+                           f"with the twin path: {err:.3e}")
+    return launches
+
+
+def check_patch_eval(model, prior):
+    """eval_psnr over two in-memory pairs (LR 128^2 and 101x85, x4)
+    through the patch wrapper, on the kernel and the twin path."""
+    import math
+
+    from bfsr_tpu_torch.data.wrappers import SRImplicitPairedFastPatch, batches
+    from bfsr_tpu_torch.pipelines.linf_eval import eval_psnr
+
+    pairs = [random_pair(LR, 4, 1), random_pair(PATCH_RAGGED_LR, 4, 2)]
+    norm = {"inp": {"sub": [0.5], "div": [0.5]},
+            "gt": {"sub": [0.5], "div": [0.5]}}
+    psnr = {}
+    for path in ("kernel", "twin"):
+        t0 = time.perf_counter()
+        psnr[path] = eval_psnr(batches(SRImplicitPairedFastPatch(pairs)),
+                               model, prior, data_norm=norm,
+                               eval_type="benchmark-4", patch=True,
+                               kernels=path == "kernel")
+        log(f"patch eval_psnr {path} path: {psnr[path]:.6f} dB over "
+            f"{len(pairs)} pairs (benchmark-4) in "
+            f"{time.perf_counter() - t0:.3f} s")
+    diff = abs(psnr["kernel"] - psnr["twin"])
+    if not (all(math.isfinite(v) for v in psnr.values())
+            and diff <= TOL["patch_psnr_db"]):
+        raise RuntimeError(f"patch eval_psnr: kernel {psnr['kernel']} vs "
+                           f"twin {psnr['twin']} dB")
+
+
 def main():
     import torch
 
@@ -509,8 +682,9 @@ def main():
         return 1
     import numpy as np
 
-    from bfsr_tpu_torch.entry import (build_flagship, build_srflow_lp,
-                                      example_inputs)
+    from bfsr_tpu_torch.entry import (build_flagship, build_linf_patch,
+                                      build_srflow_lp, example_inputs,
+                                      example_patch_inputs)
     from bfsr_tpu_torch.ops import cuda
     from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
     from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
@@ -549,6 +723,29 @@ def main():
                     medians["128x128->512x512"]["kernel"], "linf 512^2")
     del model, prior, inputs, ragged
 
+    # --- LINF-LP, patch model ---
+    t0 = time.perf_counter()
+    pmodel, pprior = build_linf_patch(dev, seed=0)
+    log(f"patch: model built from seed 0 in {time.perf_counter() - t0:.2f} s")
+    pinputs = example_patch_inputs(dev, LR, PATCH_GRID, seed=0)
+    pragged = patch_ragged_inputs(dev, seed=0)
+    for name, rs in check_patch_kernels(pmodel, pinputs, pragged).items():
+        checks.setdefault(name, []).extend(rs)
+    launches["linf_patch"] = check_patch_predict(pmodel, pprior, pinputs,
+                                                 "128x128->516x516")
+    check_patch_predict(pmodel, pprior, pragged, "101x85->404x340 (405x342)")
+    for tag, inp in (("patch 128x128->516x516", pinputs),
+                     ("patch 101x85->135x114 grid", pragged)):
+        paths = {k: (lambda p=LINFPredictor(pmodel, pprior,
+                                            kernels=k == "kernel"),
+                     a=inp: p.predict(*a)) for k in ("kernel", "twin")}
+        mp = 9 * inp[1].shape[1] * inp[1].shape[2] / 1e6
+        medians[tag] = time_paths(paths, mp, tag)
+    profile_predict(lambda: LINFPredictor(pmodel, pprior).predict(*pinputs),
+                    medians["patch 128x128->516x516"]["kernel"], "patch 516^2")
+    check_patch_eval(pmodel, pprior)
+    del pmodel, pprior, pinputs, pragged
+
     # --- SRFlow-LP ---
     t0 = time.perf_counter()
     smodel, sprior = build_srflow_lp(dev, seed=0)
@@ -579,8 +776,8 @@ def main():
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rs = checks[name]
-        # K1 / K2: the flagship-shape check; K3: the sum of its four
-        # shapes; K5: the sum of its three levels (one launch each)
+        # K1 / K2 / K4: the first (flagship-shape) check; K3: the sum of
+        # its four shapes; K5: the sum of its three levels (one launch each)
         timed = rs if name.startswith(("conv3x3", "flow_step")) else rs[:1]
         by_path = {p: ls[name] for p, ls in launches.items() if ls[name]}
         kernels.append({

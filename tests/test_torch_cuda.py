@@ -54,9 +54,43 @@ def test_k1_matches_twin_and_float64(dev, n_layers, n):
     np.testing.assert_allclose(xr.cpu().numpy(), x, atol=1e-4)
 
 
+@pytest.mark.parametrize("d", [12, 27, 48])
+@pytest.mark.parametrize("n_layers", [1, 10])
+@pytest.mark.parametrize("n", [1, 31, 29591])
+def test_k4_matches_twin_and_float64(dev, d, n_layers, n):
+    g = _gen(d + n_layers)
+    w = 0.05 * g.uniform(-1, 1, (n_layers + 1, d, d)) / np.sqrt(8) + np.eye(d)
+    b = 0.1 * g.standard_normal((n_layers + 1, d))
+    x = g.standard_normal((n, d))
+    info = 0.5 * g.standard_normal((2 * d * n_layers, n))
+    w_inv = np.linalg.inv(w)
+    wt, bt, xt, it = (_t(a, dev) for a in (w, b, x, info))
+    before = dict(kcuda.LAUNCHES)
+    z = linf_flow.flow_forward(wt, bt, xt, it)
+    xr = linf_flow.flow_inverse(_t(w_inv, dev), bt, z, it)
+    for k in ("linf_flow_nd_forward", "linf_flow_nd_inverse"):
+        assert kcuda.LAUNCHES[k] == before[k] + 1, k
+    assert kcuda.LAUNCHES["linf_flow_forward"] == before["linf_flow_forward"]
+    torch.testing.assert_close(
+        z, linf_flow.flow_forward_plain(wt, bt, xt, it), rtol=0, atol=2e-5)
+    torch.testing.assert_close(
+        xr, linf_flow.flow_inverse_plain(_t(w_inv, dev), bt, z, it), rtol=0,
+        atol=2e-4)
+    z64 = linf_flow.flow_forward_plain(*(torch.from_numpy(a) for a in
+                                         (w, b, x, info)))
+    np.testing.assert_allclose(z.cpu().numpy(), z64.numpy(), atol=2e-5)
+    x64 = linf_flow.flow_inverse_plain(
+        torch.from_numpy(w_inv), torch.from_numpy(b), z.cpu().double(),
+        torch.from_numpy(info))
+    np.testing.assert_allclose(xr.cpu().numpy(), x64.numpy(), atol=2e-4)
+    np.testing.assert_allclose(xr.cpu().numpy(), x, atol=2e-4)
+
+
 @pytest.mark.parametrize("C,n_hidden,out_dim,hw,HW", [
     (256, 2, 60, (9, 11), (36, 44)),     # flagship widths, x4
     (128, 1, 18, (7, 5), (20, 13)),      # ragged, non-integer scale
+    (256, 2, 540, (9, 11), (12, 15)),    # the d = 27 patch model: 5 passes
+    (128, 1, 129, (7, 5), (20, 13)),     # one column past a pass
 ])
 def test_k2_matches_twin_and_float64(dev, C, n_hidden, out_dim, hw, HW):
     g = _gen(C + out_dim)
@@ -129,11 +163,16 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
                               torch.zeros(16, device=dev), mlp)
     f = torch.zeros((1, 2, 2, 128), device=dev)
     mlp = [(torch.zeros((128, 512), device=dev), torch.zeros(128, device=dev)),
-           (torch.zeros((130, 128), device=dev), torch.zeros(130, device=dev))]
-    with pytest.raises(ValueError):   # and out_dim <= 128
+           (torch.zeros((1025, 128), device=dev), torch.zeros(1025, device=dev))]
+    with pytest.raises(ValueError):   # and out_dim <= 1024
         linf_info.affine_info(f, f, torch.zeros(4, device=dev),
                               torch.zeros(4, device=dev),
                               torch.zeros(64, device=dev), mlp)
+    w = torch.eye(5, device=dev).expand(2, 5, 5).contiguous()
+    with pytest.raises(ValueError):   # K1 takes d = 3, K4 d = 12 / 27 / 48
+        linf_flow.flow_forward(w, torch.zeros((2, 5), device=dev),
+                               torch.zeros((7, 5), device=dev),
+                               torch.zeros((10, 7), device=dev))
 
 
 def test_small_predictor_kernel_path_matches_twins(dev):
@@ -301,3 +340,32 @@ def test_small_srflow_lp_kernel_path_matches_twins(dev):
     sr_ref = SRFlowLPPredictor(model, prior, kernels=False).run(x)
     torch.testing.assert_close(sr, sr_ref, rtol=0,
                                atol=1e-3 * float(sr_ref.abs().max()))
+
+
+def test_small_patch_predictor_kernel_path_matches_twins(dev):
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.entry import example_patch_inputs, patch_specs
+    from bfsr_tpu_torch.models.base import seeded
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+
+    linf_spec, unet_spec = patch_specs(tiny=True)
+    linf_spec["args"]["hidden_dim"] = 128   # K2 takes hidden 128 / 256
+    model = registry.make(linf_spec)
+    model.reset_parameters(seeded(3))
+    with torch.no_grad():
+        for lin in [*model.imnet.linears, model.imnet.last]:
+            lin._weight.mul_(0.05).add_(torch.eye(27))
+    model = model.to(dev).freeze()
+    prior = registry.make(unet_spec).to(dev).eval().freeze()
+    inputs = example_patch_inputs(dev, (13, 10), (17, 14), seed=1)
+    kcuda.reset_launch_counts()
+    out = LINFPredictor(model, prior).predict(*inputs)
+    launches = dict(kcuda.LAUNCHES)
+    ref = LINFPredictor(model, prior, kernels=False).predict(*inputs)
+    assert out.shape == (1, 51, 42, 3) and torch.isfinite(out).all()
+    assert launches["linf_flow_nd_forward"] == 1, launches
+    assert launches["linf_flow_nd_inverse"] == 1, launches
+    assert launches["linf_info"] == 1, launches
+    assert launches["linf_flow_forward"] == 0, launches
+    assert launches["conv3x3_cat"] == 2 * 2 + 2 + 5 + 2 + 2, launches
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-4)
