@@ -5,9 +5,11 @@ n_resblocks x (conv-relu-conv, residual scaled) -> tail conv3x3 + global
 skip, NHWC in and out.  ``forward(x, kernels=True)`` routes every conv
 through ``conv3x3_cat`` — the K3 kernel for a CUDA tensor, as
 ``edsr_apply_fused`` routes every conv through the s2d Pallas kernel —
-and ``kernels=False`` runs the plain twin on any device.  The residual
-adds stay outside the kernel.  ``freeze()`` keeps each conv's weight in
-K3's layout.
+and ``kernels=False`` runs the plain twin on any device.  Both follow the
+stage's precision (the ``encoder`` stage of the LINF predictors): all 34
+convs take bf16 operands where it is ``default``.  The residual adds stay
+outside the kernel.  ``freeze()`` keeps each conv's weight in K3's
+layouts.
 
 ``state_dict`` keys are the reference's: ``head.0``, ``body.{i}.body.{0,2}``,
 ``body.{n_resblocks}``.
@@ -19,7 +21,7 @@ from torch import nn
 from bfsr_tpu_torch.models.base import Model, seeded
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.cuda.conv3x3 import (cache_kernel_weight, conv3x3_cat,
-                                             conv3x3_cat_plain, k3_conv)
+                                             conv3x3_cat_twin, k3_conv)
 from bfsr_tpu_torch.registry import register
 
 
@@ -67,8 +69,9 @@ class EDSR(Model):
         def c(t, m, act=None):
             if kernels:
                 return conv3x3_cat([t], m.weight, bias=m.bias, act=act,
-                                   kweight=m.kweight)
-            return conv3x3_cat_plain([t], m.weight, bias=m.bias, act=act)
+                                   kweight=m.kweight,
+                                   kweight_bf16=m.kweight_bf16)
+            return conv3x3_cat_twin([t], m.weight, bias=m.bias, act=act)
 
         h0 = c(x, self.head[0])
         res = h0

@@ -7,7 +7,8 @@ of the patch wrappers):
 
 1. ``gen_feat`` — EDSR features over the LR image (K3 on CUDA).
 2. ``head`` — the coef/freq 3x3 convs (``F.conv2d``, TF32 off) and
-   ``phase``, a bias-free linear of the relative cell.
+   ``phase``, a bias-free linear of the relative cell; both follow the
+   stage's precision (the ``head`` stage of the predictors).
 3. ``affine_info_grid`` — 4-corner local ensemble, Fourier basis, area
    weights and the MLP, per query: the K2 kernel on CUDA
    (``ops/cuda/linf_info.py``), its plain twin otherwise.

@@ -12,9 +12,12 @@ full-resolution stages — the dense input projection, ``inc`` and the last
 implicit channel concats, with BatchNorm folded into the epilogue; the
 mid-resolution stages and the LR projection stay ``F.conv2d``.
 ``kernels=False`` follows ``unet_apply``: plain convs, explicit concats,
-unfolded BatchNorm, on any device.  ``freeze()`` keeps what the K3 stages
-take: their conv weights in K3's layout and their BatchNorm folded; call
-it again after changing the weights.
+unfolded BatchNorm, on any device.  Both paths follow the stage's
+precision (the ``prior`` stage of the predictors): in a bf16 stage the 9
+full-resolution convs run the bf16 K3 and every other conv takes bf16
+operands.  ``freeze()`` keeps what the K3 stages take: their conv weights
+in K3's layouts and their BatchNorm folded; call it again after changing
+the weights.
 
 ``state_dict`` keys are the reference's (``input_proj.conv{1..5}``,
 ``lr_proj.{0,2}``, ``inc.double_conv.{0,1,3,4}``,
@@ -59,7 +62,8 @@ class DenseBlock5C(nn.Module):
         for i, c in enumerate(self.convs()):
             blocks.append(conv3x3_cat(blocks, c.weight, bias=c.bias,
                                       act="lrelu" if i < 4 else None,
-                                      kweight=c.kweight))
+                                      kweight=c.kweight,
+                                      kweight_bf16=c.kweight_bf16))
         return blocks[-1]
 
     def freeze(self):
@@ -100,9 +104,11 @@ class DoubleConv(nn.Module):
         f1, f2 = ((self.folded1, self.folded2) if self.folded1 is not None
                   else self._fold())
         h = conv3x3_cat(blocks, dc[0].weight, scale=f1[0], bias=f1[1],
-                        act="lrelu", kweight=dc[0].kweight)
+                        act="lrelu", kweight=dc[0].kweight,
+                        kweight_bf16=dc[0].kweight_bf16)
         return conv3x3_cat([h], dc[3].weight, scale=f2[0], bias=f2[1],
-                           act="lrelu", kweight=dc[3].kweight)
+                           act="lrelu", kweight=dc[3].kweight,
+                           kweight_bf16=dc[3].kweight_bf16)
 
 
 class Down(nn.Module):

@@ -10,11 +10,12 @@ import time: a machine without ``nvcc`` or a card imports the package and
 uses the plain twins for CPU tensors.
 
 Each kernel wrapper (``linf_flow`` for K1 and K4, ``linf_info``,
-``conv3x3``, ``flow_step``) dispatches
+``conv3x3`` for K3 in f32 and bf16 and for K6, ``flow_step``) dispatches
 on the device of its tensors: a CPU tensor goes to its plain PyTorch twin,
 a CUDA tensor launches the kernel or raises.  There is no fallback between
 the two.  A wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel, and nowhere else.
+kernel, and nowhere else; K6 launches K3's f32 kernel and counts under
+its own name, ``conv3x3_fused``.
 """
 
 import ctypes
@@ -37,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"linf_flow_forward": 0, "linf_flow_inverse": 0,
             "linf_flow_nd_forward": 0, "linf_flow_nd_inverse": 0,
-            "linf_info": 0, "conv3x3_cat": 0,
+            "linf_info": 0, "conv3x3_cat": 0, "conv3x3_cat_bf16": 0,
+            "conv3x3_fused": 0,
             "flow_step_forward": 0, "flow_step_reverse": 0}
 
 _P = ctypes.c_void_p
@@ -53,6 +55,9 @@ _SIGNATURES = {
                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "conv3x3_cat": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                     ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "conv3x3_cat_bf16": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                         ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _F,
+                         _P],
     "flow_step_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flow_step_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -143,15 +148,16 @@ def library():
     return _lib
 
 
-def launch(name, *args):
-    """Call C entry ``name`` on the current stream and count the launch;
-    raise if it reports a CUDA error."""
+def launch(name, *args, counter=None):
+    """Call C entry ``name`` on the current stream and count the launch
+    under ``counter`` (default: ``name``); raise if it reports a CUDA
+    error."""
     fn = getattr(library(), name)
     err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
                            f"{err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1
 
 
 def ptr(t):

@@ -8,17 +8,111 @@ The counterpart of ``bfsr_tpu/ops/nn.py``.  Conventions:
   reference checkpoint loads as it is;
 * batch norm is the eval form over running statistics.
 
-Precision has one rule here: true float32.  The JAX package runs its convs
-and matmuls at ``Precision.HIGH`` (about f32), while cuDNN convs default to
-TF32 in torch; importing this module turns TF32 off for both cuDNN and
-cuBLAS so every plain op of the port computes in f32.
+Precision modes, as ``bfsr_tpu/ops/nn.py`` defines them (a TPU computes
+them so):
+
+* ``high`` (the default) and ``highest``: true float32.  cuDNN convs
+  default to TF32 in torch; importing this module turns TF32 off for both
+  cuDNN and cuBLAS, so every plain op computes in f32.
+* ``default`` (bf16 serving): every conv and linear that reads the mode
+  takes its operands rounded to bf16 (round to nearest even) and
+  accumulates the products in f32; its output and bias stay f32.
+* ``mixed``: per stage, by ``MIXED_POLICY`` (the prior in bf16, every
+  other stage f32).  Pipelines name their stages with ``stage(name)``.
+
+The mode comes from ``BFSR_PRECISION`` at import, or from
+``set_default_precision``, and is read at each call: a frozen model
+serves every mode.  The flows, K2 and K6 read no mode and stay f32.  The
+JAX package's 2-pass sentinels (``two_pass``, ``two_pass_act``) were
+refuted on the TPU and are not ported: a policy naming them raises.
 """
+
+import os
 
 import torch
 import torch.nn.functional as F
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
+
+PRECISIONS = ("default", "high", "highest")
+MODES = PRECISIONS + ("mixed",)
+# the stages BFSR_PRECISION=mixed runs in bf16 (the JAX package's policy)
+MIXED_POLICY = {"prior": "default"}
+_UNPORTED = ("two_pass", "two_pass_act")
+
+
+def _parse_mode(mode):
+    if mode not in MODES:
+        raise ValueError(f"BFSR_PRECISION={mode!r}: expected one of "
+                         f"{sorted(MODES)}")
+    return mode
+
+
+_MODE = _parse_mode(os.environ.get("BFSR_PRECISION", "high"))
+_STAGE = None
+
+
+def set_default_precision(mode):
+    """mode: 'default' | 'high' | 'highest' | 'mixed'."""
+    global _MODE
+    _MODE = _parse_mode(mode)
+
+
+def precision_mode():
+    """The mode as set: 'default' | 'high' | 'highest' | 'mixed'."""
+    return _MODE
+
+
+def stage_precision():
+    """The precision of the current stage: 'default' | 'high' |
+    'highest'."""
+    if _MODE != "mixed":
+        return _MODE
+    p = MIXED_POLICY.get(_STAGE, "high")
+    if p in _UNPORTED:
+        raise NotImplementedError(
+            f"MIXED_POLICY[{_STAGE!r}] = {p!r}: the 2-pass bf16 sentinels "
+            "are not ported (refuted on the TPU, BENCH_NOTES.md)")
+    if p not in PRECISIONS:
+        raise ValueError(f"MIXED_POLICY[{_STAGE!r}] = {p!r}: expected one "
+                         f"of {PRECISIONS}")
+    return p
+
+
+# the JAX package's name for the same thing at its raw einsum call sites;
+# without the 2-pass sentinels the two agree
+default_precision = stage_precision
+
+
+def bf16_stage():
+    """True where convs and linears take bf16 operands."""
+    return stage_precision() == "default"
+
+
+class stage:
+    """``with stage(name):`` scopes a pipeline stage for the ``mixed``
+    policy; the enclosing stage comes back on exit, also on an
+    exception."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        global _STAGE
+        self.saved = _STAGE
+        _STAGE = self.name
+        return self
+
+    def __exit__(self, *exc):
+        global _STAGE
+        _STAGE = self.saved
+        return False
+
+
+def round_bf16(t):
+    """Round to the nearest bf16 (ties to even), kept in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def nhwc_to_nchw(x):
@@ -31,16 +125,21 @@ def nchw_to_nhwc(x):
 
 def conv2d(x, weight, bias=None, stride=1, padding=None):
     """x: (B, H, W, Cin); weight: (Cout, Cin, kh, kw).  ``padding=None`` is
-    SAME for odd kernels at stride 1."""
+    SAME for odd kernels at stride 1.  Follows the stage's precision."""
     if padding is None:
         padding = weight.shape[-1] // 2
+    if bf16_stage():
+        x, weight = round_bf16(x), round_bf16(weight)
     y = F.conv2d(nhwc_to_nchw(x), weight, bias, stride=stride,
                  padding=padding)
     return nchw_to_nhwc(y)
 
 
 def linear(x, weight, bias=None):
-    """x @ weight.T + bias; weight (out, in)."""
+    """x @ weight.T + bias; weight (out, in).  Follows the stage's
+    precision."""
+    if bf16_stage():
+        x, weight = round_bf16(x), round_bf16(weight)
     return F.linear(x, weight, bias)
 
 

@@ -24,6 +24,13 @@ Steps 6-7 are the model's own ``LINF.query_rgb``, given the shared info.
 CUDA tensor, the plain twin for a CPU tensor); ``kernels=False`` runs the
 plain twins on any device, the reference the kernel path is held to.
 Batch 1; no H/W padding is needed (the kernels take any extent).
+
+``predict`` scopes its steps as the JAX predictor does, for the
+precision modes (``ops/nn.py``): ``encoder`` (1), ``head`` (2-3),
+``prior`` (5) and ``addback`` (6-7; the flows read no mode).  Both paths
+follow the mode alike: under ``mixed`` the prior's convs take bf16
+operands, under ``default`` every conv and linear does; K1 and K2 stay
+f32 in every mode.
 """
 
 from functools import partial
@@ -33,6 +40,7 @@ import torch
 
 from bfsr_tpu_torch.data.np_interp import resize_bilinear_np
 from bfsr_tpu_torch.models.linf import grid_axes
+from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.cuda import linf_flow
 from bfsr_tpu_torch.ops.imresize import imresize
 from bfsr_tpu_torch.utils import metrics as M
@@ -80,8 +88,10 @@ class LINFPredictor:
         _, H, W, _ = coord.shape
         cy, cx = grid_axes(coord)
 
-        feat = model.gen_feat(inp, kernels=kernels)
-        info = model.affine_info_grid(feat, cy, cx, cell, kernels=kernels)
+        with fnn.stage("encoder"):
+            feat = model.gen_feat(inp, kernels=kernels)
+        with fnn.stage("head"):
+            info = model.affine_info_grid(feat, cy, cx, cell, kernels=kernels)
 
         zmap = None
         if self.prior is not None and gt_lr_up is not None:
@@ -90,9 +100,11 @@ class LINFPredictor:
             d = model.dim
             z = fwd(model.imnet.w, model.imnet.b,
                     gt_lr_up.reshape(H * W, d).contiguous(), info)
-            zmap = self.prior(z.reshape(1, H, W, d), inp, kernels=kernels)
-        return model.query_rgb(inp, feat, coord, cell, temperature, zmap,
-                               generator, info=info, kernels=kernels)
+            with fnn.stage("prior"):
+                zmap = self.prior(z.reshape(1, H, W, d), inp, kernels=kernels)
+        with fnn.stage("addback"):
+            return model.query_rgb(inp, feat, coord, cell, temperature, zmap,
+                                   generator, info=info, kernels=kernels)
 
 
 def _psnr_fn(eval_type, scale_max):

@@ -20,6 +20,12 @@ CUDA tensor, the plain twin for a CPU tensor); ``kernels=False`` runs the
 plain twins and the unfused flow steps on any device, the reference the
 kernel path is held to.  The kernels take any extent, so the pad is the
 protocol's %2 only.
+
+Precision modes (``ops/nn.py``): step 7 is the ``prior`` stage, so under
+``mixed`` the prior's convs take bf16 operands (its 18 full-resolution
+convs on the bf16 K3) while the RRDB, the conditioning and K5 stay f32.
+Under ``default`` the predictor raises: the flow steps would need K5's
+one-pass (bf16) form, which is not ported.
 """
 
 import numpy as np
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from bfsr_tpu_torch.models.srflow.srflow_net import standardize_epses
+from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.interp import resize_bilinear
 from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 
@@ -58,6 +65,11 @@ class SRFlowLPPredictor:
         """lr: (1, h, w, 3) with h, w even -> the SR image (1, 4h, 4w, 3),
         unclipped.  ``mark(stage)``, if given, is called after each of
         ``STAGES``."""
+        if fnn.bf16_stage():
+            raise NotImplementedError(
+                "SRFlow-LP under BFSR_PRECISION=default needs K5's one-pass "
+                "(bf16) form (bfsr_tpu/ops/pallas/flow_step.py, passes=1), "
+                "which is not ported; use 'high' or 'mixed'")
         model, k = self.model, self.kernels
         mark = mark or (lambda stage: None)
         s = model.scale
@@ -69,7 +81,8 @@ class SRFlowLPPredictor:
         mark("precompute_ft")
         epses = model.normal_flow(lr_up, cache, kernels=k)
         mark("encode")
-        learned = self.prior(standardize_epses(epses), kernels=k)
+        with fnn.stage("prior"):
+            learned = self.prior(standardize_epses(epses), kernels=k)
         mark("prior")
         sr = model.reverse_flow(learned, cache, kernels=k)
         mark("decode")

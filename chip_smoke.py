@@ -48,7 +48,20 @@ fails (non-zero exit, no result line) if any phase fails:
    the output must be finite and of the right shape, K5 must have
    launched 48 times each way and K3 at all, and the image must agree with
    the twin path; then times both paths and profiles one 512^2 predict,
-   split into its stages (RRDB, precompute_ft, encode, prior, decode).
+   split into its stages (RRDB, precompute_ft, encode, prior, decode);
+8. the bf16 serving modes (``BFSR_PRECISION=mixed|default``): holds the
+   bf16 K3 (``csrc/conv3x3_bf16.cu``) against its twin at the encoder's
+   conv, ``dense5c`` and the last ``up`` conv (beside cuDNN bf16 and its
+   bf16 bound), K6 (``conv3x3_fused``) at 64 -> 64 @512^2 and a ragged
+   Cout of 100, and runs the conv probe (P1-P3, ``profiling/conv_probe``);
+   then runs LINF-LP ``predict`` under ``mixed`` and ``default`` at both
+   shapes with the launch counters reset (the bf16 K3 9 / 43 times, the
+   f32 K3 34 / 0, K1 and K2 once each), each image against the twin path
+   in the same mode and its agreement (PSNR) with ``high``'s output, times
+   ``high``, ``mixed`` and ``default`` interleaved and profiles both
+   modes; and SRFlow-LP under ``mixed`` (the bf16 K3 only in the prior,
+   18 times; K5 48 + 48 in f32), its agreement and time beside ``high``,
+   and that it refuses ``default``.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -60,6 +73,7 @@ last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": N}}``.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -80,9 +94,22 @@ TOL = {"linf_flow_forward": 1e-5, "linf_flow_inverse": 1e-4,
        "flow_step_forward": (2e-4, 2e-4), "flow_step_reverse": (2e-4, 2e-4),
        "srflow_image": 5e-3, "srflow_unclipped_rel": 1e-3,
        "linf_flow_nd_forward": 2e-5, "linf_flow_nd_inverse": 2e-4,
-       "patch_image": 5e-4, "patch_psnr_db": 0.01}
+       "patch_image": 5e-4, "patch_psnr_db": 0.01,
+       # the bf16 K3 and its twin multiply the same bf16 values exactly and
+       # differ only in the order of the f32 sums; K6 is K3's f32 kernel
+       "conv3x3_cat_bf16": (1e-4, 1e-4), "conv3x3_fused": 1e-4,
+       # a mode's image against the twin path in the same mode: under
+       # default, f32 sums taken in another order flip the bf16 rounding of
+       # values at a tie, and the flips spread through the 34 encoder convs
+       # (PERF.md); each path is as close to high as the other
+       "mode_image": {"mixed": 1e-3, "default": 5e-3}}
+# agreement (PSNR of a mode's output against high's, [0, 1] scale, as
+# bench.py:run_precision_delta computes it, profiling/mode_agreement.py):
+# sanity floors, in dB
+AGREEMENT_FLOOR_DB = {"mixed": 80.0, "default": 50.0, "srflow mixed": 80.0}
 # H100 SXM published peaks at 700 W (NVIDIA's data sheet)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 LINF_KERNELS = ("linf_flow_forward", "linf_flow_inverse", "linf_info",
                 "conv3x3_cat")
@@ -91,6 +118,14 @@ LINF_KERNELS = ("linf_flow_forward", "linf_flow_inverse", "linf_info",
 PATCH_LAUNCHES = {"linf_flow_nd_forward": 1, "linf_flow_nd_inverse": 1,
                   "linf_info": 1, "conv3x3_cat": 43, "linf_flow_forward": 0,
                   "linf_flow_inverse": 0}
+# a LINF-LP predict's launches per mode: under mixed the prior's 9
+# full-resolution convs take the bf16 K3, under default the encoder's 34 too
+MODE_LAUNCHES = {
+    mode: {"conv3x3_cat": 43 - bf16, "conv3x3_cat_bf16": bf16,
+           "linf_flow_forward": 1, "linf_flow_inverse": 1, "linf_info": 1}
+    for mode, bf16 in (("mixed", 9), ("default", 43))}
+# the SRFlow-LP prior's K3 convs: 2 branches x (5 dense + 2 inc + 2 up)
+SRFLOW_PRIOR_K3 = 18
 KERNELS = {
     "linf_flow_forward": ("bfsr_tpu_torch/csrc/linf_flow.cu",
                           "bfsr_tpu/ops/pallas/linf_flow.py:47"),
@@ -108,11 +143,38 @@ KERNELS = {
                           "bfsr_tpu/ops/pallas/flow_step.py:261"),
     "flow_step_reverse": ("bfsr_tpu_torch/csrc/flow_step.cu",
                           "bfsr_tpu/ops/pallas/flow_step.py:303"),
+    "conv3x3_cat_bf16": ("bfsr_tpu_torch/csrc/conv3x3_bf16.cu",
+                         "bfsr_tpu/ops/pallas/s2d_conv.py:128"),
+    "conv3x3_fused": ("bfsr_tpu_torch/csrc/conv3x3.cu",
+                      "bfsr_tpu/ops/pallas/conv3x3.py:28"),
+    "conv_probe": ("bfsr_tpu_torch/csrc/conv3x3_bf16.cu",
+                   "profiling/mosaic_probe.py:36"),
 }
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def precision(mode):
+    """Run the block under precision mode ``mode``, then restore."""
+    from bfsr_tpu_torch.ops import nn as fnn
+
+    saved = fnn.precision_mode()
+    fnn.set_default_precision(mode)
+    try:
+        yield
+    finally:
+        fnn.set_default_precision(saved)
+
+
+def in_mode(mode, fn):
+    """fn, run under precision mode ``mode``."""
+    def run():
+        with precision(mode):
+            return fn()
+    return run
 
 
 def gpu_time_ms(fn, iters=10):
@@ -135,20 +197,21 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops, n_bytes):
+def bound(flops, n_bytes, peak=PEAK_F32_FLOPS):
     """The least time for the work: the larger of its operations over the
-    f32 peak and its bytes (each input read once, each output written
-    once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / HBM_BYTES_PER_S
+    peak rate of their type (f32 unless named) and its bytes (each input
+    read once, each output written once) over the memory rate."""
+    t_ops, t_bytes = flops / peak, n_bytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
-            n_bytes=None, library_fn=None):
-    """Run both once, check agreement, time both (and ``library_fn``, one
-    PyTorch call computing the same function, where there is one); with
-    ``n_bytes`` also the bound.  Returns a result dict."""
+            n_bytes=None, library_fn=None, peak=PEAK_F32_FLOPS, launches=1):
+    """Run both once, check agreement (and that ``kernel_fn`` launched
+    kernel ``name`` ``launches`` times), time both (and ``library_fn``,
+    one PyTorch call computing the same function, where there is one);
+    with ``n_bytes`` also the bound at ``peak``.  Returns a result dict."""
     import torch
 
     from bfsr_tpu_torch.ops import cuda
@@ -157,8 +220,9 @@ def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
     got = kernel_fn()
     ref = plain_fn()
     torch.cuda.synchronize()
-    if cuda.LAUNCHES[name] != before[name] + 1:
-        raise RuntimeError(f"{name}: the wrapper did not launch its kernel")
+    if cuda.LAUNCHES[name] != before[name] + launches:
+        raise RuntimeError(f"{name}: the wrapper did not launch its kernel "
+                           f"{launches} time(s)")
     err = (got - ref).abs()
     max_abs = float(err.max())
     if isinstance(tol, tuple):
@@ -184,7 +248,7 @@ def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
     if library_ms is not None:
         extra += f", library {library_ms:.4f} ms"
     if n_bytes is not None:
-        out.update(bound(flops or 0, n_bytes))
+        out.update(bound(flops or 0, n_bytes, peak))
         extra += (f", bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
                   f"{(flops or 0) / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)")
     log(f"check {name}{label}: max_abs_err {max_abs:.3e} ({tol_s}), max |ref| "
@@ -243,6 +307,19 @@ def check_kernels(model, prior, inputs, ragged_inputs):
                                                      info),
                 TOL["linf_flow_inverse"], k1_flops, f" N={n}", k1_bytes)]
 
+    for case in linf_k3_cases(model, prior):
+        results.setdefault("conv3x3_cat", []).append(check_k3(*case))
+    return results
+
+
+def linf_k3_cases(model, prior):
+    """(label, inputs, conv, scale, bias, act) of the LINF-LP convs the K3
+    checks hold: the encoder's, ``dense5c`` conv5 and the last ``up``
+    conv1, on random inputs from a seeded generator."""
+    import torch
+
+    from bfsr_tpu_torch.ops import nn as fnn
+
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
@@ -253,8 +330,8 @@ def check_kernels(model, prior, inputs, ragged_inputs):
     dense5 = prior.input_proj.conv5
     up_dc = prior.up_layers[-1].conv.double_conv
     s_up, b_up = fnn.fold_bn(up_dc[1])
-    # each conv with the weight layout its frozen module keeps (kweight)
-    cases = [
+    # each conv with the weight layouts its frozen module keeps
+    return [
         ("encoder 64->64 @128^2", [randn(1, *LR, 64)], enc, None,
          enc.bias, "relu"),
         ("dense5c conv5 5 inputs 131->32 @512^2",
@@ -264,9 +341,6 @@ def check_kernels(model, prior, inputs, ragged_inputs):
          [randn(1, H, W, 64), randn(1, H, W, 64)], up_dc[0], s_up, b_up,
          "lrelu"),
     ]
-    for case in cases:
-        results.setdefault("conv3x3_cat", []).append(check_k3(*case))
-    return results
 
 
 def check_k3(label, xs, conv, s, b, act):
@@ -293,6 +367,170 @@ def check_k3(label, xs, conv, s, b, act):
             TOL["conv3x3_cat"], flops, f" {label}",
             n_bytes + 4 * w.shape[0] * H * W,
             lambda: F.conv2d(xcat, wl, b, padding=1))
+
+
+def check_k3_bf16(label, xs, conv, s, b, act):
+    """The bf16 K3 against its twin on one conv of the path, with its
+    frozen bf16 layout (kweight_bf16); the library call is cuDNN bf16 on
+    the concatenated NCHW input in bf16 with the scale folded into the
+    weight (bf16 out), without the activation; the bound is at the bf16
+    peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from bfsr_tpu_torch.ops.cuda import conv3x3
+
+    w = conv.weight
+    H, W = xs[0].shape[1], xs[0].shape[2]
+    with torch.inference_mode():
+        flops = 2 * 9 * w.shape[1] * w.shape[0] * H * W
+        xcat = torch.cat(xs, -1).permute(0, 3, 1, 2).contiguous().bfloat16()
+        wl = (w if s is None else w * s[:, None, None, None]).bfloat16()
+        bl = None if b is None else b.bfloat16()
+        n_bytes = nbytes(*xs, conv.kweight_bf16,
+                         *[t for t in (s, b) if t is not None])
+        return compare(
+            "conv3x3_cat_bf16",
+            lambda: conv3x3.conv3x3_cat_bf16(xs, w, s, b, act,
+                                             kweight_bf16=conv.kweight_bf16),
+            lambda: conv3x3.conv3x3_cat_bf16_plain(xs, w, s, b, act),
+            TOL["conv3x3_cat_bf16"], flops, f" {label}",
+            n_bytes + 4 * w.shape[0] * H * W,
+            lambda: F.conv2d(xcat, wl, bl, padding=1), peak=PEAK_BF16_FLOPS)
+
+
+def k6_cases(prior):
+    """(label, x, weight, scale, bias, act, launches) of the K6 checks: the
+    last up conv2 (64 -> 64 @512^2, BN folded, LeakyReLU) and a random
+    Cout-100 conv at 300x250 (launches of 64 and of 36 padded to 64)."""
+    import torch
+
+    from bfsr_tpu_torch.ops import nn as fnn
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dc = prior.up_layers[-1].conv.double_conv
+    s, b = fnn.fold_bn(dc[4])
+    return [("64->64 @512^2 (BN folded, lrelu)", randn(1, *HR, 64),
+             dc[3].weight, s, b, "lrelu", 1),
+            ("64->100 @300x250 (ragged Cout)", randn(1, *RAGGED_HR, 64),
+             randn(100, 64, 3, 3) / 24.0, None, randn(100), None, 2)]
+
+
+def check_k6(cases):
+    """K6 against its twin (``conv3x3_cat_plain`` of its one input); the
+    library call is cuDNN f32 with the scale folded in."""
+    import torch
+    import torch.nn.functional as F
+
+    from bfsr_tpu_torch.ops.cuda import conv3x3
+
+    results = []
+    with torch.inference_mode():
+        for label, x, w, s, b, act, n in cases:
+            H, W = x.shape[1], x.shape[2]
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            wl = w if s is None else w * s[:, None, None, None]
+            results.append(compare(
+                "conv3x3_fused",
+                lambda: conv3x3.conv3x3_fused(x, w, s, b, act),
+                lambda: conv3x3.conv3x3_cat_plain([x], w, s, b, act),
+                TOL["conv3x3_fused"], 2 * 9 * w.shape[1] * w.shape[0] * H * W,
+                f" {label}",
+                nbytes(x, w, *[t for t in (s, b) if t is not None])
+                + 4 * w.shape[0] * H * W,
+                lambda: F.conv2d(xn, wl, b, padding=1), launches=n))
+    return results
+
+
+def run_k6_entry(cases):
+    """K6's own entry (no inference path calls it) once at each case, with
+    the launch counters reset."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.ops.cuda import conv3x3
+
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    with torch.inference_mode():
+        for _, x, w, s, b, act, _ in cases:
+            conv3x3.conv3x3_fused(x, w, s, b, act)
+    torch.cuda.synchronize()
+    log(f"k6 entry: launches {json.dumps(cuda.LAUNCHES)}")
+    return dict(cuda.LAUNCHES)
+
+
+def run_probe():
+    """P1-P3 through ``conv_probe.run()`` with the launch counters reset:
+    its line, its result for the kernels line and its launches."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.profiling import conv_probe as cp
+
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    r = cp.run()
+    torch.cuda.synchronize()
+    n = cuda.LAUNCHES["conv3x3_cat_bf16"]
+    px = cp.SIZE * cp.SIZE
+    n_bytes = 4 * px * cp.CIN + 2 * 9 * cp.CIN * cp.COUT + 4 * px * cp.COUT
+    out = {"max_abs_err": r["twin_max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+           **bound(r["flops"], n_bytes, PEAK_BF16_FLOPS)}
+    log(f"probe conv_probe (P1-P3: 3x3 conv {cp.CIN}->{cp.COUT} "
+        f"@{cp.SIZE}^2, bf16 operands, f32 accumulate): {r['ms']:.4f} ms, "
+        f"{r['tflops']:.1f} TFLOP/s useful; max abs err vs the f32 conv "
+        f"{r['max_abs_err']:.3e} (max |ref| {r['max_abs_ref']:.3f}), vs the "
+        f"bf16 twin {r['twin_max_abs_err']:.3e} (atol {cp.TOL[0]:g} + rtol "
+        f"{cp.TOL[1]:g}); twin {r['plain_ms']:.4f} ms, cuDNN bf16 "
+        f"{r['library_ms']:.4f} ms ({r['flops'] / r['library_ms'] / 1e9:.1f} "
+        f"TFLOP/s); bound {out['bound_ms']:.4f} ms ({out['bound_by']}); "
+        f"{n} launches")
+    return out, {"conv_probe": n}
+
+
+def check_predict_mode(model, prior, inputs, label, mode):
+    """LINF-LP under a bf16 mode: the launches, the image against the twin
+    path in the same mode, and its agreement with ``high``'s output."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+    from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
+
+    high = LINFPredictor(model, prior).predict(*inputs)
+    with precision(mode):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        out = LINFPredictor(model, prior).predict(*inputs)
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        ref = LINFPredictor(model, prior, kernels=False).predict(*inputs)
+    torch.cuda.synchronize()
+    if out.shape != high.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"predict {label} {mode}: bad output "
+                           f"{tuple(out.shape)}")
+    want = MODE_LAUNCHES[mode]
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    if wrong:
+        raise RuntimeError(f"predict {label} {mode}: launches {launches}, "
+                           f"expected {want}")
+    err = float((out - ref).abs().max())
+    db, floor = agreement_db(out, high), AGREEMENT_FLOOR_DB[mode]
+    log(f"predict {label} {mode}: shape {tuple(out.shape)}, finite, launches "
+        f"{json.dumps(launches)}, max |kernel - twin| {err:.3e} (tol "
+        f"{TOL['mode_image'][mode]:g})")
+    log(f"agreement {label} {mode} vs high: {db:.3f} dB (floor {floor:g}), "
+        f"max |{mode} - high| {float((out - high).abs().max()):.3e}")
+    if not (err <= TOL["mode_image"][mode] and db >= floor):
+        raise RuntimeError(f"predict {label} {mode}: twin error {err:.3e}, "
+                           f"agreement {db:.3f} dB")
+    return launches
 
 
 def check_predict(model, prior, inputs, label):
@@ -328,7 +566,8 @@ def check_predict(model, prior, inputs, label):
 
 def time_paths(paths, mp, label, blocks=3, per_block=5):
     """ms/image of each path (name -> fn), 2 warm-ups each, then blocks
-    interleaved twin, kernel, kernel, twin, twin, kernel."""
+    interleaved: the paths in order, then reversed, and so on (twin,
+    kernel, kernel, twin, twin, kernel for two)."""
     import torch
 
     for fn in paths.values():
@@ -336,7 +575,9 @@ def time_paths(paths, mp, label, blocks=3, per_block=5):
             fn()
     torch.cuda.synchronize()
     times = {k: [] for k in paths}
-    order = ["twin", "kernel", "kernel", "twin", "twin", "kernel"][:2 * blocks]
+    names = list(paths)
+    order = [k for b in range(blocks)
+             for k in (names if b % 2 == 0 else names[::-1])]
     for k in order:
         t0 = time.perf_counter()
         for _ in range(per_block):
@@ -492,6 +733,61 @@ def check_srflow_predict(model, prior, lr_img, label):
             and torch.isfinite(sr).all()):
         raise RuntimeError(f"srflow predict {label}: kernel path disagrees "
                            f"with the twin path: {err:.3e} / {rel:.3e}")
+    return launches
+
+
+def check_srflow_mixed(model, prior, lr_img, label, launches_high):
+    """SRFlow-LP under ``mixed``: the bf16 K3 only in the prior, K5 in
+    f32; the image against the twin path in the same mode and its
+    agreement with ``high``'s; and the refusal of ``default``."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.srflow_eval import (SRFlowLPPredictor,
+                                                      pad_to_even)
+    from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
+
+    n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
+    kernel_path = SRFlowLPPredictor(model, prior, kernels=True)
+    twin_path = SRFlowLPPredictor(model, prior, kernels=False)
+    high = kernel_path.predict(lr_img)
+    with precision("mixed"):
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        out = kernel_path.predict(lr_img)
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        ref = twin_path.predict(lr_img)
+        x = pad_to_even(lr_img)
+        sr, sr_ref = kernel_path.run(x), twin_path.run(x)
+    torch.cuda.synchronize()
+    want = {"flow_step_forward": n_cond, "flow_step_reverse": n_cond,
+            "conv3x3_cat_bf16": SRFLOW_PRIOR_K3,
+            "conv3x3_cat": launches_high["conv3x3_cat"] - SRFLOW_PRIOR_K3}
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    if wrong or out.shape != high.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"srflow predict {label} mixed: launches "
+                           f"{launches}, expected {want}")
+    err = float((out - ref).abs().max())
+    rel = float((sr - sr_ref).abs().max()) / float(sr_ref.abs().max())
+    db, floor = agreement_db(out, high), AGREEMENT_FLOOR_DB["srflow mixed"]
+    log(f"srflow predict {label} mixed: shape {tuple(out.shape)}, finite, "
+        f"launches {json.dumps(launches)}, max |kernel - twin| {err:.3e} "
+        f"(tol {TOL['srflow_image']:g}); unclipped: max |kernel - twin| / "
+        f"max |twin| {rel:.3e} (reported)")
+    log(f"agreement srflow {label} mixed vs high: {db:.3f} dB (floor "
+        f"{floor:g}), max |mixed - high| {float((out - high).abs().max()):.3e}")
+    if not (err <= TOL["srflow_image"] and db >= floor
+            and torch.isfinite(sr).all()):
+        raise RuntimeError(f"srflow predict {label} mixed: twin error "
+                           f"{err:.3e}, agreement {db:.3f} dB")
+    with precision("default"):
+        try:
+            kernel_path.predict(lr_img)
+        except NotImplementedError as e:
+            log(f"srflow default: refused as it must ({e})")
+        else:
+            raise RuntimeError("srflow predict under default did not raise")
     return launches
 
 
@@ -716,11 +1012,34 @@ def main():
     medians = {}
     for tag, inp in (("128x128->512x512", inputs), ("96x80->300x250", ragged)):
         paths = {k: (lambda p=LINFPredictor(model, prior, kernels=k == "kernel"),
-                     a=inp: p.predict(*a)) for k in ("kernel", "twin")}
+                     a=inp: p.predict(*a)) for k in ("twin", "kernel")}
         mp = inp[1].shape[1] * inp[1].shape[2] / 1e6
         medians[tag] = time_paths(paths, mp, tag)
     profile_predict(lambda: LINFPredictor(model, prior).predict(*inputs),
                     medians["128x128->512x512"]["kernel"], "linf 512^2")
+
+    # --- the bf16 serving modes, LINF-LP ---
+    for case in linf_k3_cases(model, prior):
+        checks.setdefault("conv3x3_cat_bf16", []).append(check_k3_bf16(*case))
+    k6 = k6_cases(prior)
+    checks["conv3x3_fused"] = check_k6(k6)
+    launches["k6_entry"] = run_k6_entry(k6)
+    probe, launches["probe"] = run_probe()
+    checks["conv_probe"] = [probe]
+    for mode in ("mixed", "default"):
+        launches[f"linf_{mode}"] = check_predict_mode(
+            model, prior, inputs, "128x128->512x512", mode)
+        check_predict_mode(model, prior, ragged, "96x80->300x250", mode)
+    for tag, inp in (("128x128->512x512", inputs), ("96x80->300x250", ragged)):
+        paths = {m: in_mode(m, lambda p=LINFPredictor(model, prior), a=inp:
+                            p.predict(*a)) for m in ("high", "mixed", "default")}
+        mp = inp[1].shape[1] * inp[1].shape[2] / 1e6
+        medians[f"{tag} modes"] = time_paths(paths, mp, f"{tag} mode")
+    for mode in ("mixed", "default"):
+        profile_predict(in_mode(mode, lambda: LINFPredictor(model, prior)
+                                .predict(*inputs)),
+                        medians["128x128->512x512 modes"][mode],
+                        f"linf 512^2 {mode}")
     del model, prior, inputs, ragged
 
     # --- LINF-LP, patch model ---
@@ -738,7 +1057,7 @@ def main():
                      ("patch 101x85->135x114 grid", pragged)):
         paths = {k: (lambda p=LINFPredictor(pmodel, pprior,
                                             kernels=k == "kernel"),
-                     a=inp: p.predict(*a)) for k in ("kernel", "twin")}
+                     a=inp: p.predict(*a)) for k in ("twin", "kernel")}
         mp = 9 * inp[1].shape[1] * inp[1].shape[2] / 1e6
         medians[tag] = time_paths(paths, mp, tag)
     profile_predict(lambda: LINFPredictor(pmodel, pprior).predict(*pinputs),
@@ -765,7 +1084,7 @@ def main():
                      ("srflow 101x85->404x340", lr_ragged)):
         paths = {k: (lambda p=SRFlowLPPredictor(smodel, sprior,
                                                 kernels=k == "kernel"),
-                     a=img: p.predict(a)) for k in ("kernel", "twin")}
+                     a=img: p.predict(a)) for k in ("twin", "kernel")}
         mp = 16 * img.shape[0] * img.shape[1] / 1e6
         medians[tag] = time_paths(paths, mp, tag)
     profile_srflow_stages(smodel, sprior, lr, "srflow 512^2")
@@ -773,13 +1092,25 @@ def main():
                     medians["srflow 128x128->512x512"]["kernel"],
                     "srflow 512^2", top=16)
 
+    # --- the bf16 serving modes, SRFlow-LP (mixed; default refuses) ---
+    launches["srflow_mixed"] = check_srflow_mixed(
+        smodel, sprior, lr, "128x128->512x512", launches["srflow"])
+    paths = {m: in_mode(m, lambda p=SRFlowLPPredictor(smodel, sprior):
+                        p.predict(lr)) for m in ("high", "mixed")}
+    time_paths(paths, 16 * lr.shape[0] * lr.shape[1] / 1e6,
+               "srflow 128x128->512x512 mode")
+    with precision("mixed"):
+        profile_srflow_stages(smodel, sprior, lr, "srflow 512^2 mixed")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rs = checks[name]
-        # K1 / K2 / K4: the first (flagship-shape) check; K3: the sum of
-        # its four shapes; K5: the sum of its three levels (one launch each)
+        # K1 / K2 / K4: the first (flagship-shape) check; K3 (both forms)
+        # and K6: the sum of their shapes; K5: the sum of its three levels
+        # (one launch each); the probe: its one shape
         timed = rs if name.startswith(("conv3x3", "flow_step")) else rs[:1]
-        by_path = {p: ls[name] for p, ls in launches.items() if ls[name]}
+        by_path = {p: ls[name] for p, ls in launches.items()
+                   if ls.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -369,3 +369,165 @@ def test_small_patch_predictor_kernel_path_matches_twins(dev):
     assert launches["linf_flow_forward"] == 0, launches
     assert launches["conv3x3_cat"] == 2 * 2 + 2 + 5 + 2 + 2, launches
     torch.testing.assert_close(out, ref, rtol=0, atol=5e-4)
+
+
+# --- the bf16 serving modes: K3's one-pass form, K6, the counters per mode
+
+
+@pytest.fixture
+def restore_mode():
+    from bfsr_tpu_torch.ops import nn as fnn
+
+    saved = fnn.precision_mode()
+    yield fnn
+    fnn.set_default_precision(saved)
+
+
+@pytest.mark.parametrize("cins,cout,act,hw", [
+    ([3], 64, "relu", (37, 45)),
+    ([3, 32, 32, 32, 32], 32, "lrelu", (19, 70)),
+    ([16, 16], 16, None, (5, 3)),
+    ([64, 64], 64, "lrelu", (64, 33)),
+    ([35, 6, 64], 8, "lrelu", (40, 31)),
+    ([64], 192, None, (33, 34)),
+    ([6, 64, 64, 64], 64, None, (1, 17)),
+])
+def test_k3_bf16_matches_twin_and_float64(dev, cins, cout, act, hw):
+    """Both sides multiply the same bf16 values exactly: they differ only
+    in the order of the f32 sums (1e-4 abs + 1e-4 rel)."""
+    g = _gen(sum(cins) + cout + 1)
+    xs = [g.standard_normal((1, *hw, c)) for c in cins]
+    w = 0.2 * g.standard_normal((cout, sum(cins), 3, 3))
+    scale = g.random(cout) + 0.5
+    bias = g.standard_normal(cout)
+    xt = [_t(x, dev) for x in xs]
+    args = (_t(w, dev), _t(scale, dev), _t(bias, dev), act)
+    before = kcuda.LAUNCHES["conv3x3_cat_bf16"]
+    got = conv3x3.conv3x3_cat_bf16(xt, *args)
+    assert kcuda.LAUNCHES["conv3x3_cat_bf16"] == before + 1
+    twin = conv3x3.conv3x3_cat_bf16_plain(xt, *args)
+    torch.testing.assert_close(got, twin, rtol=1e-4, atol=1e-4)
+    r = lambda a: torch.from_numpy(a).float().to(torch.bfloat16).double()
+    ref64 = conv3x3.conv3x3_cat_plain(
+        [r(x) for x in xs], r(w), torch.from_numpy(scale),
+        torch.from_numpy(bias), act)
+    np.testing.assert_allclose(got.cpu().numpy(), ref64.numpy(), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_k3_follows_the_stage_precision(dev, restore_mode):
+    fnn = restore_mode
+    g = _gen(9)
+    xs = [_t(g.standard_normal((1, 20, 18, c)), dev) for c in (32, 32)]
+    w = _t(0.2 * g.standard_normal((64, 64, 3, 3)), dev)
+    counts = {}
+    for mode, stage in (("high", None), ("mixed", "encoder"),
+                        ("mixed", "prior"), ("default", None)):
+        fnn.set_default_precision(mode)
+        kcuda.reset_launch_counts()
+        with fnn.stage(stage):
+            got = conv3x3.conv3x3_cat(xs, w, act="lrelu")
+            twin = conv3x3.conv3x3_cat_twin(xs, w, act="lrelu")
+        counts[mode, stage] = (kcuda.LAUNCHES["conv3x3_cat"],
+                               kcuda.LAUNCHES["conv3x3_cat_bf16"])
+        torch.testing.assert_close(got, twin, rtol=1e-4, atol=1e-4)
+    assert counts == {("high", None): (1, 0), ("mixed", "encoder"): (1, 0),
+                      ("mixed", "prior"): (0, 1), ("default", None): (0, 1)}
+
+
+@pytest.mark.parametrize("cout,hw,launches", [(4, (10, 6), 1), (16, (16, 12), 1),
+                                              (100, (21, 19), 2)])
+def test_k6_matches_twin(dev, restore_mode, cout, hw, launches):
+    """K6 on K3's f32 kernel: Cout padded to K3's widths in 64-wide
+    launches and cropped; f32 under ``default`` too."""
+    g = _gen(cout)
+    x = _t(g.standard_normal((1, *hw, 8)), dev)
+    w = _t(g.random((cout, 8, 3, 3)) - 0.5, dev)
+    s = _t(g.random(cout) + 0.5, dev)
+    b = _t(g.standard_normal(cout), dev)
+    restore_mode.set_default_precision("default")
+    kcuda.reset_launch_counts()
+    got = conv3x3.conv3x3_fused(x, w, s, b, "lrelu")
+    assert kcuda.LAUNCHES["conv3x3_fused"] == launches, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES["conv3x3_cat"] == 0
+    assert kcuda.LAUNCHES["conv3x3_cat_bf16"] == 0
+    assert got.shape == (1, *hw, cout) and got.is_contiguous()
+    torch.testing.assert_close(
+        got, conv3x3.conv3x3_cat_plain([x], w, s, b, "lrelu"), rtol=0,
+        atol=1e-4)
+
+
+def test_bf16_wrappers_raise_on_what_kernels_do_not_take(dev):
+    x = torch.zeros((1, 4, 4, 8), device=dev)
+    with pytest.raises(ValueError):   # Cout 48: neither <= 64 in 16s nor 64s
+        conv3x3.conv3x3_cat_bf16([x], torch.zeros((48, 8, 3, 3), device=dev))
+    with pytest.raises(ValueError):   # batch 1 only
+        conv3x3.conv3x3_cat_bf16([torch.zeros((2, 4, 4, 8), device=dev)],
+                                 torch.zeros((8, 8, 3, 3), device=dev))
+    w = torch.zeros((16, 8, 3, 3), device=dev)
+    with pytest.raises(ValueError):   # an f32 layout where bf16 is due
+        conv3x3.conv3x3_cat_bf16([x], w,
+                                 kweight_bf16=conv3x3.kernel_weight(w))
+    with pytest.raises(ValueError):   # K6: batch 1 only
+        conv3x3.conv3x3_fused(torch.zeros((2, 4, 4, 8), device=dev), w)
+
+
+def test_small_predictors_count_launches_per_mode(dev, restore_mode):
+    """The small LINF-LP predictor in each mode: the bf16 K3 takes the
+    prior's 9 full-resolution convs under ``mixed`` and all 15 under
+    ``default``; K1 and K2 stay f32; the image agrees with the twin path
+    in the same mode.  SRFlow-LP under ``mixed``: the bf16 K3 only in
+    the prior (2 branches x 9), K5 6 + 6; ``default`` raises."""
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.entry import example_inputs, flagship_specs
+    from bfsr_tpu_torch.models.base import seeded
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+    from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
+
+    fnn = restore_mode
+    linf_spec, unet_spec = flagship_specs(tiny=True)
+    linf_spec["args"]["hidden_dim"] = 128   # K2 takes hidden 128 / 256
+    model = registry.make(linf_spec)
+    model.reset_parameters(seeded(3))
+    with torch.no_grad():
+        for lin in [*model.imnet.linears, model.imnet.last]:
+            lin._weight.add_(torch.eye(3))
+    model = model.to(dev).freeze()
+    prior = registry.make(unet_spec).to(dev).eval().freeze()
+    inputs = example_inputs(dev, (13, 10), (41, 29), seed=1)
+    want = {"high": (15, 0), "mixed": (6, 9), "default": (0, 15)}
+    outs = {}
+    for mode, (f32, bf16) in want.items():
+        fnn.set_default_precision(mode)
+        kcuda.reset_launch_counts()
+        outs[mode] = LINFPredictor(model, prior).predict(*inputs)
+        got = dict(kcuda.LAUNCHES)
+        assert (got["conv3x3_cat"], got["conv3x3_cat_bf16"]) == (f32, bf16), got
+        assert got["linf_info"] == got["linf_flow_forward"] == 1, got
+        assert got["linf_flow_inverse"] == 1, got
+        ref = LINFPredictor(model, prior, kernels=False).predict(*inputs)
+        assert torch.isfinite(outs[mode]).all()
+        torch.testing.assert_close(outs[mode], ref, rtol=0, atol=1e-3)
+    assert not torch.equal(outs["default"], outs["high"])
+
+    smodel = registry.make({"name": "srflow", "args": {
+        "nf": 16, "nb": 2, "gc": 16, "K": 2, "L": 3, "hidden_channels": 64,
+        "stack_blocks": (0, 1)}})
+    smodel.reset_parameters(seeded(3))
+    sprior = registry.make({"name": "srflow-unet",
+                            "args": {"depth": 2, "dim": 16}})
+    sprior.reset_parameters(seeded(4))
+    smodel = smodel.to(dev).eval().freeze()
+    sprior = sprior.to(dev).eval().freeze()
+    lr = _t(_gen(5).random((13, 10, 3)), dev)
+    fnn.set_default_precision("mixed")
+    kcuda.reset_launch_counts()
+    out = SRFlowLPPredictor(smodel, sprior).predict(lr)
+    got = dict(kcuda.LAUNCHES)
+    assert got["conv3x3_cat_bf16"] == 18 and got["conv3x3_cat"] == 30, got
+    assert got["flow_step_forward"] == got["flow_step_reverse"] == 6, got
+    ref = SRFlowLPPredictor(smodel, sprior, kernels=False).predict(lr)
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-3)
+    fnn.set_default_precision("default")
+    with pytest.raises(NotImplementedError):
+        SRFlowLPPredictor(smodel, sprior).predict(lr)
