@@ -16,12 +16,15 @@ affine.fAffine.{0,2,4}}`` and ``layers.{i}.conv`` (the split).
 
 ``freeze()`` does what ``cache_flow_inverses`` does (the folded actnorm +
 invconv of every step, inverse in float64) and packs each conditional
-step's weights for K5 (``ops.cuda.flow_step.pack_step``); call it again
-after changing the weights.  ``encode`` / ``decode`` run every
-conditional step through K5 (``flow_step_forward`` / ``_reverse``: the
-kernel for a CUDA tensor, its twin for a CPU one) with ``kernels=True``,
-and through the unfused ``an_invconv_fused`` + ``cond_affine`` with
-``kernels=False``.
+step's weights for both forms of K5: ``kpacked`` (f32, ``pack_step``)
+and ``kpacked_bf16`` (the one-pass form's bf16 weights,
+``pack_step_bf16``); call it again after changing the weights.
+``encode`` / ``decode`` run every conditional step through K5
+(``flow_step_forward`` / ``_reverse``, in the form of the stage's
+precision: the kernel for a CUDA tensor, its twin for a CPU one) with
+``kernels=True``, and through the unfused ``an_invconv_fused`` (f32 in
+every mode, as the JAX package's XLA step) + ``cond_affine`` (its convs
+through ``fnn.conv2d``) with ``kernels=False``.
 """
 
 import math
@@ -31,7 +34,8 @@ from torch import nn
 
 from bfsr_tpu_torch.ops import flows
 from bfsr_tpu_torch.ops.cuda.flow_step import (flow_step_forward,
-                                               flow_step_reverse, pack_step)
+                                               flow_step_reverse, pack_step,
+                                               pack_step_bf16)
 
 LEVEL_NAMES = {4: {0: "fea_up4", 1: "fea_up2", 2: "fea_up1", 3: "fea_up0",
                    4: "fea_up-1"}}
@@ -73,16 +77,20 @@ class FlowStep(nn.Module):
         self.hidden = hidden
         self.fold = None     # fold_actnorm_invconv, by freeze()
         self.register_buffer("kpacked", None, persistent=False)
+        self.register_buffer("kpacked_bf16", None, persistent=False)
 
     @torch.no_grad()
     def freeze(self):
         self.fold = flows.fold_actnorm_invconv(self.actnorm, self.invconv)
         if self.affine is not None:
             self.kpacked = pack_step(self.actnorm, self.invconv, self.affine)
+            self.kpacked_bf16 = pack_step_bf16(
+                self.kpacked, self.actnorm.bias.shape[1], self.hidden)
 
     def forward_step(self, x, rec=None, kernels=True):
         if self.affine is not None and kernels:
-            return flow_step_forward(x, rec, self.kpacked, self.hidden)
+            return flow_step_forward(x, rec, self.kpacked, self.hidden,
+                                     self.kpacked_bf16)
         x = flows.an_invconv_fused(x, self.fold)
         if self.affine is not None:
             x = flows.cond_affine(x, rec, self.affine)
@@ -90,7 +98,8 @@ class FlowStep(nn.Module):
 
     def reverse_step(self, x, rec=None, kernels=True):
         if self.affine is not None and kernels:
-            return flow_step_reverse(x, rec, self.kpacked, self.hidden)
+            return flow_step_reverse(x, rec, self.kpacked, self.hidden,
+                                     self.kpacked_bf16)
         if self.affine is not None:
             x = flows.cond_affine(x, rec, self.affine, reverse=True)
         return flows.an_invconv_fused(x, self.fold, reverse=True)

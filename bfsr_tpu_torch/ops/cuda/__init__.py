@@ -10,7 +10,8 @@ import time: a machine without ``nvcc`` or a card imports the package and
 uses the plain twins for CPU tensors.
 
 Each kernel wrapper (``linf_flow`` for K1 and K4, ``linf_info``,
-``conv3x3`` for K3 in f32 and bf16 and for K6, ``flow_step``) dispatches
+``conv3x3`` for K3 in f32 and bf16 and for K6, ``flow_step`` for K5 in
+f32 and bf16) dispatches
 on the device of its tensors: a CPU tensor goes to its plain PyTorch twin,
 a CUDA tensor launches the kernel or raises.  There is no fallback between
 the two.  A wrapper adds one to ``LAUNCHES[name]`` where it launches its
@@ -40,7 +41,8 @@ LAUNCHES = {"linf_flow_forward": 0, "linf_flow_inverse": 0,
             "linf_flow_nd_forward": 0, "linf_flow_nd_inverse": 0,
             "linf_info": 0, "conv3x3_cat": 0, "conv3x3_cat_bf16": 0,
             "conv3x3_fused": 0,
-            "flow_step_forward": 0, "flow_step_reverse": 0}
+            "flow_step_forward": 0, "flow_step_reverse": 0,
+            "flow_step_bf16_forward": 0, "flow_step_bf16_reverse": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +62,8 @@ _SIGNATURES = {
                          _P],
     "flow_step_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flow_step_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flow_step_bf16_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flow_step_bf16_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -166,7 +170,8 @@ def ptr(t):
 
 
 def check_cuda(name, *tensors):
-    """Validate what every kernel takes: f32, contiguous, one CUDA device."""
+    """Validate what every kernel takes: f32, contiguous, one CUDA device
+    (a kernel's bf16 weight buffer is checked by its wrapper)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:

@@ -1,8 +1,10 @@
-"""K5: one fused conditional SRFlow FlowStep, eval only.
+"""K5: one fused conditional SRFlow FlowStep, eval only, in two forms.
 
-Kernel: ``bfsr_tpu_torch/csrc/flow_step.cu``, which replaces
-``bfsr_tpu/ops/pallas/flow_step.py:_fwd_kernel`` / ``_rev_kernel``
-(``step_apply``).
+Kernels: ``bfsr_tpu_torch/csrc/flow_step.cu`` (f32) and
+``bfsr_tpu_torch/csrc/flow_step_bf16.cu`` (the one-pass form: bf16
+operands, f32 accumulation, the tower's conv2 and conv3 on tensor cores),
+which replace ``bfsr_tpu/ops/pallas/flow_step.py:_fwd_kernel`` /
+``_rev_kernel`` (``step_apply``) at passes 3 and 1.
 
 Per pixel, with ``cn = C // 2``, ``co = C - cn`` and a conditioning record
 ``cond = [scale_ft | shift_ft | aff1_ft]`` (``flows.cond_affine_cache_batched``):
@@ -18,20 +20,43 @@ with ``tower(z1)``: ``h = relu((conv3x3(z1; W1) + aff1_ft + an1_b) * an1_e)``,
 with zeros of its own input: z1 outside the image is zero, and so is the
 hidden map ``h`` (which otherwise carries the actnorm biases there).
 
-A step's weights are one float32 buffer (``pack_step``), laid out once at
-``freeze()`` in the kernel's order: the folded actnorm + invconv pair of
+A step's f32 weights are one float32 buffer (``pack_step``), laid out once
+at ``freeze()`` in the kernel's order: the folded actnorm + invconv pair of
 both directions, the tower with ``exp(3 * logs)`` folded into W3 and b3
-and the 'cross' split de-interleaved into ``[scales | shifts]``.  The
-plain twins read the same buffer through ``unpack_step``, so the CPU
-tests hold the layout against the JAX package.  A CPU tensor runs the
-twin; a CUDA tensor launches the kernel or raises.
+and the 'cross' split de-interleaved into ``[scales | shifts]``.
+
+The one-pass form (``BFSR_PRECISION=default``; the JAX kernel's
+``passes == 1``) rounds the operands of five products to bf16 (round to
+nearest even) and sums in f32: the state before the forward fold, z1
+before conv1, the hidden map before conv2 and before conv3, and ``t =
+[x1 | x2] / scale_ft - shift_ft`` before the reverse fold.  Every bias,
+the actnorm vectors, the records, the sigmoid and the coupling's multiply
+and divide stay f32.  Its weights are a second buffer (``pack_step_bf16``,
+a frozen step's ``kpacked_bf16``): the same weights rounded once to bf16.
+
+This follows the JAX *kernel*.  The JAX package's unfused XLA step keeps
+the fold at ``Precision.HIGHEST`` in every mode
+(``bfsr_tpu/ops/flows.py:an_invconv_fused``), and the port's unfused
+path (``FlowStep`` with ``kernels=False``: ``an_invconv_fused`` and
+``cond_affine``) follows that one: fold in f32, the tower through
+``fnn.conv2d`` with the gain applied after conv3.  Under ``default`` the
+kernel path and the unfused path therefore differ by more than sum order.
+
+``flow_step_forward`` / ``flow_step_reverse`` read the stage's precision
+at each call (``ops/nn.py``): the one-pass form in a bf16 stage, f32
+elsewhere.  A CPU tensor runs the plain twin of that form; a CUDA tensor
+launches that kernel or raises.  The twins read the same buffers
+(``unpack_step``, ``unpack_step_bf16``), so the CPU tests hold the layouts
+against the JAX package.
 """
 
 import torch
+import torch.nn.functional as F
 
 from bfsr_tpu_torch.ops import cuda
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.flows import AFFINE_EPS, fold_actnorm_invconv
+from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 
 KERNEL_CHANNELS = (12, 24, 96)
 KERNEL_HIDDEN = 64
@@ -82,56 +107,176 @@ def pack_step(an, invconv, affine):
                       for k, _ in _layout(c, w1.shape[0])]).contiguous()
 
 
+def _numel(shape):
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+def _views(flat, layout, off=0):
+    """{name: view} of ``layout``'s entries in ``flat`` from ``off``, and
+    the offset past the last."""
+    out = {}
+    for name, shape in layout:
+        n = _numel(shape)
+        out[name] = flat[off:off + n].reshape(shape)
+        off += n
+    return out, off
+
+
 def unpack_step(packed, c, hid):
     """Views of a packed step by name (``_layout``)."""
-    out, off = {}, 0
-    for name, shape in _layout(c, hid):
-        n = 1
-        for s in shape:
-            n *= s
-        out[name] = packed[off:off + n].reshape(shape)
-        off += n
+    out, off = _views(packed, _layout(c, hid))
     if off != packed.numel():
         raise ValueError(f"packed step holds {packed.numel()} floats, the "
                          f"layout of C={c}, hidden={hid} {off}")
     return out
 
 
-def _tower(z1, aff1, p):
-    """(scale, shift) of the coupling tower on z1 (1, H, W, cn)."""
+def _layout_bf16(c, hid):
+    """The one-pass buffer: ([(name, shape)] of its f32 words, [(name,
+    shape)] of its bf16 values), in buffer order.  b3 and W3's output
+    columns are zero-padded from 2co to a multiple of 16 (the tensor-core
+    tile).  The fold and W1 hold bf16 values in f32 words: the kernel's
+    FMA loops read them as the f32 kernel does; W2 and W3 are bf16 for the
+    tensor cores."""
+    cn = c // 2
+    n3 = -(-2 * (c - cn) // 16) * 16
+    f32 = [("b_fold", (c,)), ("an_bias", (c,)),
+           ("an1_b", (hid,)), ("an1_e", (hid,)),
+           ("an2_b", (hid,)), ("an2_e", (hid,)), ("b3", (n3,)),
+           ("w_fold", (c, c)), ("w_inv_fold", (c, c)), ("w1", (9, cn, hid))]
+    bf16 = [("w2", (hid, hid)), ("w3", (9, hid, n3))]
+    return f32, bf16
+
+
+def _f32_words(c, hid):
+    """f32 words before the bf16 part: a multiple of 8 (32 bytes)."""
+    n = sum(_numel(s) for _, s in _layout_bf16(c, hid)[0])
+    return -(-n // 8) * 8
+
+
+def _packed_numel(c, hid, bf16=False):
+    """Elements of a packed step: floats of ``pack_step``, or bf16 values
+    of ``pack_step_bf16``."""
+    if bf16:
+        return 2 * _f32_words(c, hid) + sum(
+            _numel(s) for _, s in _layout_bf16(c, hid)[1])
+    return sum(_numel(s) for _, s in _layout(c, hid))
+
+
+@torch.no_grad()
+def pack_step_bf16(packed, c, hid):
+    """A step's ``pack_step`` buffer -> its one-pass buffer (bf16, 1-D):
+    the f32 words of ``_layout_bf16`` (the vectors as they are, the fold
+    and W1 rounded to bf16), bit for bit, then W2 and W3 in bf16."""
+    p = unpack_step(packed, c, hid)
+    f32_layout, bf16_layout = _layout_bf16(c, hid)
+    n3 = dict(f32_layout)["b3"][0]
+    co2 = p["b3"].shape[0]
+    p = {**p, "b3": F.pad(p["b3"], (0, n3 - co2)),
+         "w3": F.pad(p["w3"], (0, n3 - co2))}
+    for k in ("w_fold", "w_inv_fold", "w1"):
+        p[k] = fnn.round_bf16(p[k])
+    words = torch.cat([p[k].reshape(-1).float() for k, _ in f32_layout])
+    words = F.pad(words, (0, _f32_words(c, hid) - words.numel()))
+    return torch.cat([words.view(torch.bfloat16)]
+                     + [p[k].reshape(-1).to(torch.bfloat16)
+                        for k, _ in bf16_layout]).contiguous()
+
+
+def _check_bf16(packed):
+    if packed is None or packed.dtype != torch.bfloat16:
+        raise ValueError("the one-pass K5 form needs the step's bf16 buffer "
+                         "(kpacked_bf16; re-run freeze()), got "
+                         f"{None if packed is None else packed.dtype}")
+
+
+def unpack_step_bf16(packed, c, hid, dtype=torch.float32):
+    """The one-pass buffer's weights by name, as ``dtype`` tensors, b3 and
+    W3 cropped to their 2co columns."""
+    _check_bf16(packed)
+    f32_layout, bf16_layout = _layout_bf16(c, hid)
+    nw = _f32_words(c, hid)
+    out, _ = _views(packed[:2 * nw].view(torch.float32), f32_layout)
+    rest, off = _views(packed, bf16_layout, 2 * nw)
+    if off != packed.numel():
+        raise ValueError(f"one-pass packed step holds {packed.numel()} bf16 "
+                         f"values, the layout of C={c}, hidden={hid} {off}")
+    out.update(rest)
+    co2 = 2 * (c - c // 2)
+    out["b3"], out["w3"] = out["b3"][:co2], out["w3"][..., :co2]
+    return {k: v.to(dtype) for k, v in out.items()}
+
+
+def _conv3x3(x, w, b=None):
+    return nchw_to_nhwc(F.conv2d(nhwc_to_nchw(x), w, b, padding=1))
+
+
+def _keep(t):
+    return t
+
+
+def _tower(z1, aff1, p, rnd=_keep):
+    """(scale, shift) of the coupling tower on z1 (1, H, W, cn); ``rnd``
+    rounds the activation operand of each of its three products."""
     hid = p["an1_b"].shape[0]
     w1 = p["w1"].reshape(3, 3, -1, hid).permute(3, 2, 0, 1)
-    h = torch.relu((fnn.conv2d(z1, w1) + aff1 + p["an1_b"]) * p["an1_e"])
-    h = torch.relu((h @ p["w2"] + p["an2_b"]) * p["an2_e"])
+    h = torch.relu((_conv3x3(rnd(z1), w1) + aff1 + p["an1_b"]) * p["an1_e"])
+    h = torch.relu((rnd(h) @ p["w2"] + p["an2_b"]) * p["an2_e"])
     w3 = p["w3"].reshape(3, 3, hid, -1).permute(3, 2, 0, 1)
-    o = fnn.conv2d(h, w3, p["b3"])
+    o = _conv3x3(rnd(h), w3, p["b3"])
     co = o.shape[-1] // 2
     return torch.sigmoid(o[..., :co] + 2.0) + AFFINE_EPS, o[..., co:]
 
 
-def flow_step_forward_plain(x, cond, packed, hid):
-    """Plain twin of the forward kernel: F.conv2d and elementwise ops."""
+def _forward(x, cond, p, rnd=_keep):
     c = x.shape[-1]
     cn = c // 2
-    p = unpack_step(packed, c, hid)
-    za = (x @ p["w_fold"].T + p["b_fold"] + cond[..., c:2 * c]) * cond[..., :c]
+    za = ((rnd(x) @ p["w_fold"].T + p["b_fold"] + cond[..., c:2 * c])
+          * cond[..., :c])
     z1 = za[..., :cn]
-    scale, shift = _tower(z1, cond[..., 2 * c:], p)
+    scale, shift = _tower(z1, cond[..., 2 * c:], p, rnd)
     return torch.cat([z1, (za[..., cn:] + shift) * scale], -1)
 
 
-def flow_step_reverse_plain(x, cond, packed, hid):
-    """Plain twin of the reverse kernel."""
+def _reverse(x, cond, p, rnd=_keep):
     c = x.shape[-1]
     cn = c // 2
-    p = unpack_step(packed, c, hid)
-    scale, shift = _tower(x[..., :cn], cond[..., 2 * c:], p)
+    scale, shift = _tower(x[..., :cn], cond[..., 2 * c:], p, rnd)
     t = torch.cat([x[..., :cn], x[..., cn:] / scale - shift], -1)
     t = t / cond[..., :c] - cond[..., c:2 * c]
-    return t @ p["w_inv_fold"].T - p["an_bias"]
+    return rnd(t) @ p["w_inv_fold"].T - p["an_bias"]
 
 
-def _check(x, cond, packed, hid):
+def flow_step_forward_plain(x, cond, packed, hid):
+    """Plain twin of the f32 forward kernel: F.conv2d and elementwise ops,
+    f32 in every mode."""
+    return _forward(x, cond, unpack_step(packed, x.shape[-1], hid))
+
+
+def flow_step_reverse_plain(x, cond, packed, hid):
+    """Plain twin of the f32 reverse kernel."""
+    return _reverse(x, cond, unpack_step(packed, x.shape[-1], hid))
+
+
+def flow_step_forward_bf16_plain(x, cond, packed_bf16, hid):
+    """Plain twin of the one-pass forward kernel: the weights of
+    ``packed_bf16``, the operands of the fold, conv1, conv2 and conv3
+    rounded with ``fnn.round_bf16``, products summed in x's dtype."""
+    p = unpack_step_bf16(packed_bf16, x.shape[-1], hid, x.dtype)
+    return _forward(x, cond, p, fnn.round_bf16)
+
+
+def flow_step_reverse_bf16_plain(x, cond, packed_bf16, hid):
+    """Plain twin of the one-pass reverse kernel: conv1-3 as forward, then
+    ``t`` rounded before the inverse fold."""
+    p = unpack_step_bf16(packed_bf16, x.shape[-1], hid, x.dtype)
+    return _reverse(x, cond, p, fnn.round_bf16)
+
+
+def _check(x, cond, packed, hid, bf16):
     if x.ndim != 4 or x.shape[0] != 1:
         raise ValueError(f"flow step: x must be (1, H, W, C), got "
                          f"{tuple(x.shape)}")
@@ -139,11 +284,18 @@ def _check(x, cond, packed, hid):
     if cond.shape != (1, H, W, 2 * c + hid):
         raise ValueError(f"flow step: cond {tuple(cond.shape)} is not "
                          f"(1, {H}, {W}, 2C + hidden = {2 * c + hid})")
-    unpack_step(packed, c, hid)
+    if bf16:
+        _check_bf16(packed)
+    want = _packed_numel(c, hid, bf16)
+    if packed.numel() != want:     # counted, not unpacked: a launch's
+        raise ValueError(          # host time stays below the kernel's
+            f"packed step holds {packed.numel()} values, the "
+            f"{'one-pass ' if bf16 else ''}layout of C={c}, hidden={hid} "
+            f"{want}")
 
 
-def _run(name, x, cond, packed, hid, plain):
-    _check(x, cond, packed, hid)
+def _run(name, x, cond, packed, hid, plain, bf16=False):
+    _check(x, cond, packed, hid, bf16)
     if x.device.type == "cpu":
         return plain(x, cond, packed, hid)
     if x.device.type != "cuda":
@@ -152,29 +304,46 @@ def _run(name, x, cond, packed, hid, plain):
     if c not in KERNEL_CHANNELS or hid != KERNEL_HIDDEN:
         raise ValueError(f"K5 takes C in {KERNEL_CHANNELS} and hidden "
                          f"{KERNEL_HIDDEN}; got C={c}, hidden={hid}")
-    # the kernel reads float4s: every base pointer 16-byte aligned
+    # the kernels read float4s (and the bf16 form 32-byte tensor-core tiles
+    # of its buffer): every base pointer aligned
     x, cond = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                else t.clone(memory_format=torch.contiguous_format)
                for t in (x, cond))
-    if packed.data_ptr() % 16:
-        raise ValueError(f"{name}: the packed weights are not 16-byte aligned")
+    dtype, align = (torch.bfloat16, 32) if bf16 else (torch.float32, 16)
+    if (packed.device != x.device or packed.dtype != dtype
+            or not packed.is_contiguous()):
+        raise ValueError(f"{name}: the packed weights must be contiguous "
+                         f"{dtype} on {x.device}")
+    if packed.data_ptr() % align:
+        raise ValueError(f"{name}: the packed weights are not {align}-byte "
+                         "aligned")
     out = torch.empty_like(x)
-    cuda.check_cuda(name, x, cond, packed, out)
+    cuda.check_cuda(name, x, cond, out)
     cuda.launch(name, cuda.ptr(x), cuda.ptr(cond), cuda.ptr(packed),
                 cuda.ptr(out), H, W, c, hid)
     return out
 
 
-def flow_step_forward(x, cond, packed, hid):
-    """K5 forward on CUDA (C in 12/24/96, hidden 64), the twin on CPU.
+def flow_step_forward(x, cond, packed, hid, packed_bf16=None):
+    """K5 forward at the stage's precision: on CUDA the f32 kernel or, in
+    a bf16 stage, the one-pass kernel (C in 12/24/96, hidden 64); on CPU
+    the twin of that form.
 
-    x: (1, H, W, C) state; cond: (1, H, W, 2C + hid) record; packed: the
-    step's ``pack_step`` buffer.  Returns the next state (1, H, W, C)."""
+    x: (1, H, W, C) state; cond: (1, H, W, 2C + hid) record; packed /
+    packed_bf16: the step's ``pack_step`` / ``pack_step_bf16`` buffers (a
+    frozen step's ``kpacked`` / ``kpacked_bf16``; the bf16 one is needed
+    in a bf16 stage only).  Returns the next state (1, H, W, C)."""
+    if fnn.bf16_stage():
+        return _run("flow_step_bf16_forward", x, cond, packed_bf16, hid,
+                    flow_step_forward_bf16_plain, bf16=True)
     return _run("flow_step_forward", x, cond, packed, hid,
                 flow_step_forward_plain)
 
 
-def flow_step_reverse(x, cond, packed, hid):
-    """K5 reverse on CUDA, the twin on CPU (see ``flow_step_forward``)."""
+def flow_step_reverse(x, cond, packed, hid, packed_bf16=None):
+    """K5 reverse at the stage's precision (see ``flow_step_forward``)."""
+    if fnn.bf16_stage():
+        return _run("flow_step_bf16_reverse", x, cond, packed_bf16, hid,
+                    flow_step_reverse_bf16_plain, bf16=True)
     return _run("flow_step_reverse", x, cond, packed, hid,
                 flow_step_reverse_plain)

@@ -215,14 +215,21 @@ def cond_affine_cache_batched(ft, affines):
     tails batch over a step axis (the 1x1 as a step-batched matmul, the
     out convs as one grouped conv).  Returns a list of contiguous
     ``(1, h, w, 2C + hidden)`` records ``[scale_ft | shift_ft | aff1_ft]``.
+
+    In a bf16 stage the three products take bf16-rounded operands, as the
+    JAX package's reads the stage's precision at each of them (the convs
+    and the 1x1 stay f32 library calls on the rounded values); elsewhere
+    nothing is rounded.
     """
+    rnd = fnn.round_bf16 if fnn.bf16_stage() else (lambda t: t)
     n = len(affines)
     B, h, w, c_ft = ft.shape
     hid = affines[0].fFeatures[0].weight.shape[0]
     c2 = affines[0].fFeatures[4].weight.shape[0]          # 2C
     w1 = torch.cat([a.fFeatures[0].weight for a in affines]
                    + [a.fAffine[0].weight[:, -c_ft:] for a in affines], 0)
-    y = F.conv2d(fnn.nhwc_to_nchw(ft), w1, padding=1)      # (B, 2n*hid, h, w)
+    # (B, 2n*hid, h, w)
+    y = F.conv2d(rnd(fnn.nhwc_to_nchw(ft)), rnd(w1), padding=1)
     ff1 = y[:, : n * hid].reshape(B, n, hid, h, w)
     aff1 = y[:, n * hid:].reshape(B, n, hid, h, w)
 
@@ -233,11 +240,12 @@ def cond_affine_cache_batched(ft, affines):
     z = torch.relu((ff1 + stacked(lambda a: a.fFeatures[0].actnorm.bias))
                    * torch.exp(stacked(lambda a: a.fFeatures[0].actnorm.logs)))
     w2 = torch.stack([a.fFeatures[2].weight[:, :, 0, 0] for a in affines])
-    z = torch.einsum("bnihw,noi->bnohw", z, w2)
+    z = torch.einsum("bnihw,noi->bnohw", rnd(z), rnd(w2))
     z = torch.relu((z + stacked(lambda a: a.fFeatures[2].actnorm.bias))
                    * torch.exp(stacked(lambda a: a.fFeatures[2].actnorm.logs)))
     wout = torch.cat([a.fFeatures[4].weight for a in affines], 0)
-    o = F.conv2d(z.reshape(B, n * hid, h, w), wout, padding=1, groups=n)
+    o = F.conv2d(rnd(z.reshape(B, n * hid, h, w)), rnd(wout), padding=1,
+                 groups=n)
     o = ((o.reshape(B, n, c2, h, w) + stacked(lambda a: a.fFeatures[4].bias))
          * torch.exp(3.0 * stacked(lambda a: a.fFeatures[4].logs)))
     shift, scale = o[:, :, 0::2], o[:, :, 1::2]

@@ -24,8 +24,12 @@ protocol's %2 only.
 Precision modes (``ops/nn.py``): step 7 is the ``prior`` stage, so under
 ``mixed`` the prior's convs take bf16 operands (its 18 full-resolution
 convs on the bf16 K3) while the RRDB, the conditioning and K5 stay f32.
-Under ``default`` the predictor raises: the flow steps would need K5's
-one-pass (bf16) form, which is not ported.
+Under ``default`` every stage is bf16: the RRDB's 345 dense-block convs
+on the bf16 K3 and its other convs through ``fnn.conv2d``, the
+conditioning records (``cond_affine_cache_batched``), the split's conv,
+the 96 conditional steps on K5's one-pass form and the prior as under
+``mixed``; the unconditional steps' folded actnorm + invconv stays f32,
+as in the JAX package.
 """
 
 import numpy as np
@@ -65,11 +69,6 @@ class SRFlowLPPredictor:
         """lr: (1, h, w, 3) with h, w even -> the SR image (1, 4h, 4w, 3),
         unclipped.  ``mark(stage)``, if given, is called after each of
         ``STAGES``."""
-        if fnn.bf16_stage():
-            raise NotImplementedError(
-                "SRFlow-LP under BFSR_PRECISION=default needs K5's one-pass "
-                "(bf16) form (bfsr_tpu/ops/pallas/flow_step.py, passes=1), "
-                "which is not ported; use 'high' or 'mixed'")
         model, k = self.model, self.kernels
         mark = mark or (lambda stage: None)
         s = model.scale

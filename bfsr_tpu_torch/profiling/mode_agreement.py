@@ -3,7 +3,7 @@
 The counterpart of ``bench.py:run_precision_delta``: the PSNR, on the
 [0, 1] scale, between a mode's output and ``high``'s for the same model,
 weights and input.  It runs the flagship LINF-LP (``mixed``, ``default``)
-and SRFlow-LP (``mixed``) kernel paths, random weights from seed 0, inputs
+and SRFlow-LP (``mixed``, ``default``) kernel paths, random weights from seed 0, inputs
 from ``np.random.default_rng(0)``, on any device (the twins on the CPU):
 
     python -m bfsr_tpu_torch.profiling.mode_agreement --device cpu --lr 32
@@ -43,7 +43,8 @@ def in_modes(fn, modes):
 
 
 def run(device="cuda", lr=128, scale=4):
-    """{'linf mixed', 'linf default', 'srflow mixed'}: dB against high."""
+    """{'linf mixed', 'linf default', 'srflow mixed', 'srflow default'}:
+    dB against high."""
     model, prior = build_flagship(device, seed=0)
     inputs = example_inputs(device, (lr, lr), (lr * scale, lr * scale))
     outs = in_modes(lambda: LINFPredictor(model, prior).predict(*inputs),
@@ -54,8 +55,9 @@ def run(device="cuda", lr=128, scale=4):
     img = torch.as_tensor(np.random.default_rng(0).random((lr, lr, 3)),
                           dtype=torch.float32, device=device)
     souts = in_modes(lambda: SRFlowLPPredictor(smodel, sprior).predict(img),
-                     ("high", "mixed"))
-    res["srflow mixed"] = agreement_db(souts["mixed"], souts["high"])
+                     ("high", "mixed", "default"))
+    for m in ("mixed", "default"):
+        res[f"srflow {m}"] = agreement_db(souts[m], souts["high"])
     return res
 
 

@@ -289,6 +289,66 @@ def test_k5_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         flow_step.flow_step_reverse(x, rec, step.kpacked.to(dev), 64)
 
 
+@pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
+                                  (96, (15, 9)), (96, (1, 3)), (12, (2, 1)),
+                                  (24, (64, 33)), (96, (17, 2))])
+def test_k5_bf16_matches_twin(dev, restore_mode, c, hw):
+    """K5's one-pass kernel against its twin on the card, forward then
+    reverse back to x.  Both round the same five operands; their f32 sums
+    differ in order, which can flip the bf16 rounding of an intermediate
+    at a tie by one bf16 unit and move the outputs near it by up to ~1e-2
+    (PERF.md): so the max error is held at 2e-2 and the mean at 1e-4.
+    The round trip is off x by the form's rounding."""
+    step = random_flow_step(c, seed=c)
+    x = _gen(c + 7).standard_normal((1, *hw, c))
+    rec = random_record(hw, c)
+    xt, rt = _t(x, dev), _t(rec, dev)
+    pt, pb = step.kpacked.to(dev), step.kpacked_bf16.to(dev)
+    restore_mode.set_default_precision("default")
+    kcuda.reset_launch_counts()
+    y = flow_step.flow_step_forward(xt, rt, pt, 64, pb)
+    back = flow_step.flow_step_reverse(y, rt, pt, 64, pb)
+    assert kcuda.LAUNCHES["flow_step_bf16_forward"] == 1, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES["flow_step_bf16_reverse"] == 1, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES["flow_step_forward"] == 0, kcuda.LAUNCHES
+    for got, twin in (
+            (y, flow_step.flow_step_forward_bf16_plain(xt, rt, pb, 64)),
+            (back, flow_step.flow_step_reverse_bf16_plain(y, rt, pb, 64))):
+        err = (got - twin).abs()
+        assert torch.isfinite(got).all()
+        assert float(err.max()) <= 2e-2, float(err.max())
+        assert float(err.mean()) <= 1e-4, float(err.mean())
+    np.testing.assert_allclose(back.cpu().numpy(), x, atol=5e-2)
+    f32 = flow_step.flow_step_forward_plain(xt, rt, pt, 64)
+    assert float((y - f32).abs().max()) > 1e-3   # the form rounded
+
+
+def test_k5_bf16_wrapper_raises_on_what_the_kernel_does_not_take(
+        dev, restore_mode):
+    restore_mode.set_default_precision("default")
+    step = random_flow_step(12)
+    x = torch.zeros((1, 4, 4, 12), device=dev)
+    rec = torch.zeros((1, 4, 4, 2 * 12 + 64), device=dev)
+    pt, pb = step.kpacked.to(dev), step.kpacked_bf16.to(dev)
+    with pytest.raises(ValueError, match="kpacked_bf16"):   # none given
+        flow_step.flow_step_forward(x, rec, pt, 64)
+    with pytest.raises(ValueError):   # the f32 buffer where bf16 is due
+        flow_step.flow_step_forward(x, rec, pt, 64, pt)
+    with pytest.raises(ValueError):   # on another device
+        flow_step.flow_step_reverse(x, rec, pt, 64, step.kpacked_bf16)
+    step = random_flow_step(12, hid=16)
+    rec = torch.zeros((1, 4, 4, 2 * 12 + 16), device=dev)
+    with pytest.raises(ValueError):   # hidden 64 only
+        flow_step.flow_step_forward(x, rec, step.kpacked.to(dev), 16,
+                                    step.kpacked_bf16.to(dev))
+    step = random_flow_step(48)
+    x = torch.zeros((1, 4, 4, 48), device=dev)
+    rec = torch.zeros((1, 4, 4, 2 * 48 + 64), device=dev)
+    with pytest.raises(ValueError):   # and C in 12 / 24 / 96
+        flow_step.flow_step_reverse(x, rec, step.kpacked.to(dev), 64,
+                                    step.kpacked_bf16.to(dev))
+
+
 @pytest.mark.parametrize("cins,cout", [([64, 32, 32, 32, 32], 64),
                                        ([64, 32], 32), ([64], 32)])
 def test_k3_at_rrdb_dense_block_shapes(dev, cins, cout):
@@ -477,7 +537,10 @@ def test_small_predictors_count_launches_per_mode(dev, restore_mode):
     prior's 9 full-resolution convs under ``mixed`` and all 15 under
     ``default``; K1 and K2 stay f32; the image agrees with the twin path
     in the same mode.  SRFlow-LP under ``mixed``: the bf16 K3 only in
-    the prior (2 branches x 9), K5 6 + 6; ``default`` raises."""
+    the prior (2 branches x 9), K5 6 + 6; under ``default``: the bf16 K3
+    on the RRDB's 30 dense-block convs and the prior's 18, K5's one-pass
+    form 6 + 6, no f32 kernel; the image within bf16 rounding of the twin
+    path (whose unfused steps keep the fold in f32)."""
     from bfsr_tpu_torch import registry
     from bfsr_tpu_torch.entry import example_inputs, flagship_specs
     from bfsr_tpu_torch.models.base import seeded
@@ -529,5 +592,13 @@ def test_small_predictors_count_launches_per_mode(dev, restore_mode):
     ref = SRFlowLPPredictor(smodel, sprior, kernels=False).predict(lr)
     torch.testing.assert_close(out, ref, rtol=0, atol=5e-3)
     fnn.set_default_precision("default")
-    with pytest.raises(NotImplementedError):
-        SRFlowLPPredictor(smodel, sprior).predict(lr)
+    kcuda.reset_launch_counts()
+    out = SRFlowLPPredictor(smodel, sprior).predict(lr)
+    got = dict(kcuda.LAUNCHES)
+    assert got["conv3x3_cat_bf16"] == 48 and got["conv3x3_cat"] == 0, got
+    assert got["flow_step_bf16_forward"] == 6, got
+    assert got["flow_step_bf16_reverse"] == 6, got
+    assert got["flow_step_forward"] == got["flow_step_reverse"] == 0, got
+    ref = SRFlowLPPredictor(smodel, sprior, kernels=False).predict(lr)
+    assert out.shape == (52, 40, 3) and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-2)

@@ -1,7 +1,7 @@
 """Port parity under the bf16 serving modes: the EDSR encoder, the LINF-LP
-predictor under ``mixed`` and ``default`` and SRFlow-LP under ``mixed``,
-each against the JAX package in the same mode on the same weights; the
-SRFlow-LP ``default`` refusal; the conv probe (P1-P3) on the CPU.
+predictor under ``mixed`` and ``default`` and SRFlow-LP under ``mixed``
+and ``default``, each against the JAX package in the same mode on the
+same weights; the conv probe (P1-P3) on the CPU.
 
 Tolerances.  The EDSR check is tight (1e-4): on the JAX side every conv is
 the s2d Pallas kernel at passes=1 in interpret mode, which rounds both
@@ -25,7 +25,7 @@ from bfsr_tpu.pipelines.linf_eval import LINFPredictor as JLINFPredictor
 from bfsr_tpu.pipelines.srflow_eval import SRFlowLPPredictor as JSRFlowPredictor
 from bfsr_tpu_torch.ops import nn as tnn
 from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
-from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
+from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor, pad_to_even
 from bfsr_tpu_torch.profiling import conv_probe, mode_agreement
 
 from test_torch_precision import restore_modes  # noqa: F401  (fixture)
@@ -97,14 +97,27 @@ def test_srflow_predictor_matches_jax_under_mixed(rng, restore_modes):
 
 
 @pytest.mark.parametrize("kernels", [True, False])
-def test_srflow_predictor_refuses_default(restore_modes, kernels):
-    """K5's one-pass form is not ported: under ``default`` the predictor
-    raises instead of running the flow steps in f32."""
-    _, _, tm, tp = tiny_pair()
-    tnn.set_default_precision("default")
-    with pytest.raises(NotImplementedError, match="K5"):
-        SRFlowLPPredictor(tm, tp, kernels=kernels).predict(
-            torch.zeros((4, 4, 3)))
+def test_srflow_predictor_matches_jax_under_default(rng, restore_modes,
+                                                    kernels):
+    """Every stage bf16: the kernel path runs K5's one-pass twin on each
+    conditional step, the twin path the unfused steps (fold in f32, as the
+    JAX XLA step), so the two paths differ by bf16 rounding (1.9e-2 here),
+    as each differs from ``high``."""
+    jm, jp, tm, tp = tiny_pair()
+    lr = rng.random((7, 9, 3)).astype(np.float32)
+    _set_both("default")
+    ref = JSRFlowPredictor(jm, jp).predict(lr)
+    got = SRFlowLPPredictor(tm, tp, kernels=kernels).predict(
+        torch.from_numpy(lr)).numpy()
+    assert got.shape == (28, 36, 3) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=5e-2)
+    x = pad_to_even(torch.from_numpy(lr))
+    sr = SRFlowLPPredictor(tm, tp, kernels=kernels).run(x)
+    other = SRFlowLPPredictor(tm, tp, kernels=not kernels).run(x)
+    _set_both("high")
+    high = SRFlowLPPredictor(tm, tp, kernels=kernels).run(x)
+    assert 0 < float((sr - high).abs().max()) < 5e-2
+    assert 0 < float((sr - other).abs().max()) < 5e-2
 
 
 def test_conv_probe_runs_on_cpu():
@@ -128,9 +141,10 @@ def test_mode_agreement_runs_on_cpu(restore_modes):
     each mode near high, and the mode restored."""
     tnn.set_default_precision("highest")
     res = mode_agreement.run("cpu", lr=16)
-    assert set(res) == {"linf mixed", "linf default", "srflow mixed"}
+    assert set(res) == {"linf mixed", "linf default", "srflow mixed",
+                        "srflow default"}
     assert res["linf mixed"] > res["linf default"] > 50
-    assert res["srflow mixed"] > 80
+    assert res["srflow mixed"] > res["srflow default"] > 30
     assert tnn.precision_mode() == "highest"
     a = torch.zeros(4)
     assert mode_agreement.agreement_db(a + 0.1, a) == pytest.approx(20.0)
