@@ -1,30 +1,48 @@
 // K5 at passes=1 (BFSR_PRECISION=default): one fused conditional SRFlow
-// FlowStep (eval, no log-det), forward and reverse, with the operands of its
-// five products rounded to bf16 (round to nearest even) and every sum in
-// f32.  Batch 1, NHWC state (H, W, C) with C in {12, 24, 96}, coupling hidden
-// width 64, any H and W.
+// FlowStep (eval, no log-det), forward and reverse, with bf16-rounded
+// operands (round to nearest even) in some of its five products and every
+// sum in f32.  Batch 1, NHWC state (H, W, C) with C in {12, 24, 96},
+// coupling hidden width 64, any H and W.  Two forms, a template flag:
 //
-// Replaces bfsr_tpu/ops/pallas/flow_step.py:_fwd_kernel / _rev_kernel at
-// passes == 1, where _dot3 is one dot(bf16(v), bf16(w)) with f32
-// accumulation.  The rounded operands, as there:
+// XLA form (PALLAS = false; entries flow_step_bf16_forward / _reverse), the
+// form SRFlowLPPredictor serves under default.  It follows the JAX
+// predictor, whose FlowStep kernel is off by default
+// (bfsr_tpu/pipelines/srflow_eval.py:30-46), so its default runs the XLA
+// step: the folds at Precision.HIGHEST (bfsr_tpu/ops/flows.py:144-154), only
+// conv1-3 of the coupling tower at DEFAULT (:386-396) and the Conv2dZeros
+// gain exp(3 logs) applied after conv3 (flow_conv_zeros, :237-240).  Here:
+//   - the folds run f32 FMA on the unrounded state x (forward) and t
+//     (reverse) with the unrounded w_fold / w_inv_fold;
+//   - rounded: z1 before conv1, the hidden map before conv2 and before
+//     conv3 (products 2-4 below);
+//   - W3 is rounded unscaled, and o = (conv3(h; W3) + b3) * g in the f32
+//     epilogue, g = exp(3 logs) from the buffer.
+// Pallas form (PALLAS = true; entries flow_step_bf16_pallas_forward /
+// _reverse, step_form="pallas"): the JAX FlowStep kernel at passes == 1
+// (bfsr_tpu/ops/pallas/flow_step.py:_fwd_kernel / _rev_kernel, with
+// BFSR_SRFLOW_STEP_KERNEL=on), where _dot3 is one dot(bf16(v), bf16(w))
+// with f32 accumulation.  The rounded operands, as there:
 //   1. the state x before the forward fold (folded actnorm + invconv 1x1);
 //   2. z1 (za's first half, zero outside the image) before conv1;
 //   3. the hidden map after actnorm1 + ReLU, before the 1x1 conv2;
 //   4. the hidden map after actnorm2 + ReLU and the image mask, before conv3;
-//   5. t = [x1 | x2] / scale_ft - shift_ft before the reverse fold.
+//   5. t = [x1 | x2] / scale_ft - shift_ft before the reverse fold;
+// and the gain folded into W3 and b3 before W3 is rounded
+// (flow_step.py:31, 112): round(W3 g) where the XLA step has round(W3) g.
 // The weights were rounded once at freeze() (flow_step.py:pack_step_bf16).
-// Everything else is f32: the records, b_fold, an_bias, the actnorm
-// vectors, b3 (exp(3 logs) folded in), the sigmoid and the coupling.
+// Everything else is f32 in both: the records, b_fold, an_bias, the
+// actnorm vectors, b3, the gain, the sigmoid and the coupling.
 //
 // Where each product runs:
 //   - conv2 (64 -> 64, per hidden pixel) and conv3 (9 taps x 64 -> 2co) on
 //     the tensor cores: nvcuda::wmma m16n16k16 bf16 fragments, f32
 //     accumulators; conv3's 2co = 12 / 24 is padded to 16 / 32 columns with
 //     zero weights (in the buffer);
-//   - the C x C folds and conv1 (9 taps x cn, cn = 6 / 12 / 48) as f32 FMA on
-//     the rounded values: a product of two bf16 values is exact in f32, so
-//     this is the same function.  The buffer keeps these weights as bf16
-//     values in f32 words, read as the f32 kernel reads its own.
+//   - the C x C folds and conv1 (9 taps x cn, cn = 6 / 12 / 48) as f32 FMA:
+//     conv1 (and the Pallas form's folds) on rounded values, where a product
+//     of two bf16 values is exact in f32, so this is the same function.  The
+//     buffer keeps these weights in f32 words (bf16 values where rounded),
+//     read as the f32 kernel reads its own.
 // Not carried over from the TPU kernel: the 128-lane pads, the 8-column
 // halos, the level-1 space-to-depth phases, the hi/lo split, the VMEM tile
 // budget.
@@ -85,7 +103,7 @@ template <> struct Tile<96> { static constexpr int TY = 2, GB = 8, GD = 6; };
 constexpr int rup128(int n) { return (n + 127) / 128 * 128; }
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-template <int C>
+template <int C, bool PALLAS>
 struct Geo {
   static constexpr int CN = C / 2, CO = C - C / 2, R = 2 * C + kHid;
   static constexpr int N3 = (2 * CO + 15) / 16 * 16;  // conv3 columns
@@ -100,11 +118,12 @@ struct Geo {
   // the pixel-parallel reads of conv1 are free of bank conflicts
   static constexpr int SZ = (CN / 2) % 2 ? CN : CN + 2;
   // the buffer (bfsr_tpu_torch/ops/cuda/flow_step.py:_layout_bf16): f32
-  // words first, offsets in floats
+  // words first, offsets in floats; the XLA form's gain G3 after b3
   static constexpr int BF = 0, AB = BF + C, AN1B = AB + C;
   static constexpr int AN1E = AN1B + kHid, AN2B = AN1E + kHid;
-  static constexpr int AN2E = AN2B + kHid, B3 = AN2E + kHid;
-  static constexpr int WF = B3 + N3, WI = WF + C * C, W1 = WI + C * C;
+  static constexpr int AN2E = AN2B + kHid, B3 = AN2E + kHid, G3 = B3 + N3;
+  static constexpr int WF = PALLAS ? G3 : G3 + N3, WI = WF + C * C;
+  static constexpr int W1 = WI + C * C;
   static constexpr int NWORDS = (W1 + 9 * CN * kHid + 7) / 8 * 8;
   // then bf16 values, offsets in bf16 from the buffer's start
   static constexpr int W2 = 2 * NWORDS, W3 = W2 + kHid * kHid;
@@ -185,13 +204,13 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                              wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-template <int C, bool REV>
+template <int C, bool REV, bool PALLAS>
 __global__ void __launch_bounds__(kThreads, C == 96 ? 1 : 2)
 flow_step_bf16_kernel(const float* __restrict__ x,
                       const float* __restrict__ cond,
                       const __nv_bfloat16* __restrict__ wb,
                       float* __restrict__ out, int H, int W) {
-  using G = Geo<C>;
+  using G = Geo<C, PALLAS>;
   constexpr int CN = G::CN, CO = G::CO, R = G::R, N3 = G::N3;
   constexpr int TX = G::TX, TY = G::TY, HX = G::HX, WX = G::WX, SZ = G::SZ;
   const float* __restrict__ wf = reinterpret_cast<const float*>(wb);
@@ -222,8 +241,10 @@ flow_step_bf16_kernel(const float* __restrict__ x,
       const size_t pix = static_cast<size_t>(gy) * W + gx;
       float xv[C];
       load_run<C>(xv, x + pix * C);
+      if constexpr (PALLAS) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) xv[c] = round_bf16(xv[c]);  // product 1
+        for (int c = 0; c < C; ++c) xv[c] = round_bf16(xv[c]);  // product 1
+      }
       const float* rec = cond + pix * R;
       const int o0 = g * CN;
 #pragma unroll 1
@@ -371,8 +392,12 @@ flow_step_bf16_kernel(const float* __restrict__ x,
     const int gy = y0 + p / TX, gx = x0 + p % TX;
     if (gy >= H || gx >= W) continue;
     const size_t pix = static_cast<size_t>(gy) * W + gx;
-    const float as = s_o[p * N3 + j] + __ldg(wf + G::B3 + j);
-    const float at = s_o[p * N3 + CO + j] + __ldg(wf + G::B3 + CO + j);
+    float as = s_o[p * N3 + j] + __ldg(wf + G::B3 + j);
+    float at = s_o[p * N3 + CO + j] + __ldg(wf + G::B3 + CO + j);
+    if constexpr (!PALLAS) {  // the gain after conv3, as the XLA step
+      as *= __ldg(wf + G::G3 + j);
+      at *= __ldg(wf + G::G3 + CO + j);
+    }
     const float scale = 1.f / (1.f + expf(-(as + 2.f))) + kAffineEps;
     if constexpr (!REV) {
       out[pix * C + CN + j] = (s_2[p * CO + j] + at) * scale;
@@ -395,7 +420,8 @@ flow_step_bf16_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const float v = c < CN ? __ldg(x + pix * C + c) : s_2[p * CO + c - CN];
-        t[c] = round_bf16(v / __ldg(rec + c) - __ldg(rec + C + c));  // product 5
+        t[c] = v / __ldg(rec + c) - __ldg(rec + C + c);
+        if constexpr (PALLAS) t[c] = round_bf16(t[c]);  // product 5
       }
 #pragma unroll 1
       for (int q = 0; q < QD; ++q) {
@@ -406,25 +432,25 @@ flow_step_bf16_kernel(const float* __restrict__ x,
   }
 }
 
-template <int C, bool REV>
+template <int C, bool REV, bool PALLAS>
 int launch(const float* x, const float* cond, const __nv_bfloat16* wb,
            float* out, int H, int W, cudaStream_t stream) {
-  using G = Geo<C>;
+  using G = Geo<C, PALLAS>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flow_step_bf16_kernel<C, REV>,
+        flow_step_bf16_kernel<C, REV, PALLAS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((W + G::TX - 1) / G::TX, (H + G::TY - 1) / G::TY);
-  flow_step_bf16_kernel<C, REV><<<grid, kThreads, G::SMEM, stream>>>(
+  flow_step_bf16_kernel<C, REV, PALLAS><<<grid, kThreads, G::SMEM, stream>>>(
       x, cond, wb, out, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool REV>
+template <bool REV, bool PALLAS>
 int dispatch(const void* x, const void* cond, const void* packed, void* out,
              int H, int W, int C, int hid, void* stream) {
   if (hid != kHid) return static_cast<int>(cudaErrorInvalidValue);
@@ -435,9 +461,9 @@ int dispatch(const void* x, const void* cond, const void* packed, void* out,
   float* op = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 12: return launch<12, REV>(xp, cp, wp, op, H, W, st);
-    case 24: return launch<24, REV>(xp, cp, wp, op, H, W, st);
-    case 96: return launch<96, REV>(xp, cp, wp, op, H, W, st);
+    case 12: return launch<12, REV, PALLAS>(xp, cp, wp, op, H, W, st);
+    case 24: return launch<24, REV, PALLAS>(xp, cp, wp, op, H, W, st);
+    case 96: return launch<96, REV, PALLAS>(xp, cp, wp, op, H, W, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -445,17 +471,31 @@ int dispatch(const void* x, const void* cond, const void* packed, void* out,
 }  // namespace
 
 // x, out: (H, W, C) NHWC f32; cond: (H, W, 2C + hid) records [scale_ft |
-// shift_ft | aff1_ft]; packed: the step's one-pass buffer
-// (flow_step.py:pack_step_bf16), 32-byte aligned.  C must be 12, 24 or 96
-// and hid 64; x and cond 16-byte aligned.
+// shift_ft | aff1_ft]; packed: the step's one-pass buffer in the entry's
+// form (flow_step.py:pack_step_bf16), 32-byte aligned.  C must be 12, 24 or
+// 96 and hid 64; x and cond 16-byte aligned.
 extern "C" int flow_step_bf16_forward(const void* x, const void* cond,
                                       const void* packed, void* out, int H,
                                       int W, int C, int hid, void* stream) {
-  return dispatch<false>(x, cond, packed, out, H, W, C, hid, stream);
+  return dispatch<false, false>(x, cond, packed, out, H, W, C, hid, stream);
 }
 
 extern "C" int flow_step_bf16_reverse(const void* x, const void* cond,
                                       const void* packed, void* out, int H,
                                       int W, int C, int hid, void* stream) {
-  return dispatch<true>(x, cond, packed, out, H, W, C, hid, stream);
+  return dispatch<true, false>(x, cond, packed, out, H, W, C, hid, stream);
+}
+
+extern "C" int flow_step_bf16_pallas_forward(const void* x, const void* cond,
+                                             const void* packed, void* out,
+                                             int H, int W, int C, int hid,
+                                             void* stream) {
+  return dispatch<false, true>(x, cond, packed, out, H, W, C, hid, stream);
+}
+
+extern "C" int flow_step_bf16_pallas_reverse(const void* x, const void* cond,
+                                             const void* packed, void* out,
+                                             int H, int W, int C, int hid,
+                                             void* stream) {
+  return dispatch<true, true>(x, cond, packed, out, H, W, C, hid, stream);
 }

@@ -14,11 +14,13 @@ at level 1,
 the reference's ``layers.{i}.{actnorm,invconv,affine.fFeatures.{0,2,4},
 affine.fAffine.{0,2,4}}`` and ``layers.{i}.conv`` (the split).
 
-``freeze()`` does what ``cache_flow_inverses`` does (the folded actnorm +
-invconv of every step, inverse in float64) and packs each conditional
-step's weights for both forms of K5: ``kpacked`` (f32, ``pack_step``)
-and ``kpacked_bf16`` (the one-pass form's bf16 weights,
-``pack_step_bf16``); call it again after changing the weights.
+``freeze(step_form="xla")`` does what ``cache_flow_inverses`` does (the
+folded actnorm + invconv of every step, inverse in float64) and packs each
+conditional step's weights for K5: ``kpacked`` (f32, ``pack_step``) and
+``kpacked_bf16`` (the bf16 buffer of the one-pass form ``step_form``
+serves under ``default``, ``pack_step_bf16``: ``"xla"``, the JAX
+predictor's numerics, or ``"pallas"``, the JAX FlowStep kernel's; see
+``ops/cuda/flow_step.py``); call it again after changing the weights.
 ``encode`` / ``decode`` run every conditional step through K5
 (``flow_step_forward`` / ``_reverse``, in the form of the stage's
 precision: the kernel for a CUDA tensor, its twin for a CPU one) with
@@ -76,21 +78,23 @@ class FlowStep(nn.Module):
                        if c_cond is not None else None)
         self.hidden = hidden
         self.fold = None     # fold_actnorm_invconv, by freeze()
+        self.step_form = "xla"   # the one-pass form of kpacked_bf16
         self.register_buffer("kpacked", None, persistent=False)
         self.register_buffer("kpacked_bf16", None, persistent=False)
 
     @torch.no_grad()
-    def freeze(self):
+    def freeze(self, step_form="xla"):
         self.fold = flows.fold_actnorm_invconv(self.actnorm, self.invconv)
         if self.affine is not None:
             self.kpacked = pack_step(self.actnorm, self.invconv, self.affine)
-            self.kpacked_bf16 = pack_step_bf16(
-                self.kpacked, self.actnorm.bias.shape[1], self.hidden)
+            self.kpacked_bf16 = pack_step_bf16(self.actnorm, self.invconv,
+                                               self.affine, step_form)
+            self.step_form = step_form
 
     def forward_step(self, x, rec=None, kernels=True):
         if self.affine is not None and kernels:
             return flow_step_forward(x, rec, self.kpacked, self.hidden,
-                                     self.kpacked_bf16)
+                                     self.kpacked_bf16, self.step_form)
         x = flows.an_invconv_fused(x, self.fold)
         if self.affine is not None:
             x = flows.cond_affine(x, rec, self.affine)
@@ -99,7 +103,7 @@ class FlowStep(nn.Module):
     def reverse_step(self, x, rec=None, kernels=True):
         if self.affine is not None and kernels:
             return flow_step_reverse(x, rec, self.kpacked, self.hidden,
-                                     self.kpacked_bf16)
+                                     self.kpacked_bf16, self.step_form)
         if self.affine is not None:
             x = flows.cond_affine(x, rec, self.affine, reverse=True)
         return flows.an_invconv_fused(x, self.fold, reverse=True)
@@ -125,9 +129,9 @@ class FlowUpsamplerNet(nn.Module):
         return [m for m in self.layers if isinstance(m, FlowStep)]
 
     @torch.no_grad()
-    def freeze(self):
+    def freeze(self, step_form="xla"):
         for m in self.steps():
-            m.freeze()
+            m.freeze(step_form)
         return self
 
     def frozen(self):

@@ -155,9 +155,11 @@ class SRFlowNet(Model):
                     tower[4].bias[1::2] += 2.0
 
     @torch.no_grad()
-    def freeze(self):
+    def freeze(self, step_form="xla"):
+        """``step_form``: the one-pass K5 form served under ``default``
+        (``FlowUpsamplerNet.freeze``)."""
         self.RRDB.freeze()
-        self.flowUpsamplerNet.freeze()
+        self.flowUpsamplerNet.freeze(step_form)
         return self
 
     def cond_keys(self):

@@ -11,7 +11,7 @@ uses the plain twins for CPU tensors.
 
 Each kernel wrapper (``linf_flow`` for K1 and K4, ``linf_info``,
 ``conv3x3`` for K3 in f32 and bf16 and for K6, ``flow_step`` for K5 in
-f32 and bf16) dispatches
+f32 and in its two bf16 forms) dispatches
 on the device of its tensors: a CPU tensor goes to its plain PyTorch twin,
 a CUDA tensor launches the kernel or raises.  There is no fallback between
 the two.  A wrapper adds one to ``LAUNCHES[name]`` where it launches its
@@ -42,7 +42,9 @@ LAUNCHES = {"linf_flow_forward": 0, "linf_flow_inverse": 0,
             "linf_info": 0, "conv3x3_cat": 0, "conv3x3_cat_bf16": 0,
             "conv3x3_fused": 0,
             "flow_step_forward": 0, "flow_step_reverse": 0,
-            "flow_step_bf16_forward": 0, "flow_step_bf16_reverse": 0}
+            "flow_step_bf16_forward": 0, "flow_step_bf16_reverse": 0,
+            "flow_step_bf16_pallas_forward": 0,
+            "flow_step_bf16_pallas_reverse": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +66,8 @@ _SIGNATURES = {
     "flow_step_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flow_step_bf16_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flow_step_bf16_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flow_step_bf16_pallas_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flow_step_bf16_pallas_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

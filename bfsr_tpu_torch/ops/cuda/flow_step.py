@@ -1,7 +1,7 @@
 """K5: one fused conditional SRFlow FlowStep, eval only, in two forms.
 
 Kernels: ``bfsr_tpu_torch/csrc/flow_step.cu`` (f32) and
-``bfsr_tpu_torch/csrc/flow_step_bf16.cu`` (the one-pass form: bf16
+``bfsr_tpu_torch/csrc/flow_step_bf16.cu`` (the one-pass forms: bf16
 operands, f32 accumulation, the tower's conv2 and conv3 on tensor cores),
 which replace ``bfsr_tpu/ops/pallas/flow_step.py:_fwd_kernel`` /
 ``_rev_kernel`` (``step_apply``) at passes 3 and 1.
@@ -25,29 +25,37 @@ at ``freeze()`` in the kernel's order: the folded actnorm + invconv pair of
 both directions, the tower with ``exp(3 * logs)`` folded into W3 and b3
 and the 'cross' split de-interleaved into ``[scales | shifts]``.
 
-The one-pass form (``BFSR_PRECISION=default``; the JAX kernel's
-``passes == 1``) rounds the operands of five products to bf16 (round to
-nearest even) and sums in f32: the state before the forward fold, z1
-before conv1, the hidden map before conv2 and before conv3, and ``t =
-[x1 | x2] / scale_ft - shift_ft`` before the reverse fold.  Every bias,
-the actnorm vectors, the records, the sigmoid and the coupling's multiply
-and divide stay f32.  Its weights are a second buffer (``pack_step_bf16``,
-a frozen step's ``kpacked_bf16``): the same weights rounded once to bf16.
+Under ``BFSR_PRECISION=default`` (a bf16 stage) K5 runs one of two
+one-pass forms, each the JAX package's numerics on one of its paths:
 
-This follows the JAX *kernel*.  The JAX package's unfused XLA step keeps
-the fold at ``Precision.HIGHEST`` in every mode
-(``bfsr_tpu/ops/flows.py:an_invconv_fused``), and the port's unfused
-path (``FlowStep`` with ``kernels=False``: ``an_invconv_fused`` and
-``cond_affine``) follows that one: fold in f32, the tower through
-``fnn.conv2d`` with the gain applied after conv3.  Under ``default`` the
-kernel path and the unfused path therefore differ by more than sum order.
+- ``step_form="xla"``, the form ``SRFlowLPPredictor`` serves: the JAX
+  predictor's XLA step (its FlowStep kernel is off by default,
+  ``bfsr_tpu/pipelines/srflow_eval.py:30-46``).  The folds run f32 on the
+  unrounded state / ``t`` with the unrounded fold weights
+  (``Precision.HIGHEST``, ``bfsr_tpu/ops/flows.py:144-154``); only conv1,
+  conv2 and conv3 of the coupling tower take bf16-rounded operands
+  (``:386-396``); W3 is rounded unscaled and the gain ``exp(3 * logs)``
+  multiplies conv3's f32 sum after its bias (``flow_conv_zeros``,
+  ``:237-240``), as the port's unfused ``FlowStep`` does.  Its buffer
+  (``pack_step_bf16(..., "xla")``) carries the gain as a vector.
+- ``step_form="pallas"``: the JAX FlowStep kernel at passes=1
+  (``bfsr_tpu/ops/pallas/flow_step.py:_fwd_kernel`` / ``_rev_kernel``,
+  ``BFSR_SRFLOW_STEP_KERNEL=on``).  It also rounds the state before the
+  forward fold and ``t = [x1 | x2] / scale_ft - shift_ft`` before the
+  reverse fold, keeps the fold weights rounded, and folds the gain into W3
+  before rounding it (``flow_step.py:31, 112``): ``round(W3 * g)`` where the
+  XLA step has ``round(W3) * g``.
+
+In both, every bias, the actnorm vectors, the records, the sigmoid and the
+coupling's multiply and divide stay f32, and the products sum in f32.  A
+frozen step keeps the buffer of its ``step_form`` as ``kpacked_bf16``.
 
 ``flow_step_forward`` / ``flow_step_reverse`` read the stage's precision
-at each call (``ops/nn.py``): the one-pass form in a bf16 stage, f32
-elsewhere.  A CPU tensor runs the plain twin of that form; a CUDA tensor
-launches that kernel or raises.  The twins read the same buffers
-(``unpack_step``, ``unpack_step_bf16``), so the CPU tests hold the layouts
-against the JAX package.
+at each call (``ops/nn.py``): the one-pass form named by ``step_form`` in
+a bf16 stage, f32 elsewhere.  A CPU tensor runs the plain twin of that
+form; a CUDA tensor launches that kernel or raises.  The twins read the
+same buffers (``unpack_step``, ``unpack_step_bf16``), so the CPU tests hold
+the layouts against the JAX package.
 """
 
 import torch
@@ -74,13 +82,12 @@ def _layout(c, hid):
 
 
 @torch.no_grad()
-def pack_step(an, invconv, affine):
-    """One conditional step's weights -> its packed float32 buffer.
-
-    an / invconv / affine: the step's ``ActNorm``, ``InvConv1x1`` and
-    ``CondAffine`` (``bfsr_tpu_torch.ops.flows``).  Layouts: W1 as
-    (tap, cn, hid), W2 as (in, out), W3 as (tap, hid, 2co) with its output
-    channels reordered [scales | shifts] and the gain folded in."""
+def _step_parts(an, invconv, affine):
+    """A conditional step's weights by name in the kernels' layouts: the
+    folds, W1 as (tap, cn, hid), W2 as (in, out), W3 as (tap, hid, 2co)
+    and b3 with their output channels reordered [scales | shifts], W3 and
+    b3 unscaled, and ``g3``, the Conv2dZeros gain ``exp(3 * logs)`` in the
+    same order."""
     fold = fold_actnorm_invconv(an, invconv)
     tower = affine.fAffine
     c = fold["w_fold"].shape[0]
@@ -93,18 +100,37 @@ def pack_step(an, invconv, affine):
     gain = torch.exp(out.logs.reshape(-1) * 3.0)
     order = torch.cat([torch.arange(co) * 2 + 1, torch.arange(co) * 2])
     order = order.to(gain.device)
-    w3 = (out.weight * gain[:, None, None, None])[order]     # (2co, hid, 3, 3)
-    b3 = (out.bias * gain)[order]
-    parts = {
+    return {
         **fold,
         "w1": w1.permute(2, 3, 1, 0),
         "an1_b": an1_b, "an1_e": torch.exp(an1_s),
         "w2": tower[2].weight[:, :, 0, 0].T,
         "an2_b": an2_b, "an2_e": torch.exp(an2_s),
-        "w3": w3.permute(2, 3, 1, 0), "b3": b3,
+        "w3": out.weight[order].permute(2, 3, 1, 0), "b3": out.bias[order],
+        "g3": gain[order],
     }
+
+
+def _fold_gain(parts):
+    """``parts`` with the gain folded into W3 and b3 (and dropped)."""
+    parts = dict(parts)
+    g = parts.pop("g3")
+    parts["w3"], parts["b3"] = parts["w3"] * g, parts["b3"] * g
+    return parts
+
+
+@torch.no_grad()
+def pack_step(an, invconv, affine):
+    """One conditional step's weights -> its packed float32 buffer.
+
+    an / invconv / affine: the step's ``ActNorm``, ``InvConv1x1`` and
+    ``CondAffine`` (``bfsr_tpu_torch.ops.flows``).  Layouts as
+    ``_step_parts``, with the gain folded into W3 and b3."""
+    parts = _fold_gain(_step_parts(an, invconv, affine))
+    c = parts["w_fold"].shape[0]
     return torch.cat([parts[k].reshape(-1).float()
-                      for k, _ in _layout(c, w1.shape[0])]).contiguous()
+                      for k, _ in _layout(c, parts["w2"].shape[0])]
+                     ).contiguous()
 
 
 def _numel(shape):
@@ -134,55 +160,78 @@ def unpack_step(packed, c, hid):
     return out
 
 
-def _layout_bf16(c, hid):
-    """The one-pass buffer: ([(name, shape)] of its f32 words, [(name,
-    shape)] of its bf16 values), in buffer order.  b3 and W3's output
-    columns are zero-padded from 2co to a multiple of 16 (the tensor-core
-    tile).  The fold and W1 hold bf16 values in f32 words: the kernel's
-    FMA loops read them as the f32 kernel does; W2 and W3 are bf16 for the
-    tensor cores."""
+STEP_FORMS = ("xla", "pallas")
+
+
+def _check_form(form):
+    if form not in STEP_FORMS:
+        raise ValueError(f"step_form must be one of {STEP_FORMS}, got "
+                         f"{form!r}")
+
+
+def _layout_bf16(c, hid, form="xla"):
+    """A one-pass buffer: ([(name, shape)] of its f32 words, [(name,
+    shape)] of its bf16 values), in buffer order.  b3, the ``xla`` form's
+    gain g3 and W3's output columns are zero-padded from 2co to a multiple
+    of 16 (the tensor-core tile).  W1 (and in the ``pallas`` form the
+    folds) hold bf16 values in f32 words, the ``xla`` form's folds f32
+    values: the kernel's FMA loops read them as the f32 kernel does; W2
+    and W3 are bf16 for the tensor cores."""
+    _check_form(form)
     cn = c // 2
     n3 = -(-2 * (c - cn) // 16) * 16
-    f32 = [("b_fold", (c,)), ("an_bias", (c,)),
-           ("an1_b", (hid,)), ("an1_e", (hid,)),
-           ("an2_b", (hid,)), ("an2_e", (hid,)), ("b3", (n3,)),
-           ("w_fold", (c, c)), ("w_inv_fold", (c, c)), ("w1", (9, cn, hid))]
+    gain = [("g3", (n3,))] if form == "xla" else []
+    f32 = ([("b_fold", (c,)), ("an_bias", (c,)),
+            ("an1_b", (hid,)), ("an1_e", (hid,)),
+            ("an2_b", (hid,)), ("an2_e", (hid,)), ("b3", (n3,))] + gain
+           + [("w_fold", (c, c)), ("w_inv_fold", (c, c)),
+              ("w1", (9, cn, hid))])
     bf16 = [("w2", (hid, hid)), ("w3", (9, hid, n3))]
     return f32, bf16
 
 
-def _f32_words(c, hid):
+def _f32_words(c, hid, form="xla"):
     """f32 words before the bf16 part: a multiple of 8 (32 bytes)."""
-    n = sum(_numel(s) for _, s in _layout_bf16(c, hid)[0])
+    n = sum(_numel(s) for _, s in _layout_bf16(c, hid, form)[0])
     return -(-n // 8) * 8
 
 
-def _packed_numel(c, hid, bf16=False):
-    """Elements of a packed step: floats of ``pack_step``, or bf16 values
-    of ``pack_step_bf16``."""
-    if bf16:
-        return 2 * _f32_words(c, hid) + sum(
-            _numel(s) for _, s in _layout_bf16(c, hid)[1])
+def _packed_numel(c, hid, form=None):
+    """Elements of a packed step: floats of ``pack_step`` (``form`` None),
+    or bf16 values of ``pack_step_bf16`` in ``form``."""
+    if form is not None:
+        return 2 * _f32_words(c, hid, form) + sum(
+            _numel(s) for _, s in _layout_bf16(c, hid, form)[1])
     return sum(_numel(s) for _, s in _layout(c, hid))
 
 
 @torch.no_grad()
-def pack_step_bf16(packed, c, hid):
-    """A step's ``pack_step`` buffer -> its one-pass buffer (bf16, 1-D):
-    the f32 words of ``_layout_bf16`` (the vectors as they are, the fold
-    and W1 rounded to bf16), bit for bit, then W2 and W3 in bf16."""
-    p = unpack_step(packed, c, hid)
-    f32_layout, bf16_layout = _layout_bf16(c, hid)
+def pack_step_bf16(an, invconv, affine, form="xla"):
+    """One conditional step's weights -> its one-pass buffer (bf16, 1-D)
+    in ``form`` (``STEP_FORMS``): the f32 words of ``_layout_bf16``, then
+    W2 and W3 in bf16.  ``xla``: the folds and every vector f32, W1, W2
+    and W3 (unscaled) rounded, the gain g3 as a vector.  ``pallas``: the
+    gain folded into W3 and b3 first, then the folds, W1, W2 and W3
+    rounded."""
+    _check_form(form)
+    p = _step_parts(an, invconv, affine)
+    c, hid = p["w_fold"].shape[0], p["w2"].shape[0]
+    rounded = ["w1"]
+    if form == "pallas":
+        p = _fold_gain(p)
+        rounded += ["w_fold", "w_inv_fold"]
+    f32_layout, bf16_layout = _layout_bf16(c, hid, form)
     n3 = dict(f32_layout)["b3"][0]
     co2 = p["b3"].shape[0]
-    p = {**p, "b3": F.pad(p["b3"], (0, n3 - co2)),
-         "w3": F.pad(p["w3"], (0, n3 - co2))}
-    for k in ("w_fold", "w_inv_fold", "w1"):
+    for k in ("b3", "g3", "w3"):
+        if k in p:
+            p[k] = F.pad(p[k], (0, n3 - co2))
+    for k in rounded:
         p[k] = fnn.round_bf16(p[k])
     words = torch.cat([p[k].reshape(-1).float() for k, _ in f32_layout])
-    words = F.pad(words, (0, _f32_words(c, hid) - words.numel()))
+    words = F.pad(words, (0, _f32_words(c, hid, form) - words.numel()))
     return torch.cat([words.view(torch.bfloat16)]
-                     + [p[k].reshape(-1).to(torch.bfloat16)
+                     + [p[k].reshape(-1).float().to(torch.bfloat16)
                         for k, _ in bf16_layout]).contiguous()
 
 
@@ -193,20 +242,25 @@ def _check_bf16(packed):
                          f"{None if packed is None else packed.dtype}")
 
 
-def unpack_step_bf16(packed, c, hid, dtype=torch.float32):
-    """The one-pass buffer's weights by name, as ``dtype`` tensors, b3 and
-    W3 cropped to their 2co columns."""
+def unpack_step_bf16(packed, c, hid, dtype=torch.float32, form="xla"):
+    """A one-pass buffer's weights by name, as ``dtype`` tensors, b3, g3
+    and W3 cropped to their 2co columns."""
     _check_bf16(packed)
-    f32_layout, bf16_layout = _layout_bf16(c, hid)
-    nw = _f32_words(c, hid)
-    out, _ = _views(packed[:2 * nw].view(torch.float32), f32_layout)
-    rest, off = _views(packed, bf16_layout, 2 * nw)
-    if off != packed.numel():
+    want = _packed_numel(c, hid, form)
+    if packed.numel() != want:
         raise ValueError(f"one-pass packed step holds {packed.numel()} bf16 "
-                         f"values, the layout of C={c}, hidden={hid} {off}")
+                         f"values, the {form} layout of C={c}, hidden={hid} "
+                         f"{want}")
+    f32_layout, bf16_layout = _layout_bf16(c, hid, form)
+    nw = _f32_words(c, hid, form)
+    out, _ = _views(packed[:2 * nw].view(torch.float32), f32_layout)
+    rest, _ = _views(packed, bf16_layout, 2 * nw)
     out.update(rest)
     co2 = 2 * (c - c // 2)
-    out["b3"], out["w3"] = out["b3"][:co2], out["w3"][..., :co2]
+    for k in ("b3", "g3"):
+        if k in out:
+            out[k] = out[k][:co2]
+    out["w3"] = out["w3"][..., :co2]
     return {k: v.to(dtype) for k, v in out.items()}
 
 
@@ -220,34 +274,37 @@ def _keep(t):
 
 def _tower(z1, aff1, p, rnd=_keep):
     """(scale, shift) of the coupling tower on z1 (1, H, W, cn); ``rnd``
-    rounds the activation operand of each of its three products."""
+    rounds the activation operand of each of its three products.  With a
+    gain ``g3`` in ``p`` it multiplies conv3's output after the bias."""
     hid = p["an1_b"].shape[0]
     w1 = p["w1"].reshape(3, 3, -1, hid).permute(3, 2, 0, 1)
     h = torch.relu((_conv3x3(rnd(z1), w1) + aff1 + p["an1_b"]) * p["an1_e"])
     h = torch.relu((rnd(h) @ p["w2"] + p["an2_b"]) * p["an2_e"])
     w3 = p["w3"].reshape(3, 3, hid, -1).permute(3, 2, 0, 1)
     o = _conv3x3(rnd(h), w3, p["b3"])
+    if "g3" in p:
+        o = o * p["g3"]
     co = o.shape[-1] // 2
     return torch.sigmoid(o[..., :co] + 2.0) + AFFINE_EPS, o[..., co:]
 
 
-def _forward(x, cond, p, rnd=_keep):
+def _forward(x, cond, p, rnd=_keep, fold_rnd=_keep):
     c = x.shape[-1]
     cn = c // 2
-    za = ((rnd(x) @ p["w_fold"].T + p["b_fold"] + cond[..., c:2 * c])
+    za = ((fold_rnd(x) @ p["w_fold"].T + p["b_fold"] + cond[..., c:2 * c])
           * cond[..., :c])
     z1 = za[..., :cn]
     scale, shift = _tower(z1, cond[..., 2 * c:], p, rnd)
     return torch.cat([z1, (za[..., cn:] + shift) * scale], -1)
 
 
-def _reverse(x, cond, p, rnd=_keep):
+def _reverse(x, cond, p, rnd=_keep, fold_rnd=_keep):
     c = x.shape[-1]
     cn = c // 2
     scale, shift = _tower(x[..., :cn], cond[..., 2 * c:], p, rnd)
     t = torch.cat([x[..., :cn], x[..., cn:] / scale - shift], -1)
     t = t / cond[..., :c] - cond[..., c:2 * c]
-    return rnd(t) @ p["w_inv_fold"].T - p["an_bias"]
+    return fold_rnd(t) @ p["w_inv_fold"].T - p["an_bias"]
 
 
 def flow_step_forward_plain(x, cond, packed, hid):
@@ -262,21 +319,36 @@ def flow_step_reverse_plain(x, cond, packed, hid):
 
 
 def flow_step_forward_bf16_plain(x, cond, packed_bf16, hid):
-    """Plain twin of the one-pass forward kernel: the weights of
-    ``packed_bf16``, the operands of the fold, conv1, conv2 and conv3
-    rounded with ``fnn.round_bf16``, products summed in x's dtype."""
+    """Plain twin of the served (``xla``) one-pass forward kernel: the
+    weights of ``packed_bf16``, the fold in f32 on the unrounded state,
+    the operands of conv1, conv2 and conv3 rounded with
+    ``fnn.round_bf16``, the gain after conv3, sums in x's dtype."""
     p = unpack_step_bf16(packed_bf16, x.shape[-1], hid, x.dtype)
     return _forward(x, cond, p, fnn.round_bf16)
 
 
 def flow_step_reverse_bf16_plain(x, cond, packed_bf16, hid):
-    """Plain twin of the one-pass reverse kernel: conv1-3 as forward, then
-    ``t`` rounded before the inverse fold."""
+    """Plain twin of the served (``xla``) one-pass reverse kernel: conv1-3
+    as forward, the inverse fold in f32 on the unrounded ``t``."""
     p = unpack_step_bf16(packed_bf16, x.shape[-1], hid, x.dtype)
     return _reverse(x, cond, p, fnn.round_bf16)
 
 
-def _check(x, cond, packed, hid, bf16):
+def flow_step_forward_bf16_pallas_plain(x, cond, packed_bf16, hid):
+    """Plain twin of the ``pallas`` one-pass forward kernel: the weights
+    of a ``pallas`` buffer, the operands of all five products rounded."""
+    p = unpack_step_bf16(packed_bf16, x.shape[-1], hid, x.dtype, "pallas")
+    return _forward(x, cond, p, fnn.round_bf16, fnn.round_bf16)
+
+
+def flow_step_reverse_bf16_pallas_plain(x, cond, packed_bf16, hid):
+    """Plain twin of the ``pallas`` one-pass reverse kernel: conv1-3 as
+    forward, then ``t`` rounded before the inverse fold."""
+    p = unpack_step_bf16(packed_bf16, x.shape[-1], hid, x.dtype, "pallas")
+    return _reverse(x, cond, p, fnn.round_bf16, fnn.round_bf16)
+
+
+def _check(x, cond, packed, hid, form):
     if x.ndim != 4 or x.shape[0] != 1:
         raise ValueError(f"flow step: x must be (1, H, W, C), got "
                          f"{tuple(x.shape)}")
@@ -284,18 +356,18 @@ def _check(x, cond, packed, hid, bf16):
     if cond.shape != (1, H, W, 2 * c + hid):
         raise ValueError(f"flow step: cond {tuple(cond.shape)} is not "
                          f"(1, {H}, {W}, 2C + hidden = {2 * c + hid})")
-    if bf16:
+    if form is not None:
         _check_bf16(packed)
-    want = _packed_numel(c, hid, bf16)
+    want = _packed_numel(c, hid, form)
     if packed.numel() != want:     # counted, not unpacked: a launch's
         raise ValueError(          # host time stays below the kernel's
             f"packed step holds {packed.numel()} values, the "
-            f"{'one-pass ' if bf16 else ''}layout of C={c}, hidden={hid} "
-            f"{want}")
+            f"{form + ' one-pass ' if form else ''}layout of C={c}, "
+            f"hidden={hid} {want}")
 
 
-def _run(name, x, cond, packed, hid, plain, bf16=False):
-    _check(x, cond, packed, hid, bf16)
+def _run(name, x, cond, packed, hid, plain, form=None):
+    _check(x, cond, packed, hid, form)
     if x.device.type == "cpu":
         return plain(x, cond, packed, hid)
     if x.device.type != "cuda":
@@ -304,12 +376,13 @@ def _run(name, x, cond, packed, hid, plain, bf16=False):
     if c not in KERNEL_CHANNELS or hid != KERNEL_HIDDEN:
         raise ValueError(f"K5 takes C in {KERNEL_CHANNELS} and hidden "
                          f"{KERNEL_HIDDEN}; got C={c}, hidden={hid}")
-    # the kernels read float4s (and the bf16 form 32-byte tensor-core tiles
-    # of its buffer): every base pointer aligned
+    # the kernels read float4s (and the bf16 forms 32-byte tensor-core
+    # tiles of their buffer): every base pointer aligned
     x, cond = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                else t.clone(memory_format=torch.contiguous_format)
                for t in (x, cond))
-    dtype, align = (torch.bfloat16, 32) if bf16 else (torch.float32, 16)
+    dtype, align = ((torch.float32, 16) if form is None
+                    else (torch.bfloat16, 32))
     if (packed.device != x.device or packed.dtype != dtype
             or not packed.is_contiguous()):
         raise ValueError(f"{name}: the packed weights must be contiguous "
@@ -324,26 +397,41 @@ def _run(name, x, cond, packed, hid, plain, bf16=False):
     return out
 
 
-def flow_step_forward(x, cond, packed, hid, packed_bf16=None):
+# (step form, reverse) -> (the kernel's entry and counter, its plain twin)
+BF16_FORMS = {
+    ("xla", False): ("flow_step_bf16_forward", flow_step_forward_bf16_plain),
+    ("xla", True): ("flow_step_bf16_reverse", flow_step_reverse_bf16_plain),
+    ("pallas", False): ("flow_step_bf16_pallas_forward",
+                        flow_step_forward_bf16_pallas_plain),
+    ("pallas", True): ("flow_step_bf16_pallas_reverse",
+                       flow_step_reverse_bf16_pallas_plain)}
+
+
+def flow_step_forward(x, cond, packed, hid, packed_bf16=None,
+                      step_form="xla"):
     """K5 forward at the stage's precision: on CUDA the f32 kernel or, in
-    a bf16 stage, the one-pass kernel (C in 12/24/96, hidden 64); on CPU
-    the twin of that form.
+    a bf16 stage, the one-pass kernel of ``step_form`` (C in 12/24/96,
+    hidden 64); on CPU the twin of that form.
 
     x: (1, H, W, C) state; cond: (1, H, W, 2C + hid) record; packed /
     packed_bf16: the step's ``pack_step`` / ``pack_step_bf16`` buffers (a
-    frozen step's ``kpacked`` / ``kpacked_bf16``; the bf16 one is needed
-    in a bf16 stage only).  Returns the next state (1, H, W, C)."""
+    frozen step's ``kpacked`` / ``kpacked_bf16``; the bf16 one, in
+    ``step_form``, is needed in a bf16 stage only).  Returns the next
+    state (1, H, W, C)."""
     if fnn.bf16_stage():
-        return _run("flow_step_bf16_forward", x, cond, packed_bf16, hid,
-                    flow_step_forward_bf16_plain, bf16=True)
+        _check_form(step_form)
+        name, plain = BF16_FORMS[step_form, False]
+        return _run(name, x, cond, packed_bf16, hid, plain, step_form)
     return _run("flow_step_forward", x, cond, packed, hid,
                 flow_step_forward_plain)
 
 
-def flow_step_reverse(x, cond, packed, hid, packed_bf16=None):
+def flow_step_reverse(x, cond, packed, hid, packed_bf16=None,
+                      step_form="xla"):
     """K5 reverse at the stage's precision (see ``flow_step_forward``)."""
     if fnn.bf16_stage():
-        return _run("flow_step_bf16_reverse", x, cond, packed_bf16, hid,
-                    flow_step_reverse_bf16_plain, bf16=True)
+        _check_form(step_form)
+        name, plain = BF16_FORMS[step_form, True]
+        return _run(name, x, cond, packed_bf16, hid, plain, step_form)
     return _run("flow_step_reverse", x, cond, packed, hid,
                 flow_step_reverse_plain)

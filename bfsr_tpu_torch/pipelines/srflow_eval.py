@@ -29,7 +29,10 @@ on the bf16 K3 and its other convs through ``fnn.conv2d``, the
 conditioning records (``cond_affine_cache_batched``), the split's conv,
 the 96 conditional steps on K5's one-pass form and the prior as under
 ``mixed``; the unconditional steps' folded actnorm + invconv stays f32,
-as in the JAX package.
+as in the JAX package.  The one-pass form is the one the flow was frozen
+with (``SRFlowNet.freeze(step_form=...)``): ``"xla"`` by default, the JAX
+predictor's numerics (the folds f32, as its XLA step), or ``"pallas"``,
+the JAX FlowStep kernel's.
 """
 
 import numpy as np

@@ -1,13 +1,13 @@
 """Per-image times of the port's flagship predicts, to compare two trees.
 
-Times LINF-LP (LR 128^2 -> HR 512^2), the LINF-LP patch model (LR 128^2,
-172^2 centres -> 516^2) and SRFlow-LP (128^2 -> 512^2, ``high`` and
-``mixed``) on the card: random weights from seed 0, 2 warm-ups, then
-``--blocks`` blocks of ``--per-block`` predicts each, host clock around
+Times LINF-LP (LR 128^2 -> HR 512^2, ``high`` and ``default``), the
+LINF-LP patch model (LR 128^2, 172^2 centres -> 516^2) and SRFlow-LP
+(128^2 -> 512^2, ``high``, ``mixed`` and ``default``) on the card:
+random weights from seed 0, 2 warm-ups, then ``--blocks`` blocks of ``--per-block`` predicts each, host clock around
 synchronised work.  Prints one JSON line with every block's ms per image.
 
-It uses only entry points the port has had since its patch model came
-in, so the same file times an older checkout of the port:
+It uses only entry points the port has had since SRFlow-LP took
+``default``, so the same file times an older checkout of the port:
 
     PYTHONPATH=<checkout> python bfsr_tpu_torch/profiling/path_times.py
 """
@@ -64,6 +64,8 @@ def run(blocks=5, per_block=5):
     pred = LINFPredictor(model, prior)
     res["linf 512"] = block_times(lambda: pred.predict(*inputs), blocks,
                                   per_block)
+    res["linf 512 default"] = block_times(
+        in_mode("default", lambda: pred.predict(*inputs)), blocks, per_block)
     del model, prior, pred, inputs
     pmodel, pprior = build_linf_patch(dev, seed=0)
     pinputs = example_patch_inputs(dev, (128, 128), (172, 172), seed=0)
@@ -75,7 +77,7 @@ def run(blocks=5, per_block=5):
     lr = torch.as_tensor(np.random.default_rng(0).random((128, 128, 3)),
                          dtype=torch.float32, device=dev)
     spred = SRFlowLPPredictor(smodel, sprior)
-    for mode in ("high", "mixed"):
+    for mode in ("high", "mixed", "default"):
         res[f"srflow 512 {mode}"] = block_times(
             in_mode(mode, lambda: spred.predict(lr)), blocks, per_block)
     return res

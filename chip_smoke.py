@@ -41,10 +41,12 @@ fails (non-zero exit, no result line) if any phase fails:
    pairs through the ``sr-implicit-paired-fast-patch`` wrapper on both
    paths (PSNRs finite and within 0.01 dB);
 7. SRFlow-LP: holds K5 (forward and reverse) against its twin at each
-   flow level's shape of a 512^2 image and K3 at an RRDB dense-block conv
-   (5 inputs, 192 -> 64 at 128^2), then runs ``SRFlowLPPredictor.predict``
-   at LR 128x128 -> HR 512x512 and at the ragged LR 101x85 (padded to
-   102x86, cropped back to 404x340) with the launch counters reset first:
+   flow level's shape of a 512^2 image and K3 at two RRDB dense-block convs
+   (conv4, 4 inputs, 160 -> 32, and conv5, 5 inputs, 192 -> 64, at 128^2;
+   conv1-4's Cout-32 shape has the most launches of any K3 shape), then
+   runs ``SRFlowLPPredictor.predict`` at LR 128x128 -> HR 512x512 and at
+   the ragged LR 101x85 (padded to 102x86, cropped back to 404x340) with
+   the launch counters reset first:
    the output must be finite and of the right shape, K5 must have
    launched 48 times each way and K3 at all, and the image must agree with
    the twin path; then times both paths and profiles one 512^2 predict,
@@ -61,17 +63,22 @@ fails (non-zero exit, no result line) if any phase fails:
    ``high``, ``mixed`` and ``default`` interleaved and profiles both
    modes; and SRFlow-LP under ``mixed`` (the bf16 K3 only in the prior,
    18 times; K5 48 + 48 in f32) and its agreement beside ``high``;
-9. SRFlow-LP under ``default`` (every stage bf16): holds K5's one-pass
-   kernel (``csrc/flow_step_bf16.cu``, forward and reverse) against its
-   twin at each flow level's shape of a 512^2 image, with its bf16 bound,
-   then runs ``predict`` at 512^2 and at the ragged 101x85 with the launch
-   counters reset (the bf16 K3 363 times, the f32 K3 0, the one-pass K5
-   48 + 48, the f32 K5 0): the image finite, within a PSNR floor of the
-   twin path in the same mode (the two paths round the flow's state
-   differently), and its agreement with ``high`` at or above its floor;
-   times ``high``, ``mixed`` and ``default`` interleaved at both
-   shapes, splits ``mixed`` and ``default`` into stages and profiles one
-   ``default`` predict.
+9. SRFlow-LP under ``default`` (every stage bf16): holds both of K5's
+   one-pass forms (``csrc/flow_step_bf16.cu``, forward and reverse; the
+   served ``xla`` form, which keeps the folds f32 as the JAX predictor's
+   XLA step does, and the ``pallas`` form, which rounds all five operands
+   as the JAX FlowStep kernel does) against their twins at each flow
+   level's shape of a 512^2 image, with their bf16 bound, and the bf16 K3
+   at the two RRDB convs; then runs ``predict`` at 512^2 and at the ragged
+   101x85 with the launch counters reset (the bf16 K3 363 times, the f32
+   K3 0, the served one-pass K5 48 + 48, the f32 K5 0): the image finite,
+   within a PSNR floor of the twin path in the same mode, and its
+   agreement with ``high`` at or above its floor; runs the ``pallas`` form
+   through its own entry (the flow frozen with ``step_form="pallas"``, one
+   512^2 predict: its K5 48 + 48, its agreement with ``high`` beside the
+   served form's); times ``high``, ``mixed`` and ``default`` interleaved at
+   both shapes, splits ``mixed`` and ``default`` into stages and profiles
+   one ``default`` predict.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -113,23 +120,28 @@ TOL = {"linf_flow_forward": 1e-5, "linf_flow_inverse": 1e-4,
        # values at a tie, and the flips spread through the 34 encoder convs
        # (PERF.md); each path is as close to high as the other
        "mode_image": {"mixed": 1e-3, "default": 5e-3},
-       # K5's one-pass kernel against its twin: the same five operands
+       # K5's one-pass kernels against their twins: the same operands
        # rounded, f32 sums in another order, which can flip an
        # intermediate's bf16 rounding at a tie (PERF.md): max and mean
        # abs err
        "flow_step_bf16_forward": {"max": 2e-2, "mean": 1e-4},
        "flow_step_bf16_reverse": {"max": 2e-2, "mean": 1e-4},
-       # SRFlow-LP under default against its twin path, as PSNR in dB:
-       # the twin path's unfused steps keep the state f32 through each
-       # fold, as the JAX XLA step does, where K5's one-pass form rounds
-       # it (as the JAX kernel does), so the two paths are two bf16
-       # answers, each off high by its own rounding (PERF.md)
-       "srflow_default_twin_db": 30.0}
+       "flow_step_bf16_pallas_forward": {"max": 2e-2, "mean": 1e-4},
+       "flow_step_bf16_pallas_reverse": {"max": 2e-2, "mean": 1e-4},
+       # SRFlow-LP under default against its twin path, as PSNR in dB: the
+       # served xla form rounds what the twin path's unfused steps round, so
+       # the two differ only where sum order flips a bf16 rounding at a tie
+       # (58.0-58.3 dB measured, PERF.md); 50 dB leaves 8 dB of margin and
+       # still refuses the pallas form's 37.2
+       "srflow_default_twin_db": 50.0}
 # agreement (PSNR of a mode's output against high's, [0, 1] scale, as
 # bench.py:run_precision_delta computes it, profiling/mode_agreement.py):
 # sanity floors, in dB
+# srflow default: the twin path's 47.5 dB against high (PERF.md) less 2.5
+# dB of margin; the pallas form, which rounds the flow's state at 96 steps,
+# reads 37.0 dB and keeps a 30 dB sanity floor
 AGREEMENT_FLOOR_DB = {"mixed": 80.0, "default": 50.0, "srflow mixed": 80.0,
-                      "srflow default": 30.0}
+                      "srflow default": 45.0, "srflow default pallas": 30.0}
 # H100 SXM published peaks at 700 W (NVIDIA's data sheet)
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -170,6 +182,10 @@ KERNELS = {
                                "bfsr_tpu/ops/pallas/flow_step.py:261"),
     "flow_step_bf16_reverse": ("bfsr_tpu_torch/csrc/flow_step_bf16.cu",
                                "bfsr_tpu/ops/pallas/flow_step.py:303"),
+    "flow_step_bf16_pallas_forward": ("bfsr_tpu_torch/csrc/flow_step_bf16.cu",
+                                      "bfsr_tpu/ops/pallas/flow_step.py:261"),
+    "flow_step_bf16_pallas_reverse": ("bfsr_tpu_torch/csrc/flow_step_bf16.cu",
+                                      "bfsr_tpu/ops/pallas/flow_step.py:303"),
     "conv3x3_cat_bf16": ("bfsr_tpu_torch/csrc/conv3x3_bf16.cu",
                          "bfsr_tpu/ops/pallas/s2d_conv.py:128"),
     "conv3x3_fused": ("bfsr_tpu_torch/csrc/conv3x3.cu",
@@ -735,14 +751,28 @@ def check_srflow_kernels(model, lr):
                     name, lambda: fn(inp, rec, step.kpacked, hid),
                     lambda: plain(inp, rec, step.kpacked, hid), TOL[name],
                     flops, label, n_bytes))
+    results["conv3x3_cat"] = [check_k3(*case)
+                              for case in rrdb_k3_cases(model, lr)]
+    return results
+
+
+def rrdb_k3_cases(model, lr):
+    """(label, inputs, conv, scale, bias, act) of two RRDB dense-block
+    convs at the LR extent: conv4 (4 inputs, Cout 32, LeakyReLU; conv1-4
+    are 276 of a predict's 363 K3 launches) and conv5 (5 inputs, Cout
+    64), on random inputs from a seeded generator."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
     rdb = model.RRDB.RRDB_trunk[0].RDB1
     nf, gc = rdb.conv1.weight.shape[1], rdb.conv1.weight.shape[0]
     xs = [torch.randn((1, *lr.shape[1:3], ch), generator=gen, device="cuda")
           for ch in [nf] + [gc] * 4]
-    results["conv3x3_cat"] = [check_k3(
-        f"RRDB dense conv5 5 inputs {nf + 4 * gc}->{nf} @{lr.shape[1]}^2",
-        xs, rdb.conv5, None, rdb.conv5.bias, None)]
-    return results
+    hw = lr.shape[1]
+    return [(f"RRDB dense conv4 4 inputs {nf + 3 * gc}->{gc} @{hw}^2",
+             xs[:4], rdb.conv4, None, rdb.conv4.bias, "lrelu"),
+            (f"RRDB dense conv5 5 inputs {nf + 4 * gc}->{nf} @{hw}^2",
+             xs, rdb.conv5, None, rdb.conv5.bias, None)]
 
 
 def check_srflow_predict(model, prior, lr_img, label):
@@ -839,10 +869,12 @@ def check_srflow_mixed(model, prior, lr_img, label, launches_high):
 
 
 def check_srflow_kernels_bf16(model, lr):
-    """K5's one-pass kernel, forward and reverse, against its twin at each
-    level's shape under ``default``: the first conditional step of each
-    level on its ``default`` record for this LR image; the bound at the
-    bf16 peak."""
+    """Both of K5's one-pass forms, forward and reverse, against their
+    twins at each level's shape under ``default``: the first conditional
+    step of each level on its ``default`` record for this LR image, the
+    served ``xla`` form on the step's ``kpacked_bf16``, the ``pallas`` form
+    on a buffer packed here; the bound at the bf16 peak.  Then the bf16 K3
+    at the RRDB's conv4 and conv5."""
     import torch
 
     from bfsr_tpu_torch.ops.cuda import flow_step as k5
@@ -851,22 +883,30 @@ def check_srflow_kernels_bf16(model, lr):
     results = {}
     with precision("default"):
         for e, step, rec in first_steps(model, lr):
-            c, hid, pb = e["c"], step.hidden, step.kpacked_bf16
+            c, hid = e["c"], step.hidden
             hw = rec.shape[1:3]
             x = torch.randn((1, *hw, c), generator=gen, device="cuda")
-            flops, n_bytes = k5_work(c, hid, hw, pb)
             label = f" level {e['level']} ({hw[0]}, {hw[1]}, {c})"
-            with torch.inference_mode():
-                y = k5.flow_step_forward_bf16_plain(x, rec, pb, hid)
-                for name, fn, plain, inp in (
-                        ("flow_step_bf16_forward", k5.flow_step_forward,
-                         k5.flow_step_forward_bf16_plain, x),
-                        ("flow_step_bf16_reverse", k5.flow_step_reverse,
-                         k5.flow_step_reverse_bf16_plain, y)):
-                    results.setdefault(name, []).append(compare(
-                        name, lambda: fn(inp, rec, step.kpacked, hid, pb),
-                        lambda: plain(inp, rec, pb, hid), TOL[name], flops,
-                        label, n_bytes, peak=PEAK_BF16_FLOPS))
+            for form in k5.STEP_FORMS:
+                pb = (step.kpacked_bf16 if form == step.step_form else
+                      k5.pack_step_bf16(step.actnorm, step.invconv,
+                                        step.affine, form))
+                flops, n_bytes = k5_work(c, hid, hw, pb)
+                with torch.inference_mode():
+                    fwd = k5.BF16_FORMS[form, False]
+                    rev = k5.BF16_FORMS[form, True]
+                    y = fwd[1](x, rec, pb, hid)
+                    for (name, plain), fn, inp in (
+                            (fwd, k5.flow_step_forward, x),
+                            (rev, k5.flow_step_reverse, y)):
+                        results.setdefault(name, []).append(compare(
+                            name, lambda: fn(inp, rec, step.kpacked, hid, pb,
+                                             form),
+                            lambda: plain(inp, rec, pb, hid), TOL[name],
+                            flops, f" {form}{label}", n_bytes,
+                            peak=PEAK_BF16_FLOPS))
+    results["conv3x3_cat_bf16"] = [check_k3_bf16(*case)
+                                   for case in rrdb_k3_cases(model, lr)]
     return results
 
 
@@ -922,6 +962,52 @@ def check_srflow_default(model, prior, lr_img, label, launches_high):
         raise RuntimeError(f"srflow predict {label} default: kernel path vs "
                            f"twin path {twin_db:.3f} dB, agreement {db:.3f} "
                            "dB")
+    return launches
+
+
+def check_srflow_default_pallas(model, prior, lr_img, label, launches_high):
+    """K5's ``pallas`` form through its own entry: the flow frozen with
+    ``step_form="pallas"``, one ``default`` predict with the launch counters
+    reset (that form's K5 48 + 48, the served form's 0), its agreement with
+    ``high`` beside the served form's; then the flow frozen back to the
+    served form."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
+    from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
+
+    n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
+    pred = SRFlowLPPredictor(model, prior)
+    high = pred.predict(lr_img)
+    with precision("default"):
+        served = pred.predict(lr_img)
+        model.flowUpsamplerNet.freeze("pallas")
+        try:
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            out = pred.predict(lr_img)
+            torch.cuda.synchronize()
+            launches = dict(cuda.LAUNCHES)
+        finally:
+            model.flowUpsamplerNet.freeze()
+    want = {"flow_step_bf16_pallas_forward": n_cond,
+            "flow_step_bf16_pallas_reverse": n_cond,
+            "flow_step_bf16_forward": 0, "flow_step_bf16_reverse": 0,
+            "conv3x3_cat_bf16": launches_high["conv3x3_cat"]}
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    if wrong or out.shape != high.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"srflow predict {label} default pallas form: "
+                           f"launches {launches}, expected {want}")
+    db, floor = (agreement_db(out, high),
+                 AGREEMENT_FLOOR_DB["srflow default pallas"])
+    log(f"srflow predict {label} default, pallas form: launches "
+        f"{json.dumps(launches)}; agreement vs high {db:.3f} dB (floor "
+        f"{floor:g}), served xla form vs high {agreement_db(served, high):.3f}"
+        f" dB, pallas vs xla form {agreement_db(out, served):.3f} dB")
+    if db < floor:
+        raise RuntimeError(f"srflow predict {label} default pallas form: "
+                           f"agreement {db:.3f} dB")
     return launches
 
 
@@ -1235,6 +1321,8 @@ def main():
         smodel, sprior, lr, "128x128->512x512", launches["srflow"])
     check_srflow_default(smodel, sprior, lr_ragged, "101x85->404x340",
                          launches["srflow"])
+    launches["srflow_default_pallas"] = check_srflow_default_pallas(
+        smodel, sprior, lr, "128x128->512x512", launches["srflow"])
     for tag, img in (("srflow 128x128->512x512", lr),
                      ("srflow 101x85->404x340", lr_ragged)):
         paths = {m: in_mode(m, lambda p=SRFlowLPPredictor(smodel, sprior),
@@ -1254,8 +1342,8 @@ def main():
     for name, (source, replaces) in KERNELS.items():
         rs = checks[name]
         # K1 / K2 / K4: the first (flagship-shape) check; K3 (both forms)
-        # and K6: the sum of their shapes; K5: the sum of its three levels
-        # (one launch each); the probe: its one shape
+        # and K6: the sum of their shapes; K5 (each form): the sum of its
+        # three levels (one launch each); the probe: its one shape
         timed = rs if name.startswith(("conv3x3", "flow_step")) else rs[:1]
         by_path = {p: ls[name] for p, ls in launches.items()
                    if ls.get(name)}

@@ -602,3 +602,95 @@ def test_small_predictors_count_launches_per_mode(dev, restore_mode):
     ref = SRFlowLPPredictor(smodel, sprior, kernels=False).predict(lr)
     assert out.shape == (52, 40, 3) and torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, rtol=0, atol=5e-2)
+
+
+def _k3_case(cins, cout, hw, seed):
+    g = _gen(seed)
+    xs = [g.standard_normal((1, *hw, c)) for c in cins]
+    w = g.standard_normal((cout, sum(cins), 3, 3)) / np.sqrt(9 * sum(cins))
+    return xs, w, g.random(cout) + 0.5, g.standard_normal(cout)
+
+
+# extents off every tile (7 x 130, 129 x 33), the RRDB's 128^2 and one
+# large enough for the 8-row tiles (256 x 544: at least 4 blocks per SM)
+K3_TILINGS = [
+    ([3], (7, 130)), ([3, 5, 7, 9, 11], (129, 33)),
+    ([64, 32, 32, 32], (128, 128)), ([131], (256, 544)), ([6, 64], (129, 33)),
+    ([64, 64], (256, 544)),
+]
+
+
+@pytest.mark.parametrize("cins,hw", K3_TILINGS)
+@pytest.mark.parametrize("cout", [8, 16, 32, 64])
+def test_k3_tilings_match_twin(dev, cins, hw, cout):
+    """K3's f32 kernel at every Cout on each tile choice, ragged edges,
+    1-5 inputs, odd per-input channel counts: against its twin at 1e-4
+    (f32 products, sums in another order)."""
+    xs, w, s, b = _k3_case(cins, cout, hw, sum(cins) + cout)
+    xt, args = [_t(x, dev) for x in xs], (_t(w, dev), _t(s, dev), _t(b, dev))
+    before = kcuda.LAUNCHES["conv3x3_cat"]
+    got = conv3x3.conv3x3_cat(xt, *args, "lrelu")
+    assert kcuda.LAUNCHES["conv3x3_cat"] == before + 1
+    torch.testing.assert_close(
+        got, conv3x3.conv3x3_cat_plain(xt, *args, "lrelu"), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("cins,hw", K3_TILINGS)
+@pytest.mark.parametrize("cout", [8, 16, 32, 64, 128, 192])
+def test_k3_bf16_tilings_match_twin(dev, cins, hw, cout):
+    """The bf16 K3 at every Cout it takes (above 64 in 64-wide blocks) on
+    each tile choice: against its twin at 1e-4 abs + 1e-4 rel (the same
+    bf16 products, f32 sums in another order)."""
+    xs, w, s, b = _k3_case(cins, cout, hw, sum(cins) + cout + 1)
+    xt, args = [_t(x, dev) for x in xs], (_t(w, dev), _t(s, dev), _t(b, dev))
+    before = kcuda.LAUNCHES["conv3x3_cat_bf16"]
+    got = conv3x3.conv3x3_cat_bf16(xt, *args, "relu")
+    assert kcuda.LAUNCHES["conv3x3_cat_bf16"] == before + 1
+    torch.testing.assert_close(
+        got, conv3x3.conv3x3_cat_bf16_plain(xt, *args, "relu"), rtol=1e-4,
+        atol=1e-4)
+
+
+@pytest.mark.parametrize("cout,hw", [(64, (256, 544)), (100, (129, 33))])
+def test_k6_on_both_f32_tiles(dev, cout, hw):
+    """K6 through K3's f32 kernel on its 8-row tile and its small one."""
+    xs, w, s, b = _k3_case([64], cout, hw, cout)
+    x = _t(xs[0], dev)
+    args = (_t(w, dev), _t(s, dev), _t(b, dev), "lrelu")
+    got = conv3x3.conv3x3_fused(x, *args)
+    torch.testing.assert_close(
+        got, conv3x3.conv3x3_cat_plain([x], *args), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("form", ["xla", "pallas"])
+@pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
+                                  (96, (15, 9)), (96, (17, 2))])
+def test_k5_bf16_forms_match_their_twins(dev, restore_mode, form, c, hw):
+    """Each one-pass form against its own twin at each level, forward then
+    reverse: the same operands rounded, sums in another order (max 2e-2 for
+    a tie flip, mean 1e-4).  The two forms are two answers."""
+    step = random_flow_step(c, seed=c)
+    pb = flow_step.pack_step_bf16(step.actnorm, step.invconv, step.affine,
+                                  form).to(dev)
+    x = _gen(c + 9).standard_normal((1, *hw, c))
+    xt, rt = _t(x, dev), _t(random_record(hw, c), dev)
+    pt = step.kpacked.to(dev)
+    restore_mode.set_default_precision("default")
+    kcuda.reset_launch_counts()
+    y = flow_step.flow_step_forward(xt, rt, pt, 64, pb, form)
+    back = flow_step.flow_step_reverse(y, rt, pt, 64, pb, form)
+    name = "flow_step_bf16" if form == "xla" else "flow_step_bf16_pallas"
+    assert kcuda.LAUNCHES[f"{name}_forward"] == 1, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES[f"{name}_reverse"] == 1, kcuda.LAUNCHES
+    fwd = flow_step.BF16_FORMS[form, False][1]
+    rev = flow_step.BF16_FORMS[form, True][1]
+    for got, twin in ((y, fwd(xt, rt, pb, 64)), (back, rev(y, rt, pb, 64))):
+        err = (got - twin).abs()
+        assert torch.isfinite(got).all()
+        assert float(err.max()) <= 2e-2, float(err.max())
+        assert float(err.mean()) <= 1e-4, float(err.mean())
+    other = "pallas" if form == "xla" else "xla"
+    po = flow_step.pack_step_bf16(step.actnorm, step.invconv, step.affine,
+                                  other).to(dev)
+    y2 = flow_step.flow_step_forward(xt, rt, pt, 64, po, other)
+    assert float((y - y2).abs().max()) > 1e-4

@@ -99,10 +99,13 @@ def test_srflow_predictor_matches_jax_under_mixed(rng, restore_modes):
 @pytest.mark.parametrize("kernels", [True, False])
 def test_srflow_predictor_matches_jax_under_default(rng, restore_modes,
                                                     kernels):
-    """Every stage bf16: the kernel path runs K5's one-pass twin on each
-    conditional step, the twin path the unfused steps (fold in f32, as the
-    JAX XLA step), so the two paths differ by bf16 rounding (1.9e-2 here),
-    as each differs from ``high``."""
+    """Every stage bf16.  The kernel path serves K5's ``xla`` one-pass form
+    (its twin here) on each conditional step, the twin path the unfused
+    steps: both keep the fold f32 and round only the coupling tower's
+    operands, as the JAX predictor's XLA step does, so the two paths agree
+    to f32 sum order (1e-4; 0.0 measured here, where the ``pallas`` form
+    that rounds the state too is 2.1e-2 off).  Each is within 5e-2 of the
+    JAX predictor and moved off ``high`` by bf16 rounding."""
     jm, jp, tm, tp = tiny_pair()
     lr = rng.random((7, 9, 3)).astype(np.float32)
     _set_both("default")
@@ -114,10 +117,18 @@ def test_srflow_predictor_matches_jax_under_default(rng, restore_modes,
     x = pad_to_even(torch.from_numpy(lr))
     sr = SRFlowLPPredictor(tm, tp, kernels=kernels).run(x)
     other = SRFlowLPPredictor(tm, tp, kernels=not kernels).run(x)
+    np.testing.assert_allclose(sr.numpy(), other.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    if kernels:    # the Pallas kernel's numerics are another answer
+        tm.flowUpsamplerNet.freeze("pallas")
+        try:
+            pallas = SRFlowLPPredictor(tm, tp).run(x)
+        finally:
+            tm.flowUpsamplerNet.freeze()
+        assert float((pallas - other).abs().max()) > 1e-3
     _set_both("high")
     high = SRFlowLPPredictor(tm, tp, kernels=kernels).run(x)
     assert 0 < float((sr - high).abs().max()) < 5e-2
-    assert 0 < float((sr - other).abs().max()) < 5e-2
 
 
 def test_conv_probe_runs_on_cpu():
@@ -144,7 +155,7 @@ def test_mode_agreement_runs_on_cpu(restore_modes):
     assert set(res) == {"linf mixed", "linf default", "srflow mixed",
                         "srflow default"}
     assert res["linf mixed"] > res["linf default"] > 50
-    assert res["srflow mixed"] > res["srflow default"] > 30
+    assert res["srflow mixed"] > res["srflow default"] > 45
     assert tnn.precision_mode() == "highest"
     a = torch.zeros(4)
     assert mode_agreement.agreement_db(a + 0.1, a) == pytest.approx(20.0)

@@ -1,11 +1,15 @@
-"""Port parity for SRFlow-LP under ``BFSR_PRECISION=default``: K5's one-pass
-(bf16) form, its packed weights, the conditioning records and the flow's
-encode / decode, each against the JAX package in the same mode.
+"""Port parity for SRFlow-LP under ``BFSR_PRECISION=default``: K5's two
+one-pass (bf16) forms, their packed weights, the conditioning records and
+the flow's encode / decode, each against the JAX package in the same mode.
 
-Tolerances.  The one-pass twin is held tight (1e-4 abs + 1e-4 rel) to the
-Pallas kernel at passes=1 in interpret mode: both round the same five
-operands to bf16 and multiply exactly, and differ only in the order of
-their f32 sums (7.2e-7 at most at these shapes).  The rest is loose: on the
+Tolerances.  The ``pallas`` form's twin is held tight (1e-4 abs + 1e-4
+rel) to the Pallas kernel at passes=1 in interpret mode: both round the
+same five operands to bf16 and multiply exactly, and differ only in the
+order of their f32 sums (7.2e-7 at most at these shapes).  The ``xla``
+form's twin (the served one) is held to the port's unfused ``FlowStep``
+in the same mode at 1e-4 abs + 1e-4 rel: both round the operands of conv1,
+conv2 and conv3 only, keep the folds f32 and apply the gain after conv3,
+so they too differ only in sum order.  The rest is loose: on the
 CPU, XLA ignores ``Precision.DEFAULT``, so the JAX conditioning records,
 RRDB and split conv are f32 where the port rounds their operands to bf16
 (records 3e-2, epses 2e-2, the decoded image 5e-2; measured 1.0e-2, 4.1e-3
@@ -50,15 +54,17 @@ def test_k5_one_pass_twin_matches_pallas_kernel_interpret(restore_modes, c,
     ref_f = _np(fsk.unpad_state(zf, h, w, c))
     ref_r = _np(fsk.unpad_state(zr, h, w, c))
     step = port_step(p, c)
+    pb = k5.pack_step_bf16(step.actnorm, step.invconv, step.affine, "pallas")
     rec, xt = record(cache), torch.from_numpy(_np(x))
-    got_f = k5.flow_step_forward(xt, rec, step.kpacked, 64, step.kpacked_bf16)
+    got_f = k5.flow_step_forward(xt, rec, step.kpacked, 64, pb, "pallas")
     np.testing.assert_allclose(got_f.numpy(), ref_f, atol=1e-4, rtol=1e-4)
     yt = torch.from_numpy(ref_f)
-    got_r = k5.flow_step_reverse(yt, rec, step.kpacked, 64, step.kpacked_bf16)
+    got_r = k5.flow_step_reverse(yt, rec, step.kpacked, 64, pb, "pallas")
     np.testing.assert_allclose(got_r.numpy(), ref_r, atol=1e-4, rtol=1e-4)
-    # the wrappers ran the one-pass twin
-    np.testing.assert_array_equal(got_f.numpy(), k5.flow_step_forward_bf16_plain(
-        xt, rec, step.kpacked_bf16, 64).numpy())
+    # the wrappers ran the pallas form's twin
+    np.testing.assert_array_equal(
+        got_f.numpy(),
+        k5.flow_step_forward_bf16_pallas_plain(xt, rec, pb, 64).numpy())
     # the form rounded: it is off the f32 step by far more than f32 noise
     f32_f = k5.flow_step_forward_plain(xt, rec, step.kpacked, 64)
     f32_r = k5.flow_step_reverse_plain(yt, rec, step.kpacked, 64)
@@ -67,12 +73,16 @@ def test_k5_one_pass_twin_matches_pallas_kernel_interpret(restore_modes, c,
 
 
 def test_packed_step_bf16_layout():
+    """The ``pallas`` form's buffer: the f32 buffer's weights (gain folded
+    into W3 and b3) with the folds, W1, W2 and W3 rounded once."""
     c, hid = 24, 64
     p, _, _, _ = _case(c, 4, 4, seed=2)
     step = port_step(p, c)
+    pb = k5.pack_step_bf16(step.actnorm, step.invconv, step.affine, "pallas")
     f32 = k5.unpack_step(step.kpacked, c, hid)
-    bf16 = k5.unpack_step_bf16(step.kpacked_bf16, c, hid)
-    assert step.kpacked_bf16.dtype == torch.bfloat16
+    bf16 = k5.unpack_step_bf16(pb, c, hid, form="pallas")
+    assert pb.dtype == torch.bfloat16
+    assert pb.numel() == k5._packed_numel(c, hid, "pallas")
     assert set(bf16) == set(f32)
     for k in ("w_fold", "w_inv_fold", "w1", "w2", "w3"):   # rounded once
         torch.testing.assert_close(bf16[k], tnn.round_bf16(f32[k]), rtol=0,
@@ -81,13 +91,15 @@ def test_packed_step_bf16_layout():
     for k in ("b_fold", "an_bias", "an1_b", "an1_e", "an2_b", "an2_e", "b3"):
         assert torch.equal(bf16[k], f32[k]), k            # f32, bit for bit
     # W3's columns padded from 2co = 24 to 32 with zeros, in the buffer
-    n = step.kpacked_bf16.numel()
-    w3 = step.kpacked_bf16[n - 9 * hid * 32:].reshape(9, hid, 32)
+    n = pb.numel()
+    w3 = pb[n - 9 * hid * 32:].reshape(9, hid, 32)
     assert not w3[..., 24:].any()
     with pytest.raises(ValueError):
-        k5.unpack_step_bf16(step.kpacked_bf16, c, 32)
+        k5.unpack_step_bf16(pb, c, 32, form="pallas")
     with pytest.raises(ValueError):                       # the f32 buffer
-        k5.unpack_step_bf16(step.kpacked, c, hid)
+        k5.unpack_step_bf16(step.kpacked, c, hid, form="pallas")
+    with pytest.raises(ValueError):                       # the other form
+        k5.unpack_step_bf16(pb, c, hid)
     x = torch.zeros((1, 3, 3, c))
     rec = torch.zeros((1, 3, 3, 2 * c + hid))
     with pytest.raises(ValueError):                       # none given
@@ -143,12 +155,21 @@ def test_default_records_match_jax_and_round_only_in_bf16_stages(
 
 
 def test_encode_decode_default_matches_jax_kernel_ctx(restore_modes):
-    """Encode and decode with ``kernels=True`` (the one-pass twin on every
-    conditional step) against the JAX flow with the Pallas kernel at
-    passes=1 on every conditional step, in interpret mode (jitted once)."""
+    """Encode and decode with ``kernels=True`` (the ``pallas`` form's twin
+    on every conditional step, the flow frozen in that form for the test)
+    against the JAX flow with the Pallas kernel at passes=1 on every
+    conditional step, in interpret mode (jitted once)."""
     jm, _, tm, _ = tiny_pair()
     lr = np.random.default_rng(0).random((1, 6, 10, 3)).astype(np.float32)
     _set_both("default")
+    tm.flowUpsamplerNet.freeze("pallas")
+    try:
+        _encode_decode_against_kernel_ctx(jm, tm, lr)
+    finally:
+        tm.flowUpsamplerNet.freeze()
+
+
+def _encode_decode_against_kernel_ctx(jm, tm, lr):
 
     def run(params, jlr):
         enc = jm.preprocess(params, jlr)
@@ -173,3 +194,75 @@ def test_encode_decode_default_matches_jax_kernel_ctx(restore_modes):
             np.testing.assert_allclose(g.numpy(), _np(r), atol=2e-2)
         sr = tm.reverse_flow([torch.from_numpy(_np(r)) for r in ref_e], cache)
     np.testing.assert_allclose(sr.numpy(), _np(ref_sr), atol=5e-2)
+
+
+def test_packed_step_bf16_xla_layout():
+    """The served (``xla``) form's buffer: the folds and every vector f32
+    bit for bit, W1 and W2 rounded, W3 and b3 unscaled (W3 rounded) and the
+    gain ``exp(3 logs)`` as a vector, in the [scales | shifts] order."""
+    c, hid = 24, 64
+    p, _, _, _ = _case(c, 4, 4, seed=2)
+    step = port_step(p, c)
+    assert step.step_form == "xla"
+    pb = step.kpacked_bf16
+    assert pb.numel() == k5._packed_numel(c, hid, "xla")
+    assert pb.numel() != k5._packed_numel(c, hid, "pallas")
+    got = k5.unpack_step_bf16(pb, c, hid)
+    parts = k5._step_parts(step.actnorm, step.invconv, step.affine)
+    assert set(got) == set(parts)
+    for k in ("w1", "w2", "w3"):
+        want = tnn.round_bf16(parts[k].float()).reshape(got[k].shape)
+        assert torch.equal(got[k], want), k
+    for k in ("w_fold", "w_inv_fold", "b_fold", "an_bias", "an1_b", "an1_e",
+              "an2_b", "an2_e", "b3", "g3"):
+        assert torch.equal(got[k], parts[k].float().reshape(got[k].shape)), k
+    out = step.affine.fAffine[4]
+    gain = torch.exp(out.logs.reshape(-1) * 3.0)
+    torch.testing.assert_close(got["g3"], torch.cat([gain[1::2], gain[0::2]]),
+                               rtol=0, atol=0)
+    assert not torch.equal(got["g3"], torch.ones_like(got["g3"]))
+    # b3, g3 and W3 padded from 2co = 24 to 32 columns with zeros
+    nw = k5._f32_words(c, hid)
+    words = pb[:2 * nw].view(torch.float32)
+    off = 2 * c + 4 * hid
+    assert not words[off + 24:off + 32].any()            # b3's pad
+    assert not words[off + 32 + 24:off + 64].any()       # g3's pad
+    w3 = pb[pb.numel() - 9 * hid * 32:].reshape(9, hid, 32)
+    assert not w3[..., 24:].any()
+
+
+@pytest.mark.parametrize("c,h,w", [(12, 9, 7), (24, 7, 10), (96, 5, 6)])
+def test_k5_xla_twin_matches_unfused_step(restore_modes, c, h, w):
+    """The served form's twin against the port's unfused ``FlowStep``
+    (``kernels=False``: the fold f32, the tower through ``fnn.conv2d``)
+    under ``default``: the same operands rounded, so sum order only (1e-4
+    abs + 1e-4 rel).  The gain's place matters: a twin that folds the gain
+    into W3 before rounding W3 (as the Pallas kernel does) is off the
+    unfused step by far more."""
+    p, _, x, cache = _case(c, h, w, seed=c + 1)
+    step = port_step(p, c)
+    rec, xt = record(cache), torch.from_numpy(_np(x))
+    tnn.set_default_precision("default")
+    with torch.no_grad():
+        _xla_twin_against_unfused(step, xt, rec, c)
+
+
+def _xla_twin_against_unfused(step, xt, rec, c):
+    ref_f = step.forward_step(xt, rec, kernels=False)
+    got_f = k5.flow_step_forward(xt, rec, step.kpacked, 64, step.kpacked_bf16)
+    np.testing.assert_allclose(got_f.numpy(), ref_f.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    ref_r = step.reverse_step(ref_f, rec, kernels=False)
+    got_r = k5.flow_step_reverse(ref_f, rec, step.kpacked, 64,
+                                 step.kpacked_bf16)
+    np.testing.assert_allclose(got_r.numpy(), ref_r.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    # the gain folded into W3 before rounding: round(W3 g) for round(W3) g
+    pw = k5.unpack_step_bf16(step.kpacked_bf16, c, 64)
+    parts = k5._fold_gain(k5._step_parts(step.actnorm, step.invconv,
+                                         step.affine))
+    folded = {**{k: v for k, v in pw.items() if k != "g3"},
+              "w3": tnn.round_bf16(parts["w3"].float()).reshape(9, 64, -1),
+              "b3": parts["b3"].float()}
+    off_f = k5._forward(xt, rec, folded, tnn.round_bf16)
+    assert float((off_f - ref_f).abs().max()) > 1e-3
