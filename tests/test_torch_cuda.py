@@ -245,9 +245,24 @@ def random_record(hw, c, hid=64, seed=1):
                            g.standard_normal((1, *hw, hid))], -1)
 
 
+# the f32 K5's output tiles (csrc/flow_step.cu, Tile<C>): TY x TX
+K5_TILES = {12: (8, 16), 24: (16, 8), 96: (4, 8)}
+
+
+def _k5_tile_shapes():
+    """At each C: two tiles each way exactly, one pixel more in H and W,
+    and (C = 12, 24) a 1-pixel row and a 1-pixel column."""
+    out = []
+    for c, (ty, tx) in K5_TILES.items():
+        out += [(c, (2 * ty, 2 * tx)), (c, (2 * ty + 1, 2 * tx + 1))]
+        if c != 96:
+            out += [(c, (1, 2 * tx + 1)), (c, (2 * ty + 1, 1))]
+    return out
+
+
 @pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
                                   (96, (15, 9)), (96, (1, 3)),
-                                  (12, (64, 64))])
+                                  (12, (64, 64))] + _k5_tile_shapes())
 def test_k5_matches_twin_and_float64(dev, c, hw):
     step = random_flow_step(c, seed=c)
     packed = step.kpacked
@@ -274,6 +289,20 @@ def test_k5_matches_twin_and_float64(dev, c, hw):
     np.testing.assert_allclose(back.cpu().numpy(), r64.numpy(), atol=2e-4,
                                rtol=2e-4)
     np.testing.assert_allclose(back.cpu().numpy(), x, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
+                                  (96, (15, 9))])
+def test_k5_launches_are_bitwise_repeatable(dev, c, hw):
+    """Two launches on the same inputs give the same bits: the split-K
+    partial sums of conv3 meet in a fixed order, with no atomics."""
+    step = random_flow_step(c, seed=c)
+    x = _t(_gen(c + 7).standard_normal((1, *hw, c)), dev)
+    rt, pt = _t(random_record(hw, c), dev), step.kpacked.to(dev)
+    for fn in (flow_step.flow_step_forward, flow_step.flow_step_reverse):
+        first = fn(x, rt, pt, 64)
+        second = fn(x, rt, pt, 64)
+        assert torch.equal(first, second)
 
 
 def test_k5_wrapper_raises_on_what_the_kernel_does_not_take(dev):
