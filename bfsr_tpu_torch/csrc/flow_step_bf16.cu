@@ -31,110 +31,169 @@
 // (flow_step.py:31, 112): round(W3 g) where the XLA step has round(W3) g.
 // The weights were rounded once at freeze() (flow_step.py:pack_step_bf16).
 // Everything else is f32 in both: the records, b_fold, an_bias, the
-// actnorm vectors, b3, the gain, the sigmoid and the coupling.
-//
-// Where each product runs:
-//   - conv2 (64 -> 64, per hidden pixel) and conv3 (9 taps x 64 -> 2co) on
-//     the tensor cores: nvcuda::wmma m16n16k16 bf16 fragments, f32
-//     accumulators; conv3's 2co = 12 / 24 is padded to 16 / 32 columns with
-//     zero weights (in the buffer);
-//   - the C x C folds and conv1 (9 taps x cn, cn = 6 / 12 / 48) as f32 FMA:
-//     conv1 (and the Pallas form's folds) on rounded values, where a product
-//     of two bf16 values is exact in f32, so this is the same function.  The
-//     buffer keeps these weights in f32 words (bf16 values where rounded),
-//     read as the f32 kernel reads its own.
+// actnorm vectors, b3, the gain, the sigmoid and the coupling.  A product
+// of two bf16 values is exact in f32, so the folds of the Pallas form run
+// as f32 FMA on rounded values, the same function.
 // Not carried over from the TPU kernel: the 128-lane pads, the 8-column
 // halos, the level-1 space-to-depth phases, the hi/lo split, the VMEM tile
 // budget.
 //
-// What bounds it on this card: at the bf16 rate, bytes.  Per pixel a step
-// moves (C + (2C + 64) + C) * 4 bytes and does 2*C*C + 2*9*cn*64 + 2*64*64
-// + 2*9*64*C flops (29 K at C = 12 to 193 K at C = 96): 65-232 flop/B,
-// under the 295 flop/B where the H100's bf16 rate and its memory rate
-// balance.  For this first form, the SIMT products (conv1 and the folds, on
-// a halo that grows with small tiles) are the larger cost.
+// What bounds it on this card: bytes.  Per pixel a step moves (C + (2C +
+// 64) + C) * 4 bytes and does 2*C*C + 2*9*cn*64 + 2*64*64 + 2*9*64*C flops
+// (29 K at C = 12 to 193 K at C = 96): 65-232 flop/B, under the 295 flop/B
+// where the H100's bf16 rate and its memory rate balance.  Once the three
+// tower convs run on the tensor cores, what is left is the kernel's
+// skeleton: the halo reads of the state and the records, the weight copies
+// into shared memory (36 KB a block at C = 12, 213 KB at C = 96), the stage
+// barriers and the f32 folds (SIMT, C x C per pixel, the forward one on
+// the 2-pixel halo).
 //
-// Design: the f32 kernel's (csrc/flow_step.cu), with a tile whose rows are
-// one tensor-core M fragment.  A block of 256 threads owns a TY x 16 tile of
-// output pixels:
-//   A. z1 on the (TY+4) x 20 window (2-pixel halo: two stacked 3x3 convs),
-//      rounded to bf16 once here and zero outside the image; forward also
-//      keeps za's second half (f32) for the tile and writes z1 (f32, not
-//      rounded) to the output;
-//   B. conv1 + aff1_ft, actnorm1 + ReLU on the (TY+2) x 18 hidden region,
-//      stored as bf16 with a pixel stride of 80 (160 bytes: every pixel
-//      starts a 32-byte aligned fragment row, rows spread over the banks);
-//      then conv2 on the tensor cores, one warp per 16-pixel fragment of
-//      the flat hidden region: it loads the fragment's 64 channels, then
-//      writes actnorm2 + ReLU back over them in place (no other warp reads
-//      those pixels), ZEROED OUTSIDE THE IMAGE: conv3 pads its input with
-//      zeros, and the hidden map there carries the actnorm biases;
-//   C. conv3 on the tensor cores: one warp per (output row, 16 columns of
-//      2co): 9 taps x 4 k-steps, A from the hidden map at the tap's offset,
-//      B from the buffer (L1/L2); the sums go to shared memory, then
-//      (scale, shift) -> the coupled half;
-//   D. (reverse only) the ft affine and the folded inverse 1x1.
-// Tiles: 8 x 16 at C = 12 (512 blocks at 256^2), 4 x 16 at C = 24 (256 at
-// 128^2), 2 x 16 at C = 96 (128 at 64^2).
+// Design.  A block of 256 threads (8 warps) owns a TY x TX tile of output
+// pixels.  At its start it copies the step's weights into shared memory
+// with 16-byte cp.async, in three groups: the fold this direction needs
+// (f32, C x C), the f32 vectors and (XS levels) the state on the window;
+// W2 and W1 (bf16, rows padded to 72 values so that ldmatrix reads them
+// without bank conflicts); W3 (bf16, 9 taps x 64 x N3 columns), whole or,
+// at C = 96, its first S3 taps, the rest streamed one tap a slot through
+// an S3-slot ring during conv3.
+//   A. z1 on the (TY+4) x (TX+4) window (2-pixel halo: two stacked 3x3
+//      convs), rounded to bf16 once, zero outside the image.  Forward: the
+//      fold, f32 FMA from shared memory, in items of PX pixels x QA
+//      outputs (a float4 of the state feeds 4 QA FMAs, a float4 of the
+//      fold 4 PX); z1 written to the output (f32), za's second half kept
+//      for the tile.  Reverse: x's first half.
+//   B. conv1 and conv2 on the tensor cores (mma.sync.m16n8k16, bf16 in,
+//      f32 accumulate), one warp per 16-pixel M fragment of the flat
+//      (TY+2) x (TX+2) hidden region, all 64 hidden channels (8 n8 tiles:
+//      each A fragment feeds 8 MMAs).  conv1's K is the taps' channels
+//      concatenated (9 cn, zero rows in W1 to the next 16), its A fragment
+//      gathered from the window by 32-bit loads (cn is even, so a pair of
+//      k never straddles a tap), its B by ldmatrix.trans.  Its epilogue
+//      (+ aff1_ft, actnorm1, ReLU) runs on the accumulators, whose layout
+//      is that of conv2's A fragments: the rounded hidden map goes from
+//      registers straight into conv2.  conv2's epilogue (actnorm2, ReLU,
+//      ZEROED OUTSIDE THE IMAGE: conv3 pads its input with zeros, and the
+//      hidden map there carries the actnorm biases) stores bf16 pairs to
+//      the shared hidden map.
+//   C. conv3 on the tensor cores: warps split into M groups (16 output
+//      pixels, A by ldmatrix from the hidden map at the tap's offset) x N
+//      groups (NTW n8 tiles of W3, B by ldmatrix.trans), K = 9 taps x 64
+//      in a fixed order.  W3's columns are interleaved (scale j, shift j),
+//      so each lane holds both halves of its channels: the epilogue (b3,
+//      the XLA form's gain, the sigmoid, the coupling) runs on the
+//      accumulators and writes the coupled half (reverse: x2' to shared
+//      memory).
+//   D. (reverse only) the ft affine, then the folded inverse 1x1 as f32
+//      FMA from shared memory in items of PXD pixels x QD outputs.
+// Every sum runs in a fixed order with no atomics: two launches on the
+// same inputs give the same bits.
+//
+// Tiles, each level's best of three candidates timed side by side with
+// bfsr_tpu_torch/profiling/k5_times.py (NVIDIA H100 80GB HBM3, 700.00 W):
+// 16 x 16 at C = 12 (256 blocks at 256^2, two a SM; 8 x 16 and 8 x 32
+// slower), 16 x 8 at C = 24 (128 blocks at 128^2; 8 x 8 slower, 8 x 16
+// level), 4 x 8 at C = 96 (128 blocks at 64^2; a W3 ring of 2, 4 or 6
+// slots level).  On that card: 0.029 / 0.015 / 0.021 ms forward and 0.030
+// / 0.016 / 0.019 ms reverse at 256^2 x 12 / 128^2 x 24 / 64^2 x 96, 30 /
+// 20 / 11% of the bf16 byte bound; the f32 kernel takes 0.082 / 0.037 /
+// 0.057.  What holds it there: at C = 12 the MMAs (~2,500 a block with
+// the halo and the pads, ~11 us of the 29 at the rate mma.sync reaches
+// here) and the weight copies (~4 us); at C = 96 the halo recompute of
+// the forward fold and the weight copies (~210 KB a block).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHid = 64;
-constexpr int kTX = 16;          // output columns: one M fragment per row
-constexpr int kSH = kHid + 16;   // hidden-map pixel stride, bf16 (160 B)
+constexpr int kLD = kHid + 8;  // W1, W2 and hidden-map row stride, bf16
 constexpr float kAffineEps = 1e-4f;
 
-// per level: output rows TY; conv1 channel groups GB; stage D groups GD
+// Per level: output tile TY x TX (TY * TX a multiple of 16); S3 slots of
+// one W3 tap (9: whole); items of the forward fold PX pixels x QA outputs,
+// of the inverse fold PXD pixels x QD outputs; XS: the forward fold reads
+// the state from a copy of the window in shared memory (else from global
+// memory); MINB blocks per SM.
 template <int C> struct Tile;
-template <> struct Tile<12> { static constexpr int TY = 8, GB = 4, GD = 1; };
-template <> struct Tile<24> { static constexpr int TY = 4, GB = 4, GD = 3; };
-template <> struct Tile<96> { static constexpr int TY = 2, GB = 8, GD = 6; };
+template <> struct Tile<12> {
+  static constexpr int TY = 16, TX = 16, S3 = 9, PX = 1, QA = 6, PXD = 1,
+                       QD = 6, XS = 0, MINB = 2;
+};
+template <> struct Tile<24> {
+  static constexpr int TY = 16, TX = 8, S3 = 9, PX = 1, QA = 12, PXD = 1,
+                       QD = 6, XS = 1, MINB = 1;
+};
+template <> struct Tile<96> {
+  static constexpr int TY = 4, TX = 8, S3 = 2, PX = 4, QA = 6, PXD = 2,
+                       QD = 6, XS = 1, MINB = 1;
+};
 
 constexpr int rup128(int n) { return (n + 127) / 128 * 128; }
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <int C, bool PALLAS>
 struct Geo {
+  using T = Tile<C>;
   static constexpr int CN = C / 2, CO = C - C / 2, R = 2 * C + kHid;
-  static constexpr int N3 = (2 * CO + 15) / 16 * 16;  // conv3 columns
-  static constexpr int TY = Tile<C>::TY, TX = kTX;
+  // W3's columns in the buffer, and conv3's n8 tiles (past 2co: zeros)
+  static constexpr int N3 = (2 * CO + 15) / 16 * 16, NT3 = (2 * CO + 7) / 8;
+  static constexpr int TY = T::TY, TX = T::TX;
   static constexpr int HY = TY + 2, HX = TX + 2, NH = HY * HX;
-  static constexpr int NHP = (NH + 15) / 16 * 16;     // conv2 M, padded
+  static constexpr int MH = (NH + 15) / 16;  // conv1 / conv2 M fragments
   static constexpr int WY = TY + 4, WX = TX + 4, NW = WY * WX;
-  static constexpr int NO = TY * TX;
-  static constexpr int GB = Tile<C>::GB, QB = kHid / GB;
-  static constexpr int GD = Tile<C>::GD, QD = C / GD;
-  // z1 pixel stride (bf16): even, with an odd number of 32-bit words, so
-  // the pixel-parallel reads of conv1 are free of bank conflicts
+  static constexpr int NO = TY * TX, MO = NO / 16;  // conv3 M fragments
+  static constexpr int K1 = 9 * CN, K1P = (K1 + 15) / 16 * 16;
+  // conv3: warp = mg * NG3 + ng, NG3 N groups of NTW n8 tiles, MG3 M
+  // groups of MFW fragments
+  static constexpr int NG3 = MO >= kWarps ? 1 : kWarps / MO;
+  static constexpr int NTW = NT3 / NG3, MG3 = kWarps / NG3;
+  static constexpr int MFW = (MO + MG3 - 1) / MG3;
+  static constexpr int S3 = T::S3, NG3C = S3 == 9 ? 1 : S3;  // W3 groups
+  static constexpr int QA = T::QA, GA = CN / QA, QD = T::QD, GD = C / QD;
+  static constexpr int PX = T::PX, PXD = T::PXD;
+  static constexpr bool XS = T::XS;
+  static constexpr int SX = C + 4;  // the state's window copy, f32
+  // z1 pixel stride (bf16): even, an odd number of 32-bit words
   static constexpr int SZ = (CN / 2) % 2 ? CN : CN + 2;
+  static constexpr int S2 = CO | 1, ST = C + 1;  // za2 / x2', t (f32)
+  static constexpr int LD3 = N3 + 8;             // W3 row stride, bf16
   // the buffer (bfsr_tpu_torch/ops/cuda/flow_step.py:_layout_bf16): f32
   // words first, offsets in floats; the XLA form's gain G3 after b3
   static constexpr int BF = 0, AB = BF + C, AN1B = AB + C;
   static constexpr int AN1E = AN1B + kHid, AN2B = AN1E + kHid;
   static constexpr int AN2E = AN2B + kHid, B3 = AN2E + kHid, G3 = B3 + N3;
-  static constexpr int WF = PALLAS ? G3 : G3 + N3, WI = WF + C * C;
-  static constexpr int W1 = WI + C * C;
-  static constexpr int NWORDS = (W1 + 9 * CN * kHid + 7) / 8 * 8;
+  static constexpr int NVEC = PALLAS ? G3 : G3 + N3;  // the vectors
+  static constexpr int WF = NVEC, WI = WF + C * C;
+  static constexpr int NWORDS = (WI + C * C + 7) / 8 * 8;
   // then bf16 values, offsets in bf16 from the buffer's start
-  static constexpr int W2 = 2 * NWORDS, W3 = W2 + kHid * kHid;
-  // shared memory, in bytes
-  static constexpr int S_H = 0;                                  // (NHP, kSH) bf16
-  static constexpr int S_O = S_H + rup128(NHP * kSH * 2);        // (NO, N3) f32
-  static constexpr int S_2 = S_O + rup128(cmax(NO * N3, kWarps * 256) * 4);
-  static constexpr int S_Z = S_2 + rup128(NO * CO * 4);          // (NW, SZ) bf16
-  static constexpr int SMEM = S_Z + rup128(NW * SZ * 2);
+  static constexpr int W1 = 2 * NWORDS, W2 = W1 + K1P * kHid;
+  static constexpr int W3 = W2 + kHid * kHid;
+  // shared memory, in bytes: vectors | W2 | hidden map | za2 / x2' | W3
+  // slots | fold | z1 window | W1 | (XS) the state on the window; reverse:
+  // t over the z1 window and W1
+  static constexpr int B_W2 = rup128(NVEC * 4);
+  static constexpr int B_H = B_W2 + rup128(kHid * kLD * 2);
+  static constexpr int B_2 = B_H + rup128(MH * 16 * kLD * 2);
+  static constexpr int B_W3 = B_2 + rup128(NO * S2 * 4);
+  static constexpr int B_F = B_W3 + rup128(S3 * kHid * LD3 * 2);
+  static constexpr int B_Z = B_F + rup128(C * C * 4);
+  static constexpr int B_W1 = B_Z + rup128(NW * SZ * 2);
+  static constexpr int B_X = B_W1 + rup128(K1P * kLD * 2);
+  static constexpr int SMEM = cmax(B_X + (XS ? rup128(NW * SX * 4) : 0),
+                                   B_Z + rup128(NO * ST * 4));
   static_assert(C % 4 == 0 && CN == CO && CN % 2 == 0, "C");
-  static_assert(QB % 8 == 0 && C % GD == 0, "channel groups");
+  static_assert(NO % 16 == 0 && (MO >= kWarps ? MO % kWarps == 0
+                                              : kWarps % MO == 0), "tile");
+  static_assert(NT3 % NG3 == 0, "conv3 N groups");
+  static_assert(CN % QA == 0 && QA % 2 == 0 && C % QD == 0 && QD % 2 == 0 &&
+                NO % PX == 0 && NO % PXD == 0, "fold items");
+  static_assert(S3 == 9 || (S3 >= 2 && S3 <= 8), "W3 slots");
+  static_assert(NVEC % 4 == 0 && (C * C) % 4 == 0, "16-byte copies");
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -147,65 +206,162 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
           << 16);
 }
 
-// 8 floats -> 8 bf16 at a 16-byte aligned shared address
-__device__ __forceinline__ void store8_bf16(__nv_bfloat16* dst,
-                                            const float* v) {
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-// acc[i] += a * w[i], i < N, w a 16-byte aligned row (N % 4 == 0)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+// 16 bytes, zero-filled where src_bytes is 0
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 template <int N>
-__device__ __forceinline__ void fma_run(float (&acc)[N], float a,
-                                        const float* __restrict__ w) {
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(w) + i);
-    acc[4 * i] += a * v.x;
-    acc[4 * i + 1] += a * v.y;
-    acc[4 * i + 2] += a * v.z;
-    acc[4 * i + 3] += a * v.w;
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// wait until at most n (0 <= n <= 7) groups are in flight
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
   }
 }
 
-template <int N>
-__device__ __forceinline__ void load_run(float (&v)[N],
-                                         const float* __restrict__ p) {
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p) + i);
-    v[4 * i] = q.x;
-    v[4 * i + 1] = q.y;
-    v[4 * i + 2] = q.z;
-    v[4 * i + 3] = q.w;
+// n floats (n % 4 == 0, both ends 16-byte aligned), copied by the block
+__device__ __forceinline__ void copy_f32(float* dst,
+                                         const float* __restrict__ src,
+                                         int n) {
+  for (int e = threadIdx.x; e < n / 4; e += kThreads) {
+    cp_async16(dst + 4 * e, src + 4 * e);
   }
 }
 
-// sum_c v[c] * w[c], w a 16-byte aligned row of N (N % 4 == 0) floats
-template <int N>
-__device__ __forceinline__ float dot_row(const float (&v)[N],
-                                         const float* __restrict__ w) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(w) + i);
-    acc += v[4 * i] * q.x;
-    acc += v[4 * i + 1] * q.y;
-    acc += v[4 * i + 2] * q.z;
-    acc += v[4 * i + 3] * q.w;
+// rows x n bf16 (n % 8 == 0) from a packed matrix to rows of stride ld
+template <int ROWS, int N>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int ld,
+                                          const __nv_bfloat16* __restrict__ src) {
+  constexpr int V = N / 8;
+  for (int e = threadIdx.x; e < ROWS * V; e += kThreads) {
+    const int r = e / V, v = e % V;
+    cp_async16(dst + r * ld + 8 * v, src + r * N + 8 * v);
   }
-  return acc;
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// v[i] = p[i], i < N, in float4 loads (N % 4 == 0, p 16-byte aligned) or
+// float2 loads (N even, p 8-byte aligned)
+template <int N>
+__device__ __forceinline__ void ldg_vec(float (&v)[N],
+                                        const float* __restrict__ p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p) + i);
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  } else {
+    static_assert(N % 2 == 0, "float2 loads");
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(p) + i);
+      v[2 * i] = q.x;
+      v[2 * i + 1] = q.y;
+    }
+  }
+}
+
+// p[i] = v[i], i < N, the same way
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    }
+  } else {
+    static_assert(N % 2 == 0, "float2 stores");
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      reinterpret_cast<float2*>(p)[i] = make_float2(v[2 * i], v[2 * i + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  // not volatile: a register-only op, which the compiler may schedule
+  // after the (volatile) loads of the next k step
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3,
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_addr(p)));
+}
+
+// acc[j] += A (16 x 16) * B (16 rows of b from column 8 j, j < 8): the
+// 64 hidden channels of one k step; b points at this lane's ldmatrix row
+__device__ __forceinline__ void mma_k16_n64(float (&acc)[8][4],
+                                            const uint32_t (&a)[4],
+                                            const __nv_bfloat16* b) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4_trans(b0, b1, b2, b3, b + 8 * j);
+    mma_bf16(acc[j], a, b0, b1);
+    mma_bf16(acc[j + 1], a, b2, b3);
+  }
+}
 
 template <int C, bool REV, bool PALLAS>
-__global__ void __launch_bounds__(kThreads, C == 96 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, Tile<C>::MINB)
 flow_step_bf16_kernel(const float* __restrict__ x,
                       const float* __restrict__ cond,
                       const __nv_bfloat16* __restrict__ wb,
@@ -213,220 +369,455 @@ flow_step_bf16_kernel(const float* __restrict__ x,
   using G = Geo<C, PALLAS>;
   constexpr int CN = G::CN, CO = G::CO, R = G::R, N3 = G::N3;
   constexpr int TX = G::TX, TY = G::TY, HX = G::HX, WX = G::WX, SZ = G::SZ;
+  constexpr int NH = G::NH, NO = G::NO, S2 = G::S2, LD3 = G::LD3;
+  constexpr int S3 = G::S3, NG3C = G::NG3C;
   const float* __restrict__ wf = reinterpret_cast<const float*>(wb);
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* s_h = reinterpret_cast<__nv_bfloat16*>(smem + G::S_H);
-  float* s_o = reinterpret_cast<float*>(smem + G::S_O);
-  float* s_2 = reinterpret_cast<float*>(smem + G::S_2);
-  __nv_bfloat16* s_z = reinterpret_cast<__nv_bfloat16*>(smem + G::S_Z);
+  float* s_vec = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* s_w2 = reinterpret_cast<__nv_bfloat16*>(smem + G::B_W2);
+  __nv_bfloat16* s_h = reinterpret_cast<__nv_bfloat16*>(smem + G::B_H);
+  float* s_2 = reinterpret_cast<float*>(smem + G::B_2);  // za2 / x2'
+  __nv_bfloat16* s_w3 = reinterpret_cast<__nv_bfloat16*>(smem + G::B_W3);
+  float* s_f = reinterpret_cast<float*>(smem + G::B_F);  // the fold
+  __nv_bfloat16* s_z = reinterpret_cast<__nv_bfloat16*>(smem + G::B_Z);
+  __nv_bfloat16* s_w1 = reinterpret_cast<__nv_bfloat16*>(smem + G::B_W1);
+  float* s_x = reinterpret_cast<float*>(smem + G::B_X);  // XS: the window
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+
+  // ---- the weights, in flight while stage A runs ----
+  copy_f32(s_f, wf + (REV ? G::WI : G::WF), C * C);
+  copy_f32(s_vec, wf, G::NVEC);
+  if constexpr (G::XS) {  // the state on the window, zero outside
+    for (int e = tid; e < G::NW * (C / 4); e += kThreads) {
+      const int p = e / (C / 4), v = e % (C / 4);
+      const int gy = y0 - 2 + p / WX, gx = x0 - 2 + p % WX;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async16_zfill(
+          s_x + p * G::SX + 4 * v,
+          ok ? x + (static_cast<size_t>(gy) * W + gx) * C + 4 * v : x,
+          ok ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+  copy_rows<kHid, kHid>(s_w2, kLD, wb + G::W2);
+  copy_rows<G::K1P, kHid>(s_w1, kLD, wb + G::W1);
+  cp_async_commit();
+  if constexpr (S3 == 9) {
+    copy_rows<9 * kHid, N3>(s_w3, LD3, wb + G::W3);
+    cp_async_commit();
+  } else {
+#pragma unroll
+    for (int t = 0; t < S3; ++t) {
+      copy_rows<kHid, N3>(s_w3 + t * kHid * LD3, LD3,
+                          wb + G::W3 + t * kHid * N3);
+      cp_async_commit();
+    }
+  }
 
   // ---- A: z1 on the window, bf16 (zero outside the image) ----
   if constexpr (!REV) {
-    for (int i = tid; i < 2 * G::NW; i += kThreads) {
-      const int p = i % G::NW, g = i / G::NW;  // g 0: z1, g 1: za[cn:]
-      const int wy = p / WX, wx = p % WX;
-      const int gy = y0 - 2 + wy, gx = x0 - 2 + wx;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const bool interior = wy >= 2 && wy < TY + 2 && wx >= 2 && wx < TX + 2;
-      if (!in) {
-        if (g == 0) {
-          for (int q = 0; q < CN; ++q) s_z[p * SZ + q] = __float2bfloat16_rn(0.f);
-        }
-        continue;
-      }
-      if (g == 1 && !interior) continue;
-      const size_t pix = static_cast<size_t>(gy) * W + gx;
-      float xv[C];
-      load_run<C>(xv, x + pix * C);
-      if constexpr (PALLAS) {
+    constexpr int QA = G::QA, PX = G::PX;
+    constexpr int NQZ = (G::NW + PX - 1) / PX, NQ = NQZ + NO / PX;
+    cp_async_wait<NG3C + 1>();
+    __syncthreads();  // the fold, the vectors (and the window) landed
+    // items: (PX window pixels, z1 group) then (PX tile pixels, za2
+    // group); item qd's pixels are qd + k NQZ (+ k NO / PX on the tile), so
+    // that the lanes of a warp read neighbouring pixels
+    constexpr int NQ2 = NO / PX;
+    for (int i = tid; i < NQ * G::GA; i += kThreads) {
+      const int qd = i % NQ, g = i / NQ;
+      const bool z = qd < NQZ;
+      const int o0 = (z ? 0 : CN) + g * QA;
+      int wp[PX], tp[PX];
+      bool ok[PX], in[PX];
+      size_t pix[PX];
 #pragma unroll
-        for (int c = 0; c < C; ++c) xv[c] = round_bf16(xv[c]);  // product 1
-      }
-      const float* rec = cond + pix * R;
-      const int o0 = g * CN;
-#pragma unroll 1
-      for (int q = 0; q < CN; ++q) {
-        const int o = o0 + q;
-        const float zf = dot_row<C>(xv, wf + G::WF + o * C) + __ldg(wf + G::BF + o);
-        const float za = (zf + __ldg(rec + C + o)) * __ldg(rec + o);
-        if (g == 0) {
-          s_z[p * SZ + q] = __float2bfloat16_rn(za);  // product 2
-          if (interior) out[pix * C + q] = za;
+      for (int k = 0; k < PX; ++k) {
+        int wy, wx;
+        if (z) {
+          ok[k] = qd + k * NQZ < G::NW;
+          const int p = min(qd + k * NQZ, G::NW - 1);
+          wy = p / WX;
+          wx = p % WX;
         } else {
-          s_2[((wy - 2) * TX + (wx - 2)) * CO + q] = za;
+          ok[k] = true;
+          tp[k] = qd - NQZ + k * NQ2;
+          wy = tp[k] / TX + 2;
+          wx = tp[k] % TX + 2;
+        }
+        wp[k] = wy * WX + wx;
+        const int gy = y0 - 2 + wy, gx = x0 - 2 + wx;
+        in[k] = ok[k] && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        pix[k] = in[k] ? static_cast<size_t>(gy) * W + gx : 0;
+      }
+      const float* wr = s_f + o0 * C;
+      float acc[PX][QA];
+#pragma unroll
+      for (int k = 0; k < PX; ++k) {
+#pragma unroll
+        for (int q = 0; q < QA; ++q) acc[k][q] = 0.f;
+      }
+#pragma unroll 2
+      for (int c4 = 0; c4 < C / 4; ++c4) {
+        float4 v[PX];
+#pragma unroll
+        for (int k = 0; k < PX; ++k) {
+          if constexpr (G::XS) {
+            v[k] = ld4(s_x + wp[k] * G::SX + 4 * c4);
+          } else {
+            v[k] = in[k] ? __ldg(reinterpret_cast<const float4*>(
+                               x + pix[k] * C) + c4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          if constexpr (PALLAS) {  // product 1
+            v[k].x = round_bf16(v[k].x);
+            v[k].y = round_bf16(v[k].y);
+            v[k].z = round_bf16(v[k].z);
+            v[k].w = round_bf16(v[k].w);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < QA; ++q) {
+          const float4 w = ld4(wr + q * C + 4 * c4);
+#pragma unroll
+          for (int k = 0; k < PX; ++k) {
+            acc[k][q] += v[k].x * w.x;
+            acc[k][q] += v[k].y * w.y;
+            acc[k][q] += v[k].z * w.z;
+            acc[k][q] += v[k].w * w.w;
+          }
         }
       }
+#pragma unroll
+      for (int k = 0; k < PX; ++k) {
+        uint32_t* zr = reinterpret_cast<uint32_t*>(s_z + wp[k] * SZ + g * QA);
+        if (!in[k]) {
+          if (z && ok[k]) {
+#pragma unroll
+            for (int q = 0; q < QA / 2; ++q) zr[q] = 0u;
+          }
+          continue;
+        }
+        const float* rec = cond + pix[k] * R + o0;
+        float sc[QA], sh[QA], za[QA];
+        ldg_vec(sc, rec);
+        ldg_vec(sh, rec + C);
+#pragma unroll
+        for (int q = 0; q < QA; ++q) {
+          za[q] = (acc[k][q] + s_vec[G::BF + o0 + q] + sh[q]) * sc[q];
+        }
+        if (z) {
+#pragma unroll
+          for (int q = 0; q < QA / 2; ++q) {
+            zr[q] = pack_bf16(za[2 * q], za[2 * q + 1]);  // product 2
+          }
+          const int wy = wp[k] / WX, wx = wp[k] % WX;
+          if (wy >= 2 && wy < TY + 2 && wx >= 2 && wx < TX + 2) {
+            st_vec(out + pix[k] * C + o0, za);
+          }
+        } else {
+          float* zr2 = s_2 + tp[k] * S2 + g * QA;
+#pragma unroll
+          for (int q = 0; q < QA; ++q) zr2[q] = za[q];
+        }
+      }
+    }
+  } else if constexpr (G::XS) {
+    cp_async_wait<NG3C + 1>();
+    __syncthreads();  // the window landed
+    for (int i = tid; i < G::NW * (CN / 2); i += kThreads) {
+      const int p = i / (CN / 2), q = i % (CN / 2);
+      const float2 v = *reinterpret_cast<const float2*>(s_x + p * G::SX + 2 * q);
+      reinterpret_cast<uint32_t*>(s_z + p * SZ)[q] =
+          pack_bf16(v.x, v.y);  // product 2
     }
   } else {
-    for (int i = tid; i < G::NW * CN; i += kThreads) {
-      const int p = i / CN, q = i % CN;
-      const int wy = p / WX, wx = p % WX;
-      const int gy = y0 - 2 + wy, gx = x0 - 2 + wx;
-      float v = 0.f;
+    for (int p = tid; p < G::NW; p += kThreads) {
+      const int gy = y0 - 2 + p / WX, gx = x0 - 2 + p % WX;
+      float z1[CN];
+#pragma unroll
+      for (int q = 0; q < CN; ++q) z1[q] = 0.f;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        v = __ldg(x + (static_cast<size_t>(gy) * W + gx) * C + q);
+        ldg_vec(z1, x + (static_cast<size_t>(gy) * W + gx) * C);
       }
-      s_z[p * SZ + q] = __float2bfloat16_rn(v);  // product 2
+      uint32_t* zr = reinterpret_cast<uint32_t*>(s_z + p * SZ);
+#pragma unroll
+      for (int q = 0; q < CN / 2; ++q) {
+        zr[q] = pack_bf16(z1[2 * q], z1[2 * q + 1]);  // product 2
+      }
     }
   }
-  __syncthreads();
+  cp_async_wait<NG3C>();
+  __syncthreads();  // the window, W2 and W1 in place
 
-  // ---- B1: conv1 + aff1_ft, actnorm1 + ReLU -> bf16 hidden map ----
-  {
-    constexpr int QB = G::QB;
-    for (int i = tid; i < G::NHP * G::GB; i += kThreads) {
-      const int p = i % G::NHP, g = i / G::NHP;
-      __nv_bfloat16* hrow = s_h + p * kSH + g * QB;
-      float acc[QB];
+  // ---- B: conv1 -> actnorm1 + ReLU -> conv2 -> actnorm2 + ReLU + mask ----
+  // lane: rows g8 and g8 + 8 of a fragment, columns q2, q2 + 1 of each n8
+  // tile; b_row / b_nt: its row of the ldmatrix.trans tiles
+  const int g8 = lane >> 2, q2 = (lane & 3) * 2;
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_nt = lane >> 4;
+  for (int mf = warp; mf < G::MH; mf += kWarps) {
+    int pr[2];
+    bool in[2];
+    const uint32_t* zb[2];
+    float2 af[2][8];  // aff1_ft of the two rows
 #pragma unroll
-      for (int q = 0; q < QB; ++q) acc[q] = 0.f;
-      if (p >= G::NH) {  // conv2's padding rows
-#pragma unroll
-        for (int q = 0; q < QB; q += 8) store8_bf16(hrow + q, acc + q);
-        continue;
-      }
+    for (int h = 0; h < 2; ++h) {
+      pr[h] = mf * 16 + g8 + 8 * h;
+      const int p = min(pr[h], NH - 1);
       const int hy = p / HX, hx = p % HX;
+      zb[h] = reinterpret_cast<const uint32_t*>(s_z + (hy * WX + hx) * SZ);
       const int gy = y0 - 1 + hy, gx = x0 - 1 + hx;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        load_run<QB>(acc, cond + (static_cast<size_t>(gy) * W + gx) * R +
-                              2 * C + g * QB);
+      in[h] = pr[h] < NH && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const float* ar = cond + (in[h] ? (static_cast<size_t>(gy) * W + gx) * R
+                                      : 0) + 2 * C + q2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        af[h][j] = in[h] ? __ldg(reinterpret_cast<const float2*>(ar + 8 * j))
+                         : make_float2(0.f, 0.f);
       }
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const __nv_bfloat16* zrow =
-            s_z + ((hy + tap / 3) * WX + hx + tap % 3) * SZ;
-        const float* wrow = wf + G::W1 + tap * CN * kHid + g * QB;
-#pragma unroll 2
-        for (int c = 0; c < CN; c += 2) {
-          const float2 z2 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(zrow + c));
-          fma_run<QB>(acc, z2.x, wrow + c * kHid);
-          fma_run<QB>(acc, z2.y, wrow + (c + 1) * kHid);
+    }
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    }
+    // conv1: k = tap * cn + channel; pairs (k, k + 1) lie in one tap
+#pragma unroll
+    for (int ks = 0; ks < G::K1P / 16; ++ks) {
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 16 * ks + 8 * h + q2;
+        if (k < G::K1) {
+          const int tap = k / CN, c = k - tap * CN;
+          const int off = ((tap / 3) * WX + tap % 3) * (SZ / 2) + c / 2;
+          a[2 * h] = zb[0][off];
+          a[2 * h + 1] = zb[1][off];
+        } else {
+          a[2 * h] = 0u;
+          a[2 * h + 1] = 0u;
         }
       }
-      float b[QB], e[QB];
-      load_run<QB>(b, wf + G::AN1B + g * QB);
-      load_run<QB>(e, wf + G::AN1E + g * QB);
+      mma_k16_n64(acc, a, s_w1 + (16 * ks + b_row) * kLD + 8 * b_nt);
+    }
+    // actnorm1 + ReLU, rounded: tiles 2kk, 2kk + 1 are conv2's k step kk
+    uint32_t ha[4][4];
 #pragma unroll
-      for (int q = 0; q < QB; ++q) acc[q] = fmaxf((acc[q] + b[q]) * e[q], 0.f);
+    for (int j = 0; j < 8; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(s_vec + G::AN1B +
+                                                        8 * j + q2);
+      const float2 e = *reinterpret_cast<const float2*>(s_vec + G::AN1E +
+                                                        8 * j + q2);
 #pragma unroll
-      for (int q = 0; q < QB; q += 8) store8_bf16(hrow + q, acc + q);  // product 3
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = fmaxf((acc[j][2 * h] + af[h][j].x + b.x) * e.x, 0.f);
+        const float v1 =
+            fmaxf((acc[j][2 * h + 1] + af[h][j].y + b.y) * e.y, 0.f);
+        ha[j / 2][2 * (j % 2) + h] = pack_bf16(v0, v1);  // product 3
+      }
+#pragma unroll
+      for (int e2 = 0; e2 < 4; ++e2) acc[j][e2] = 0.f;
+    }
+    // conv2 (1x1, K = 64)
+#pragma unroll
+    for (int kk = 0; kk < kHid / 16; ++kk) {
+      mma_k16_n64(acc, ha[kk], s_w2 + (16 * kk + b_row) * kLD + 8 * b_nt);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(s_vec + G::AN2B +
+                                                        8 * j + q2);
+      const float2 e = *reinterpret_cast<const float2*>(s_vec + G::AN2E +
+                                                        8 * j + q2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (pr[h] >= NH) continue;
+        const float v0 =
+            in[h] ? fmaxf((acc[j][2 * h] + b.x) * e.x, 0.f) : 0.f;
+        const float v1 =
+            in[h] ? fmaxf((acc[j][2 * h + 1] + b.y) * e.y, 0.f) : 0.f;
+        *reinterpret_cast<uint32_t*>(s_h + pr[h] * kLD + 8 * j + q2) =
+            pack_bf16(v0, v1);  // product 4
+      }
     }
   }
-  __syncthreads();
+  if constexpr (S3 == 9) cp_async_wait<0>();
+  __syncthreads();  // the hidden map (and a whole W3) in place
 
-  // ---- B2: conv2 on the tensor cores, actnorm2 + ReLU + mask in place ----
-  {
-    float* stage = s_o + warp * 256;  // this warp's 16 x 16 f32 tile
-    const int r = lane >> 1, half = lane & 1;
-    for (int mf = warp; mf < G::NHP / 16; mf += kWarps) {
-      __nv_bfloat16* arow = s_h + mf * 16 * kSH;
-      FragA a[kHid / 16];
+  // ---- C: conv3 -> (scale, shift) -> the coupled half ----
+  constexpr int NTW = G::NTW, MFW = G::MFW, MG3 = G::MG3;
+  const int ng = warp % G::NG3, mg = warp / G::NG3;
+  const int n0 = ng * NTW;  // this warp's first n8 tile
+  int abase[MFW];
 #pragma unroll
-      for (int k = 0; k < kHid / 16; ++k) {
-        wmma::load_matrix_sync(a[k], arow + 16 * k, kSH);
+  for (int i = 0; i < MFW; ++i) {
+    const int o = (mg + i * MG3) * 16 + (lane & 15);
+    abase[i] = ((o / TX) * HX + o % TX) * kLD + (lane >> 4) * 8;
+  }
+  float acc3[MFW][NTW][4];
+#pragma unroll
+  for (int i = 0; i < MFW; ++i) {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc3[i][j][e] = 0.f;
+    }
+  }
+#pragma unroll(S3 == 9 ? 3 : 1)
+  for (int tap = 0; tap < 9; ++tap) {
+    if constexpr (S3 < 9) {
+      cp_async_wait_upto(min(S3 - 1, 8 - tap));
+      __syncthreads();  // tap's slot landed
+    }
+    const __nv_bfloat16* w3 = s_w3 + (tap % S3) * kHid * LD3;
+    const int toff = ((tap / 3) * HX + tap % 3) * kLD;
+#pragma unroll
+    for (int kk = 0; kk < kHid / 16; ++kk) {
+      uint32_t b[NTW][2];
+#pragma unroll
+      for (int j = 0; j + 1 < NTW; j += 2) {
+        ldsm_x4_trans(b[j][0], b[j][1], b[j + 1][0], b[j + 1][1],
+                      w3 + (16 * kk + b_row) * LD3 + (n0 + j + b_nt) * 8);
       }
-      __syncwarp();  // every lane holds its A values before any write-back
-      const int p = mf * 16 + r;
-      const int hy = p / HX, hx = p % HX;
-      const int gy = y0 - 1 + hy, gx = x0 - 1 + hx;
-      const bool keep = p < G::NH && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      if constexpr (NTW % 2) {
+        ldsm_x2_trans(b[NTW - 1][0], b[NTW - 1][1],
+                      w3 + (16 * kk + (lane & 15)) * LD3 +
+                          (n0 + NTW - 1) * 8);
+      }
 #pragma unroll
-      for (int j = 0; j < kHid / 16; ++j) {
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
+      for (int i = 0; i < MFW; ++i) {
+        if (mg + i * MG3 >= G::MO) continue;
+        uint32_t a[4];
+        ldsm_x4(a, s_h + abase[i] + toff + 16 * kk);
 #pragma unroll
-        for (int k = 0; k < kHid / 16; ++k) {
-          FragB b;
-          wmma::load_matrix_sync(b, wb + G::W2 + 16 * k * kHid + 16 * j, kHid);
-          wmma::mma_sync(acc, a[k], b, acc);
-        }
-        wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        const int c0 = 16 * j + 8 * half;
-        float v[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const float h = (stage[r * 16 + 8 * half + t] +
-                           __ldg(wf + G::AN2B + c0 + t)) *
-                          __ldg(wf + G::AN2E + c0 + t);
-          v[t] = keep ? fmaxf(h, 0.f) : 0.f;
-        }
-        store8_bf16(arow + r * kSH + c0, v);  // product 4
-        __syncwarp();
+        for (int j = 0; j < NTW; ++j) mma_bf16(acc3[i][j], a, b[j][0], b[j][1]);
+      }
+    }
+    if constexpr (S3 < 9) {
+      if (tap + S3 < 9) {
+        __syncthreads();  // every warp is done with the slot
+        copy_rows<kHid, N3>(s_w3 + (tap % S3) * kHid * LD3, LD3,
+                            wb + G::W3 + (tap + S3) * kHid * N3);
+        cp_async_commit();
       }
     }
   }
-  __syncthreads();
-
-  // ---- C: conv3 on the tensor cores -> (scale, shift) -> coupled half ----
-  {
-    constexpr int NJ = N3 / 16;
-    for (int it = warp; it < TY * NJ; it += kWarps) {
-      const int oy = it / NJ, j = it % NJ;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const __nv_bfloat16* arow = s_h + ((oy + tap / 3) * HX + tap % 3) * kSH;
-        const __nv_bfloat16* brow = wb + G::W3 + tap * kHid * N3 + 16 * j;
+  // the epilogue on the accumulators: columns (q2, q2 + 1) of tile j are
+  // (scale, shift) of channel (8 (n0 + j) + q2) / 2
 #pragma unroll
-        for (int k = 0; k < kHid / 16; ++k) {
-          FragA a;
-          FragB b;
-          wmma::load_matrix_sync(a, arow + 16 * k, kSH);
-          wmma::load_matrix_sync(b, brow + 16 * k * N3, N3);
-          wmma::mma_sync(acc, a, b, acc);
+  for (int i = 0; i < MFW; ++i) {
+    const int mf = mg + i * MG3;
+    if (mf >= G::MO) continue;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int col = 8 * (n0 + j) + q2, ch = col / 2;
+      if (ch >= CO) continue;
+      const float2 b3 = *reinterpret_cast<const float2*>(s_vec + G::B3 + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = mf * 16 + g8 + 8 * h;
+        const int gy = y0 + o / TX, gx = x0 + o % TX;
+        if (gy >= H || gx >= W) continue;
+        float as = acc3[i][j][2 * h] + b3.x;
+        float at = acc3[i][j][2 * h + 1] + b3.y;
+        if constexpr (!PALLAS) {  // the gain after conv3, as the XLA step
+          const float2 g3 =
+              *reinterpret_cast<const float2*>(s_vec + G::G3 + col);
+          as *= g3.x;
+          at *= g3.y;
+        }
+        const float scale = 1.f / (1.f + expf(-(as + 2.f))) + kAffineEps;
+        const size_t pix = static_cast<size_t>(gy) * W + gx;
+        if constexpr (!REV) {
+          out[pix * C + CN + ch] = (s_2[o * S2 + ch] + at) * scale;
+        } else {
+          const float x2 =
+              G::XS ? s_x[((o / TX + 2) * WX + o % TX + 2) * G::SX + CN + ch]
+                    : __ldg(x + pix * C + CN + ch);
+          s_2[o * S2 + ch] = x2 / scale - at;
         }
       }
-      wmma::store_matrix_sync(s_o + oy * TX * N3 + 16 * j, acc, N3,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G::NO * CO; i += kThreads) {
-    const int p = i / CO, j = i % CO;
-    const int gy = y0 + p / TX, gx = x0 + p % TX;
-    if (gy >= H || gx >= W) continue;
-    const size_t pix = static_cast<size_t>(gy) * W + gx;
-    float as = s_o[p * N3 + j] + __ldg(wf + G::B3 + j);
-    float at = s_o[p * N3 + CO + j] + __ldg(wf + G::B3 + CO + j);
-    if constexpr (!PALLAS) {  // the gain after conv3, as the XLA step
-      as *= __ldg(wf + G::G3 + j);
-      at *= __ldg(wf + G::G3 + CO + j);
-    }
-    const float scale = 1.f / (1.f + expf(-(as + 2.f))) + kAffineEps;
-    if constexpr (!REV) {
-      out[pix * C + CN + j] = (s_2[p * CO + j] + at) * scale;
-    } else {
-      s_2[p * CO + j] = __ldg(x + pix * C + CN + j) / scale - at;
     }
   }
 
   // ---- D (reverse): ft affine, then the folded inverse 1x1 ----
   if constexpr (REV) {
-    __syncthreads();
-    constexpr int QD = G::QD;
-    for (int i = tid; i < G::NO * G::GD; i += kThreads) {
-      const int p = i % G::NO, g = i / G::NO;
+    constexpr int ST = G::ST, QD = G::QD;
+    float* s_t = reinterpret_cast<float*>(smem + G::B_Z);  // (NO, ST)
+    __syncthreads();  // x2' written; the window and W1 are free
+    for (int i = tid; i < NO * (C / 4); i += kThreads) {
+      const int p = i % NO, c0 = (i / NO) * 4;
       const int gy = y0 + p / TX, gx = x0 + p % TX;
-      if (gy >= H || gx >= W) continue;  // never divides off the image
+      if (gy >= H || gx >= W) continue;
       const size_t pix = static_cast<size_t>(gy) * W + gx;
       const float* rec = cond + pix * R;
-      float t[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float v = c < CN ? __ldg(x + pix * C + c) : s_2[p * CO + c - CN];
-        t[c] = v / __ldg(rec + c) - __ldg(rec + C + c);
-        if constexpr (PALLAS) t[c] = round_bf16(t[c]);  // product 5
+      float xv[4], sc[4], sh[4];
+      if constexpr (G::XS) {
+        const float4 v =
+            ld4(s_x + ((p / TX + 2) * WX + p % TX + 2) * G::SX + c0);
+        xv[0] = v.x;
+        xv[1] = v.y;
+        xv[2] = v.z;
+        xv[3] = v.w;
+      } else {
+        ldg_vec(xv, x + pix * C + c0);
       }
-#pragma unroll 1
-      for (int q = 0; q < QD; ++q) {
-        const int o = g * QD + q;
-        out[pix * C + o] = dot_row<C>(t, wf + G::WI + o * C) - __ldg(wf + G::AB + o);
+      ldg_vec(sc, rec + c0);
+      ldg_vec(sh, rec + C + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e;
+        const float v = c < CN ? xv[e] : s_2[p * S2 + c - CN];
+        float t = v / sc[e] - sh[e];
+        if constexpr (PALLAS) t = round_bf16(t);  // product 5
+        s_t[p * ST + c] = t;
+      }
+    }
+    __syncthreads();  // t in place
+    // item qd: pixels qd + k NQD, k < PXD
+    constexpr int PXD = G::PXD, NQD = NO / PXD;
+    for (int i = tid; i < NQD * G::GD; i += kThreads) {
+      const int qd = i % NQD, g = i / NQD;
+      const float* wr = s_f + g * QD * C;
+      float acc[PXD][QD];
+#pragma unroll
+      for (int k = 0; k < PXD; ++k) {
+#pragma unroll
+        for (int q = 0; q < QD; ++q) acc[k][q] = 0.f;
+      }
+#pragma unroll 2
+      for (int c4 = 0; c4 < C / 4; ++c4) {
+        float t[PXD][4];
+#pragma unroll
+        for (int k = 0; k < PXD; ++k) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            t[k][e] = s_t[(qd + k * NQD) * ST + 4 * c4 + e];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < QD; ++q) {
+          const float4 w = ld4(wr + q * C + 4 * c4);
+#pragma unroll
+          for (int k = 0; k < PXD; ++k) {
+            acc[k][q] += t[k][0] * w.x;
+            acc[k][q] += t[k][1] * w.y;
+            acc[k][q] += t[k][2] * w.z;
+            acc[k][q] += t[k][3] * w.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < PXD; ++k) {
+        const int p = qd + k * NQD;
+        const int gy = y0 + p / TX, gx = x0 + p % TX;
+        if (gy >= H || gx >= W) continue;
+#pragma unroll
+        for (int q = 0; q < QD; ++q) acc[k][q] -= s_vec[G::AB + g * QD + q];
+        st_vec(out + (static_cast<size_t>(gy) * W + gx) * C + g * QD, acc[k]);
       }
     }
   }

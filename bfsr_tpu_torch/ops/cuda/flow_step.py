@@ -2,7 +2,7 @@
 
 Kernels: ``bfsr_tpu_torch/csrc/flow_step.cu`` (f32) and
 ``bfsr_tpu_torch/csrc/flow_step_bf16.cu`` (the one-pass forms: bf16
-operands, f32 accumulation, the tower's conv2 and conv3 on tensor cores),
+operands, f32 accumulation, the tower's three convs on tensor cores),
 which replace ``bfsr_tpu/ops/pallas/flow_step.py:_fwd_kernel`` /
 ``_rev_kernel`` (``step_apply``) at passes 3 and 1.
 
@@ -171,23 +171,37 @@ def _check_form(form):
 
 def _layout_bf16(c, hid, form="xla"):
     """A one-pass buffer: ([(name, shape)] of its f32 words, [(name,
-    shape)] of its bf16 values), in buffer order.  b3, the ``xla`` form's
-    gain g3 and W3's output columns are zero-padded from 2co to a multiple
-    of 16 (the tensor-core tile).  W1 (and in the ``pallas`` form the
-    folds) hold bf16 values in f32 words, the ``xla`` form's folds f32
-    values: the kernel's FMA loops read them as the f32 kernel does; W2
-    and W3 are bf16 for the tensor cores."""
+    shape)] of its bf16 values), in buffer order.  The f32 words hold the
+    vectors and both folds (the ``pallas`` form's folds bf16 values in f32
+    words): the kernel's fold loops run f32 FMA.  The bf16 values are the
+    tower's three tensor-core operands: W1 as (tap * cn + channel, hid)
+    rows, zero rows to a multiple of 16; W2; W3.  b3, the ``xla`` form's
+    gain g3 and W3's output columns are interleaved, (scale j, shift j) at
+    columns (2j, 2j + 1), so that one lane of the tensor-core tile holds
+    both halves of a channel, and zero-padded from 2co to a multiple of 16.
+    """
     _check_form(form)
     cn = c // 2
     n3 = -(-2 * (c - cn) // 16) * 16
+    k1p = -(-9 * cn // 16) * 16
     gain = [("g3", (n3,))] if form == "xla" else []
     f32 = ([("b_fold", (c,)), ("an_bias", (c,)),
             ("an1_b", (hid,)), ("an1_e", (hid,)),
             ("an2_b", (hid,)), ("an2_e", (hid,)), ("b3", (n3,))] + gain
-           + [("w_fold", (c, c)), ("w_inv_fold", (c, c)),
-              ("w1", (9, cn, hid))])
-    bf16 = [("w2", (hid, hid)), ("w3", (9, hid, n3))]
+           + [("w_fold", (c, c)), ("w_inv_fold", (c, c))])
+    bf16 = [("w1", (k1p, hid)), ("w2", (hid, hid)), ("w3", (9, hid, n3))]
     return f32, bf16
+
+
+def _interleave(t):
+    """Last dim [scales | shifts] -> (scale j, shift j) pairs."""
+    co = t.shape[-1] // 2
+    return torch.stack([t[..., :co], t[..., co:]], -1).flatten(-2)
+
+
+def _deinterleave(t):
+    """Inverse of ``_interleave``."""
+    return torch.cat([t[..., 0::2], t[..., 1::2]], -1)
 
 
 def _f32_words(c, hid, form="xla"):
@@ -209,25 +223,26 @@ def _packed_numel(c, hid, form=None):
 def pack_step_bf16(an, invconv, affine, form="xla"):
     """One conditional step's weights -> its one-pass buffer (bf16, 1-D)
     in ``form`` (``STEP_FORMS``): the f32 words of ``_layout_bf16``, then
-    W2 and W3 in bf16.  ``xla``: the folds and every vector f32, W1, W2
-    and W3 (unscaled) rounded, the gain g3 as a vector.  ``pallas``: the
-    gain folded into W3 and b3 first, then the folds, W1, W2 and W3
+    W1, W2 and W3 in bf16.  ``xla``: the folds and every vector f32, W1,
+    W2 and W3 (unscaled) rounded, the gain g3 as a vector.  ``pallas``:
+    the gain folded into W3 and b3 first, then the folds, W1, W2 and W3
     rounded."""
     _check_form(form)
     p = _step_parts(an, invconv, affine)
     c, hid = p["w_fold"].shape[0], p["w2"].shape[0]
-    rounded = ["w1"]
     if form == "pallas":
         p = _fold_gain(p)
-        rounded += ["w_fold", "w_inv_fold"]
+        for k in ("w_fold", "w_inv_fold"):
+            p[k] = fnn.round_bf16(p[k])
     f32_layout, bf16_layout = _layout_bf16(c, hid, form)
     n3 = dict(f32_layout)["b3"][0]
+    k1p = dict(bf16_layout)["w1"][0]
     co2 = p["b3"].shape[0]
     for k in ("b3", "g3", "w3"):
         if k in p:
-            p[k] = F.pad(p[k], (0, n3 - co2))
-    for k in rounded:
-        p[k] = fnn.round_bf16(p[k])
+            p[k] = F.pad(_interleave(p[k]), (0, n3 - co2))
+    w1 = p["w1"].reshape(-1, hid)
+    p["w1"] = F.pad(w1, (0, 0, 0, k1p - w1.shape[0]))
     words = torch.cat([p[k].reshape(-1).float() for k, _ in f32_layout])
     words = F.pad(words, (0, _f32_words(c, hid, form) - words.numel()))
     return torch.cat([words.view(torch.bfloat16)]
@@ -243,8 +258,9 @@ def _check_bf16(packed):
 
 
 def unpack_step_bf16(packed, c, hid, dtype=torch.float32, form="xla"):
-    """A one-pass buffer's weights by name, as ``dtype`` tensors, b3, g3
-    and W3 cropped to their 2co columns."""
+    """A one-pass buffer's weights by name, as ``dtype`` tensors in the
+    twins' layouts (``_step_parts``): W1 as (9, cn, hid), b3, g3 and W3
+    cropped to their 2co columns in [scales | shifts] order."""
     _check_bf16(packed)
     want = _packed_numel(c, hid, form)
     if packed.numel() != want:
@@ -256,11 +272,12 @@ def unpack_step_bf16(packed, c, hid, dtype=torch.float32, form="xla"):
     out, _ = _views(packed[:2 * nw].view(torch.float32), f32_layout)
     rest, _ = _views(packed, bf16_layout, 2 * nw)
     out.update(rest)
-    co2 = 2 * (c - c // 2)
-    for k in ("b3", "g3"):
+    cn = c // 2
+    co2 = 2 * (c - cn)
+    for k in ("b3", "g3", "w3"):
         if k in out:
-            out[k] = out[k][:co2]
-    out["w3"] = out["w3"][..., :co2]
+            out[k] = _deinterleave(out[k][..., :co2])
+    out["w1"] = out["w1"][:9 * cn].reshape(9, cn, hid)
     return {k: v.to(dtype) for k, v in out.items()}
 
 

@@ -689,6 +689,11 @@ def profile_predict(fn, unprofiled_ms, label, top=14):
     for dev_us, key, count in sorted(rows, reverse=True)[:top]:
         log(f"profile {label}: {dev_us / 1e3:8.3f} ms "
             f"{100 * dev_us / 1e3 / busy:5.1f}% x{count} {key[:100]}")
+    k5 = [r for r in rows if "flow_step" in r[1]]
+    if k5:  # K5's launches in either precision, however many rows
+        k5_ms = sum(r[0] for r in k5) / 1e3
+        log(f"profile {label}: K5 (flow_step*_kernel) {k5_ms:.3f} ms "
+            f"{100 * k5_ms / busy:5.1f}% x{sum(r[2] for r in k5)}")
 
 
 # ---------------------------------------------------------------------------

@@ -365,6 +365,15 @@ def test_k5_bf16_wrapper_raises_on_what_the_kernel_does_not_take(
         flow_step.flow_step_forward(x, rec, pt, 64, pt)
     with pytest.raises(ValueError):   # on another device
         flow_step.flow_step_reverse(x, rec, pt, 64, step.kpacked_bf16)
+    for form, other in (("xla", "pallas"), ("pallas", "xla")):
+        po = flow_step.pack_step_bf16(step.actnorm, step.invconv,
+                                      step.affine, other).to(dev)
+        kcuda.reset_launch_counts()
+        with pytest.raises(ValueError):   # the other form's buffer
+            flow_step.flow_step_forward(x, rec, pt, 64, po, form)
+        assert not any(kcuda.LAUNCHES.values()), kcuda.LAUNCHES
+    with pytest.raises(ValueError):   # no such form
+        flow_step.flow_step_forward(x, rec, pt, 64, pb, "tpu")
     step = random_flow_step(12, hid=16)
     rec = torch.zeros((1, 4, 4, 2 * 12 + 16), device=dev)
     with pytest.raises(ValueError):   # hidden 64 only
@@ -691,13 +700,29 @@ def test_k6_on_both_f32_tiles(dev, cout, hw):
         got, conv3x3.conv3x3_cat_plain([x], *args), rtol=0, atol=1e-4)
 
 
+def _frame(t):
+    """The 1-pixel frame of a (1, H, W, C) map, flattened: where the masks
+    of z1 and of the hidden map decide the result."""
+    m = torch.zeros(t.shape[1:3], dtype=torch.bool, device=t.device)
+    m[0], m[-1], m[:, 0], m[:, -1] = True, True, True, True
+    return t[0][m]
+
+
+# shapes that no tile of the one-pass K5 divides, at every level (C = 96
+# streams W3 through its tap ring)
+K5_BF16_RAGGED = [(c, hw) for c in (12, 24, 96)
+                  for hw in ((1, 3), (2, 1), (17, 2), (37, 29), (64, 33))]
+
+
 @pytest.mark.parametrize("form", ["xla", "pallas"])
-@pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
-                                  (96, (15, 9)), (96, (17, 2))])
+@pytest.mark.parametrize("c,hw", [(24, (20, 13)), (96, (15, 9))]
+                         + K5_BF16_RAGGED)
 def test_k5_bf16_forms_match_their_twins(dev, restore_mode, form, c, hw):
     """Each one-pass form against its own twin at each level, forward then
     reverse: the same operands rounded, sums in another order (max 2e-2 for
-    a tie flip, mean 1e-4).  The two forms are two answers."""
+    a tie flip, mean 1e-4), over the whole image and over its 1-pixel
+    frame alone, where a missed mask would show.  The two forms are two
+    answers."""
     step = random_flow_step(c, seed=c)
     pb = flow_step.pack_step_bf16(step.actnorm, step.invconv, step.affine,
                                   form).to(dev)
@@ -714,12 +739,32 @@ def test_k5_bf16_forms_match_their_twins(dev, restore_mode, form, c, hw):
     fwd = flow_step.BF16_FORMS[form, False][1]
     rev = flow_step.BF16_FORMS[form, True][1]
     for got, twin in ((y, fwd(xt, rt, pb, 64)), (back, rev(y, rt, pb, 64))):
-        err = (got - twin).abs()
         assert torch.isfinite(got).all()
-        assert float(err.max()) <= 2e-2, float(err.max())
-        assert float(err.mean()) <= 1e-4, float(err.mean())
+        for g, t in ((got, twin), (_frame(got), _frame(twin))):
+            err = (g - t).abs()
+            assert float(err.max()) <= 2e-2, float(err.max())
+            assert float(err.mean()) <= 1e-4, float(err.mean())
     other = "pallas" if form == "xla" else "xla"
     po = flow_step.pack_step_bf16(step.actnorm, step.invconv, step.affine,
                                   other).to(dev)
     y2 = flow_step.flow_step_forward(xt, rt, pt, 64, po, other)
     assert float((y - y2).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("form", ["xla", "pallas"])
+@pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
+                                  (96, (15, 9)), (96, (64, 33))])
+def test_k5_bf16_launches_are_bitwise_repeatable(dev, restore_mode, form, c,
+                                                 hw):
+    """Two launches of a one-pass form on the same inputs give the same
+    bits: every sum runs in a fixed order, with no atomics."""
+    restore_mode.set_default_precision("default")
+    step = random_flow_step(c, seed=c)
+    pb = flow_step.pack_step_bf16(step.actnorm, step.invconv, step.affine,
+                                  form).to(dev)
+    x = _t(_gen(c + 7).standard_normal((1, *hw, c)), dev)
+    rt = _t(random_record(hw, c), dev)
+    for fn in (flow_step.flow_step_forward, flow_step.flow_step_reverse):
+        first = fn(x, rt, None, 64, pb, form)
+        second = fn(x, rt, None, 64, pb, form)
+        assert torch.equal(first, second)

@@ -3,9 +3,14 @@ one-pass (bf16) forms, their packed weights, the conditioning records and
 the flow's encode / decode, each against the JAX package in the same mode.
 
 Tolerances.  The ``pallas`` form's twin is held tight (1e-4 abs + 1e-4
-rel) to the Pallas kernel at passes=1 in interpret mode: both round the
-same five operands to bf16 and multiply exactly, and differ only in the
-order of their f32 sums (7.2e-7 at most at these shapes).  The ``xla``
+rel) to the Pallas kernel at passes=1 in interpret mode on a step and
+inputs drawn on a coarse dyadic grid (``_dyadic_case``): both round the
+same five operands to bf16 and multiply exactly, and there every sum that
+feeds a bf16 rounding is exact in f32, so the two round the same values
+whatever the order of their sums.  On random inputs the two sums run in
+different orders (which even vary between processes), so a rounding at a
+tie can flip: that case is held at the tie-flip tolerance the kernels'
+card tests use (2e-2 max, 1e-4 mean; ``PERF.md`` section 2).  The ``xla``
 form's twin (the served one) is held to the port's unfused ``FlowStep``
 in the same mode at 1e-4 abs + 1e-4 rel: both round the operands of conv1,
 conv2 and conv3 only, keep the folds f32 and apply the gain after conv3,
@@ -42,11 +47,57 @@ def _set_both(mode):
     jnn.set_default_precision(mode)
 
 
-@pytest.mark.parametrize("c,h,w", [(12, 9, 7), (24, 7, 10), (96, 5, 6)])
-def test_k5_one_pass_twin_matches_pallas_kernel_interpret(restore_modes, c,
-                                                          h, w):
-    p, _, x, cache = _case(c, h, w, seed=c)
-    _set_both("default")
+LN2 = np.float32(np.log(2.0))
+
+
+def _grid(g, shape, q, k):
+    """float32 values q * n, n uniform in [-k, k]."""
+    return (q * g.integers(-k, k + 1, shape)).astype(np.float32)
+
+
+def _dyadic_case(c, h, w, seed):
+    """A step (JAX params), state and conditioning cache on a coarse
+    dyadic grid, so that every sum feeding one of the ``pallas`` form's
+    bf16 roundings is exact in f32 in any order.  The invconv is a signed
+    permutation, the actnorm scales exp(logs) are powers of two (exact in
+    both packages' exp), the Conv2dZeros gain is 1, every weight is a
+    bf16 value with few bits, and the state and the records are
+    multiples of 1/8 or 1/4.  The magnitudes keep every partial sum of
+    conv1, conv2 and conv3 under 2^24 of its products' quantum."""
+    g = np.random.default_rng(seed)
+    hid, cn = 64, c // 2
+    p = jax.tree_util.tree_map(np.array, _mk_step(jax.random.PRNGKey(seed),
+                                                  c))
+    p["actnorm"] = {"bias": _grid(g, (c,), 0.25, 2),
+                    "logs": LN2 * g.integers(0, 2, c).astype(np.float32)}
+    wq = np.zeros((c, c), np.float32)
+    wq[np.arange(c), g.permutation(c)] = g.choice([-1.0, 1.0], c)
+    p["invconv"] = jflows.invconv_cache(wq)
+    p["anic"] = jflows.fold_actnorm_invconv(p["actnorm"], p["invconv"])
+    aff = p["affine"]["fAffine"]
+    aff["conv1"]["w"][:, :, :cn] = _grid(g, (3, 3, cn, hid), 0.125, 1)
+    aff["conv2"]["w"] = _grid(g, (1, 1, hid, hid), 0.125, 1)
+    for conv in ("conv1", "conv2"):
+        aff[conv]["actnorm"] = {
+            "bias": _grid(g, (hid,), 0.25, 2),
+            "logs": -LN2 * g.integers(0, 2, hid).astype(np.float32)}
+    co2 = aff["out"]["b"].shape[0]
+    aff["out"] = {"w": _grid(g, (3, 3, hid, co2), 2.0 ** -5, 1),
+                  "b": _grid(g, (co2,), 0.125, 2),
+                  "logs": np.zeros(co2, np.float32)}
+    x = _grid(g, (1, h, w, c), 0.25, 8)
+    cache = {"scale_ft": g.choice([0.5, 1.0], (1, h, w, c)).astype(np.float32),
+             "shift_ft": _grid(g, (1, h, w, c), 0.25, 4),
+             "aff1_ft": _grid(g, (1, h, w, hid), 0.125, 8)}
+    to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    return to_j(p), to_j(x), to_j(cache)
+
+
+def _pallas_form_against_kernel(p, x, cache, c, h, w):
+    """(forward, reverse) of the ``pallas`` form's twin through the
+    wrappers, and of the JAX Pallas kernel at passes=1 in interpret mode,
+    the reverse on the kernel's forward output; checks that the wrappers
+    ran the twin and that the form rounded."""
     prep = fsk.prep_step(p, c, phases=1)
     cp = fsk.pack_cache(cache, h, w)
     zf = fsk.step_apply(fsk.pad_state(x), cp, prep, h, w, interpret=True)
@@ -56,11 +107,9 @@ def test_k5_one_pass_twin_matches_pallas_kernel_interpret(restore_modes, c,
     step = port_step(p, c)
     pb = k5.pack_step_bf16(step.actnorm, step.invconv, step.affine, "pallas")
     rec, xt = record(cache), torch.from_numpy(_np(x))
-    got_f = k5.flow_step_forward(xt, rec, step.kpacked, 64, pb, "pallas")
-    np.testing.assert_allclose(got_f.numpy(), ref_f, atol=1e-4, rtol=1e-4)
     yt = torch.from_numpy(ref_f)
+    got_f = k5.flow_step_forward(xt, rec, step.kpacked, 64, pb, "pallas")
     got_r = k5.flow_step_reverse(yt, rec, step.kpacked, 64, pb, "pallas")
-    np.testing.assert_allclose(got_r.numpy(), ref_r, atol=1e-4, rtol=1e-4)
     # the wrappers ran the pallas form's twin
     np.testing.assert_array_equal(
         got_f.numpy(),
@@ -70,6 +119,31 @@ def test_k5_one_pass_twin_matches_pallas_kernel_interpret(restore_modes, c,
     f32_r = k5.flow_step_reverse_plain(yt, rec, step.kpacked, 64)
     assert float((got_f - f32_f).abs().max()) > 1e-3
     assert float((got_r - f32_r).abs().max()) > 1e-3
+    return (got_f.numpy(), ref_f), (got_r.numpy(), ref_r)
+
+
+@pytest.mark.parametrize("c,h,w", [(12, 9, 7), (24, 7, 10), (96, 5, 6)])
+def test_k5_one_pass_twin_matches_pallas_kernel_interpret(restore_modes, c,
+                                                          h, w):
+    """On the dyadic step and inputs both sides round the same values:
+    only the order of exact sums and f32 elementwise ops differ."""
+    p, x, cache = _dyadic_case(c, h, w, seed=c)
+    _set_both("default")
+    for got, ref in _pallas_form_against_kernel(p, x, cache, c, h, w):
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("c,h,w", [(12, 9, 7), (24, 7, 10), (96, 5, 6)])
+def test_k5_one_pass_twin_matches_pallas_kernel_interpret_random(
+        restore_modes, c, h, w):
+    """On a random step and inputs a sum taken in another order can flip
+    a bf16 rounding at a tie: held at 2e-2 max and 1e-4 mean."""
+    p, _, x, cache = _case(c, h, w, seed=c)
+    _set_both("default")
+    for got, ref in _pallas_form_against_kernel(p, x, cache, c, h, w):
+        err = np.abs(got - ref)
+        assert err.max() <= 2e-2, err.max()
+        assert err.mean() <= 1e-4, err.mean()
 
 
 def test_packed_step_bf16_layout():
