@@ -1,6 +1,7 @@
 """Per-image times of the port's flagship predicts, to compare two trees.
 
-Times LINF-LP (LR 128^2 -> HR 512^2, ``high`` and ``default``), the
+Times LINF-LP (LR 128^2 -> HR 512^2, ``high``, ``mixed`` and
+``default``), the
 LINF-LP patch model (LR 128^2, 172^2 centres -> 516^2) and SRFlow-LP
 (128^2 -> 512^2, ``high``, ``mixed`` and ``default``) on the card:
 random weights from seed 0, 2 warm-ups, then ``--blocks`` blocks of ``--per-block`` predicts each, host clock around
@@ -64,8 +65,9 @@ def run(blocks=5, per_block=5):
     pred = LINFPredictor(model, prior)
     res["linf 512"] = block_times(lambda: pred.predict(*inputs), blocks,
                                   per_block)
-    res["linf 512 default"] = block_times(
-        in_mode("default", lambda: pred.predict(*inputs)), blocks, per_block)
+    for mode in ("mixed", "default"):
+        res[f"linf 512 {mode}"] = block_times(
+            in_mode(mode, lambda: pred.predict(*inputs)), blocks, per_block)
     del model, prior, pred, inputs
     pmodel, pprior = build_linf_patch(dev, seed=0)
     pinputs = example_patch_inputs(dev, (128, 128), (172, 172), seed=0)

@@ -85,7 +85,9 @@ route, source, the TPU kernel it replaces, its launches in its paths'
 full-size predicts (512^2; 516^2 for the patch model), its max abs
 error, its time beside the twin's and the one PyTorch call's that
 computes the same function, where there is one, and its bound: the least
-time the card could take for the same work); the
+time the card could take for the same work, with the peak it is taken
+at in ``bound_rate``: K2's f32-grade products at 3xTF32, three TF32
+products each at the 495 TFLOP/s TF32 rate); the
 last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": N}}``.
 """
@@ -96,6 +98,10 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+# the checkout this script belongs to: bfsr_tpu_torch is imported from here
+ROOT = Path(__file__).resolve().parent
 
 LR, HR = (128, 128), (512, 512)
 RAGGED_LR, RAGGED_HR = (96, 80), (300, 250)
@@ -142,9 +148,14 @@ TOL = {"linf_flow_forward": 1e-5, "linf_flow_inverse": 1e-4,
 # reads 37.0 dB and keeps a 30 dB sanity floor
 AGREEMENT_FLOOR_DB = {"mixed": 80.0, "default": 50.0, "srflow mixed": 80.0,
                       "srflow default": 45.0, "srflow default pallas": 30.0}
-# H100 SXM published peaks at 700 W (NVIDIA's data sheet)
+# H100 SXM published peaks at 700 W (NVIDIA's data sheet); K2's f32-grade
+# products run as 3xTF32, three TF32 products each at the 495 TFLOP/s TF32
+# rate
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
+PEAK_NAMES = {PEAK_F32_FLOPS: "f32 SIMT", PEAK_BF16_FLOPS: "bf16",
+              PEAK_3XTF32_FLOPS: "3xTF32"}
 HBM_BYTES_PER_S = 3.35e12
 LINF_KERNELS = ("linf_flow_forward", "linf_flow_inverse", "linf_info",
                 "conv3x3_cat")
@@ -256,7 +267,8 @@ def bound(flops, n_bytes, peak=PEAK_F32_FLOPS):
     read once, each output written once) over the memory rate."""
     t_ops, t_bytes = flops / peak, n_bytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_rate": PEAK_NAMES[peak]}
 
 
 def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
@@ -264,7 +276,8 @@ def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
     """Run both once, check agreement (and that ``kernel_fn`` launched
     kernel ``name`` ``launches`` times), time both (and ``library_fn``,
     one PyTorch call computing the same function, where there is one);
-    with ``n_bytes`` also the bound at ``peak``.  Returns a result dict."""
+    with ``n_bytes`` also the bound at ``peak`` (and, at the 3xTF32 peak,
+    the SIMT f32 bound beside it).  Returns a result dict."""
     import torch
 
     from bfsr_tpu_torch.ops import cuda
@@ -310,8 +323,13 @@ def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
         extra += f", library {library_ms:.4f} ms"
     if n_bytes is not None:
         out.update(bound(flops or 0, n_bytes, peak))
-        extra += (f", bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
-                  f"{(flops or 0) / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)")
+        extra += (f", bound {out['bound_ms']:.4f} ms ({out['bound_by']} at "
+                  f"{out['bound_rate']}: {(flops or 0) / 1e9:.3f} GFLOP, "
+                  f"{n_bytes / 1e6:.2f} MB; the kernel at "
+                  f"{out['bound_ms'] / ms:.1%} of it)")
+        if peak == PEAK_3XTF32_FLOPS:
+            simt = bound(flops or 0, n_bytes)["bound_ms"]
+            extra += f"; SIMT f32 bound {simt:.4f} ms ({simt / ms:.1%})"
     log(f"check {name}{label}: max_abs_err {max_abs:.3e} ({tol_s}), max |ref| "
         f"{float(ref.abs().max()):.3e}; kernel {ms:.4f} ms, twin "
         f"{plain_ms:.4f} ms{extra}{rate}")
@@ -343,7 +361,7 @@ def check_kernels(model, prior, inputs, ragged_inputs):
                         lambda: linf_info.affine_info_plain(*args),
                         TOL["linf_info"], flops, f" {tag} C={C}",
                         nbytes(coef, freq, cy, cx, phase, model.mlp_packed)
-                        + 4 * out_dim * n)
+                        + 4 * out_dim * n, peak=PEAK_3XTF32_FLOPS)
             results.setdefault("linf_info", []).append(r)
             if tag == "ragged":
                 continue
@@ -1107,7 +1125,7 @@ def check_patch_kernels(model, inputs, ragged_inputs):
                 lambda: linf_info.affine_info_plain(*args),
                 TOL["linf_info"], flops, f" patch {tag} out_dim={out_dim}",
                 nbytes(coef, freq, cy, cx, phase, model.mlp_packed)
-                + 4 * out_dim * n))
+                + 4 * out_dim * n, peak=PEAK_3XTF32_FLOPS))
             info = linf_info.affine_info_plain(*args)
             x = gt.reshape(-1, d).contiguous()
             z = linf_flow.flow_forward_plain(flow.w, flow.b, x, info)
@@ -1195,6 +1213,14 @@ def check_patch_eval(model, prior):
 
 
 def main():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import bfsr_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: cannot import {e.name!r} (searched {ROOT} and "
+              "sys.path): run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
     import torch
 
     if not torch.cuda.is_available():
@@ -1361,6 +1387,7 @@ def main():
             "plain_ms": sum(r["plain_ms"] for r in timed),
             "bound_ms": sum(r["bound_ms"] for r in timed),
             "bound_by": timed[0]["bound_by"],
+            "bound_rate": timed[0]["bound_rate"],
             "library_ms": (sum(r["library_ms"] for r in timed)
                            if timed[0]["library_ms"] is not None else None),
         })

@@ -86,13 +86,13 @@ def test_k4_matches_twin_and_float64(dev, d, n_layers, n):
     np.testing.assert_allclose(xr.cpu().numpy(), x, atol=2e-4)
 
 
-@pytest.mark.parametrize("C,n_hidden,out_dim,hw,HW", [
-    (256, 2, 60, (9, 11), (36, 44)),     # flagship widths, x4
-    (128, 1, 18, (7, 5), (20, 13)),      # ragged, non-integer scale
-    (256, 2, 540, (9, 11), (12, 15)),    # the d = 27 patch model: 5 passes
-    (128, 1, 129, (7, 5), (20, 13)),     # one column past a pass
-])
-def test_k2_matches_twin_and_float64(dev, C, n_hidden, out_dim, hw, HW):
+# queries a K2 block owns (csrc/linf_info.cu, TileFor)
+K2_BLOCK = 128
+
+
+def _k2_case(C, n_hidden, out_dim, hw, HW, dev):
+    """(numpy arrays, their CUDA tensors, mlp as numpy and as CUDA tensors)
+    of a random K2 problem."""
     g = _gen(C + out_dim)
     h, w = hw
     coef = g.standard_normal((1, h, w, C))
@@ -103,8 +103,33 @@ def test_k2_matches_twin_and_float64(dev, C, n_hidden, out_dim, hw, HW):
     dims = [4 * C] + [C] * (n_hidden + 1) + [out_dim]
     mlp = [(g.uniform(-1, 1, (o, i)) / np.sqrt(i), 0.1 * g.standard_normal(o))
            for i, o in zip(dims[:-1], dims[1:])]
-    args = [_t(a, dev) for a in (coef, freq, ys, xs, phase)]
-    mlp_t = [(_t(wl, dev), _t(bl, dev)) for wl, bl in mlp]
+    arrays = (coef, freq, ys, xs, phase)
+    return (arrays, [_t(a, dev) for a in arrays], mlp,
+            [(_t(wl, dev), _t(bl, dev)) for wl, bl in mlp])
+
+
+@pytest.mark.parametrize("C,n_hidden,out_dim,hw,HW", [
+    (256, 2, 60, (9, 11), (36, 44)),     # flagship widths, x4
+    (128, 1, 18, (7, 5), (20, 13)),      # ragged, non-integer scale
+    (256, 2, 540, (9, 11), (12, 15)),    # the d = 27 patch model: 5 passes
+    (128, 1, 129, (7, 5), (20, 13)),     # one column past a pass
+    # the tiling's edges: one query less / more than a block, a grid
+    # smaller than one block, no hidden layer, out_dim 1 / 128 / 129 / 1024
+    (256, 2, 60, (9, 11), (1, K2_BLOCK - 1)),
+    (256, 2, 60, (9, 11), (1, K2_BLOCK + 1)),
+    (128, 1, 60, (7, 5), (5, 7)),
+    (256, 0, 60, (9, 11), (20, 13)),
+    (128, 0, 129, (7, 5), (20, 13)),
+    (256, 1, 1, (9, 11), (20, 13)),
+    (128, 2, 1, (7, 5), (3, 5)),
+    (256, 2, 128, (9, 11), (16, 16)),
+    (256, 1, 129, (9, 11), (17, 15)),
+    (128, 1, 1024, (7, 5), (12, 11)),
+    (256, 2, 1024, (9, 11), (16, 9)),
+])
+def test_k2_matches_twin_and_float64(dev, C, n_hidden, out_dim, hw, HW):
+    (coef, freq, ys, xs, phase), args, mlp, mlp_t = _k2_case(
+        C, n_hidden, out_dim, hw, HW, dev)
     got = linf_info.affine_info(*args, mlp_t)
     twin = linf_info.affine_info_plain(*args, mlp_t)
     cpu32 = [torch.from_numpy(np.ascontiguousarray(a, np.float32))
@@ -116,6 +141,20 @@ def test_k2_matches_twin_and_float64(dev, C, n_hidden, out_dim, hw, HW):
     torch.testing.assert_close(got, twin, atol=2e-4, rtol=1e-4)
     np.testing.assert_allclose(got.cpu().numpy(), ref64.numpy(), atol=2e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("C,n_hidden,out_dim,hw,HW", [
+    (256, 2, 60, (9, 11), (36, 44)), (256, 2, 540, (9, 11), (12, 15)),
+    (128, 1, 129, (7, 5), (20, 13))])
+def test_k2_launches_are_bitwise_repeatable(dev, C, n_hidden, out_dim, hw,
+                                            HW):
+    """Two launches on the same inputs give the same bits: every sum is
+    taken in one fixed order, with no atomics."""
+    _, args, _, mlp_t = _k2_case(C, n_hidden, out_dim, hw, HW, dev)
+    packed = linf_info.pack_mlp(mlp_t)
+    first = linf_info.affine_info(*args, mlp_t, packed)
+    second = linf_info.affine_info(*args, mlp_t, packed)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("cins,cout,act,hw", [
