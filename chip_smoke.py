@@ -37,9 +37,9 @@ fails (non-zero exit, no result line) if any phase fails:
    ``LINFPredictor.predict`` at both with the launch counters reset (K4
    once each way, K2 once, K3 43 times; the folded image finite, of shape
    (1, 3 Hq, 3 Wq, 3) and within 5e-4 of the twin path), times both paths,
-   profiles one 516^2 predict, and runs ``eval_psnr`` over two in-memory
-   pairs through the ``sr-implicit-paired-fast-patch`` wrapper on both
-   paths (PSNRs finite and within 0.01 dB);
+   profiles one 516^2 predict (K4's time in it), and runs ``eval_psnr``
+   over two in-memory pairs through the ``sr-implicit-paired-fast-patch``
+   wrapper on both paths (PSNRs finite and within 0.01 dB);
 7. SRFlow-LP: holds K5 (forward and reverse) against its twin at each
    flow level's shape of a 512^2 image and K3 at two RRDB dense-block convs
    (conv4, 4 inputs, 160 -> 32, and conv5, 5 inputs, 192 -> 64, at 128^2;
@@ -707,11 +707,14 @@ def profile_predict(fn, unprofiled_ms, label, top=14):
     for dev_us, key, count in sorted(rows, reverse=True)[:top]:
         log(f"profile {label}: {dev_us / 1e3:8.3f} ms "
             f"{100 * dev_us / 1e3 / busy:5.1f}% x{count} {key[:100]}")
-    k5 = [r for r in rows if "flow_step" in r[1]]
-    if k5:  # K5's launches in either precision, however many rows
-        k5_ms = sum(r[0] for r in k5) / 1e3
-        log(f"profile {label}: K5 (flow_step*_kernel) {k5_ms:.3f} ms "
-            f"{100 * k5_ms / busy:5.1f}% x{sum(r[2] for r in k5)}")
+    # K5's launches in either precision and K4's in both directions,
+    # however many rows they take
+    for kid, key in (("K5", "flow_step"), ("K4", "flow_nd_kernel")):
+        sel = [r for r in rows if key in r[1]]
+        if sel:
+            ms = sum(r[0] for r in sel) / 1e3
+            log(f"profile {label}: {kid} ({key}*) {ms:.3f} ms "
+                f"{100 * ms / busy:5.1f}% x{sum(r[2] for r in sel)}")
 
 
 # ---------------------------------------------------------------------------

@@ -54,16 +54,23 @@ def test_k1_matches_twin_and_float64(dev, n_layers, n):
     np.testing.assert_allclose(xr.cpu().numpy(), x, atol=1e-4)
 
 
-@pytest.mark.parametrize("d", [12, 27, 48])
-@pytest.mark.parametrize("n_layers", [1, 10])
-@pytest.mark.parametrize("n", [1, 31, 29591])
-def test_k4_matches_twin_and_float64(dev, d, n_layers, n):
+def _k4_case(d, n_layers, n):
+    """Random K4 weights (W near the identity, its float64 inverse), x and
+    info, as numpy arrays.  Past 10 layers the info's spread shrinks as
+    1 / sqrt(L): at 0.5 the f32 round trip of 34 layers itself (the plain
+    twin's) strays 3e-4 from x, past the 2e-4 that holds the kernel."""
     g = _gen(d + n_layers)
     w = 0.05 * g.uniform(-1, 1, (n_layers + 1, d, d)) / np.sqrt(8) + np.eye(d)
     b = 0.1 * g.standard_normal((n_layers + 1, d))
     x = g.standard_normal((n, d))
-    info = 0.5 * g.standard_normal((2 * d * n_layers, n))
-    w_inv = np.linalg.inv(w)
+    spread = 0.5 * np.sqrt(10 / max(n_layers, 10))
+    info = spread * g.standard_normal((2 * d * n_layers, n))
+    return w, b, x, info, np.linalg.inv(w)
+
+
+def _check_k4(dev, d, n_layers, n):
+    """K4 forward and inverse against their twins and float64."""
+    w, b, x, info, w_inv = _k4_case(d, n_layers, n)
     wt, bt, xt, it = (_t(a, dev) for a in (w, b, x, info))
     before = dict(kcuda.LAUNCHES)
     z = linf_flow.flow_forward(wt, bt, xt, it)
@@ -84,6 +91,56 @@ def test_k4_matches_twin_and_float64(dev, d, n_layers, n):
         torch.from_numpy(info))
     np.testing.assert_allclose(xr.cpu().numpy(), x64.numpy(), atol=2e-4)
     np.testing.assert_allclose(xr.cpu().numpy(), x, atol=2e-4)
+
+
+@pytest.mark.parametrize("d", [12, 27, 48])
+@pytest.mark.parametrize("n_layers", [1, 10])
+@pytest.mark.parametrize("n", [1, 31, 29591])
+def test_k4_matches_twin_and_float64(dev, d, n_layers, n):
+    _check_k4(dev, d, n_layers, n)
+
+
+@pytest.mark.parametrize("d,n_layers,n", [
+    (27, 10, 15390),    # the 135 x 114 grid: info rows not 16-B aligned
+    (27, 10, 29584),    # the 172^2 grid: the 16-B copies
+    (12, 0, 31), (27, 0, 1000), (48, 0, 4099),   # no coupling layer
+    (48, 24, 4099),     # a 235 KB stack, many turns of the ring
+    (12, 33, 257),      # the deepest stack, at the narrow tile
+])
+def test_k4_edges_match_twin_and_float64(dev, d, n_layers, n):
+    _check_k4(dev, d, n_layers, n)
+
+
+@pytest.mark.parametrize("d,n", [(12, 4096), (27, 15390), (48, 1000)])
+def test_k4_launches_are_bitwise_repeatable(dev, d, n):
+    w, b, x, info, w_inv = _k4_case(d, 10, n)
+    wt, bt, xt, it, wit = (_t(a, dev) for a in (w, b, x, info, w_inv))
+    z1 = linf_flow.flow_forward(wt, bt, xt, it)
+    z2 = linf_flow.flow_forward(wt, bt, xt, it)
+    x1 = linf_flow.flow_inverse(wit, bt, z1, it)
+    x2 = linf_flow.flow_inverse(wit, bt, z1, it)
+    assert torch.equal(z1, z2) and torch.equal(x1, x2)
+
+
+@pytest.mark.parametrize("d", [12, 27, 48])
+def test_k4_takes_info_at_any_4_byte_offset(dev, d):
+    """A contiguous info view whose base is not 16-B aligned (a slice of a
+    larger buffer) gives the same bits as an aligned copy."""
+    n_layers, n = 10, 172 * 172
+    w, b, x, info, w_inv = _k4_case(d, n_layers, n)
+    wt, bt, xt, it, wit = (_t(a, dev) for a in (w, b, x, info, w_inv))
+    buf = torch.empty(info.size + 1, dtype=torch.float32, device=dev)
+    view = buf[1:].view(info.shape)
+    view.copy_(it)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    z = linf_flow.flow_forward(wt, bt, xt, view)
+    xr = linf_flow.flow_inverse(wit, bt, z, view)
+    assert torch.equal(z, linf_flow.flow_forward(wt, bt, xt, it))
+    assert torch.equal(xr, linf_flow.flow_inverse(wit, bt, z, it))
+    torch.testing.assert_close(
+        z, linf_flow.flow_forward_plain(wt, bt, xt, it), rtol=0, atol=2e-5)
+    torch.testing.assert_close(
+        xr, linf_flow.flow_inverse_plain(wit, bt, z, it), rtol=0, atol=2e-4)
 
 
 # queries a K2 block owns (csrc/linf_info.cu, TileFor)
