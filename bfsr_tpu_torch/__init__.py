@@ -1,6 +1,6 @@
 """bfsr_tpu_torch — PyTorch + CUDA port of the LINF-LP (pixel and patch
-model) and SRFlow-LP learned-prior inference paths and the LINF eval
-loop, for one NVIDIA H100 (sm_90a).
+model) and SRFlow-LP learned-prior inference paths, the LINF eval loop
+and the LINF-LP latent trainer, for one NVIDIA H100 (sm_90a).
 
 The JAX package ``bfsr_tpu`` beside it is the reference this port is
 tested against; this package imports ``torch`` and never ``jax`` (nor any
@@ -16,9 +16,16 @@ tested against; this package imports ``torch`` and never ``jax`` (nor any
                                  ``ops.cuda``: the hand-written kernels,
                                  each beside its plain PyTorch twin.
 * ``bfsr_tpu_torch.pipelines`` — ``LINFPredictor``, ``SRFlowLPPredictor``:
-                                 whole-image inference; ``eval_psnr``.
-* ``bfsr_tpu_torch.data``      — the paired eval wrappers (host numpy).
-* ``bfsr_tpu_torch.utils``     — coords, metrics (PSNR, SSIM), Averager.
+                                 whole-image inference; ``eval_psnr``;
+                                 ``linf_train.make_train_step`` and the
+                                 losses.
+* ``bfsr_tpu_torch.train``     — optimizers, LR schedules, checkpoints.
+* ``bfsr_tpu_torch.data``      — the paired eval wrappers, the train crop
+                                 wrapper, ``image-folder``, the loader
+                                 (host numpy).
+* ``bfsr_tpu_torch.utils``     — coords, metrics (PSNR, SSIM), Averager,
+                                 Timer, logging.
+* ``bfsr_tpu_torch.cli.train`` — the trainer CLI (``train.py``'s twin).
 * ``bfsr_tpu_torch.convert``   — JAX parameter pytrees -> port modules.
 * ``bfsr_tpu_torch.entry``     — the full-size / tiny models from a seed.
 

@@ -11,7 +11,9 @@ back to the same pytree.
 * the phase linear (in, out) -> (out, in);
 * flow ``w``/``b`` as they are, per layer (``w_inv``/``logabsdet`` are
   recomputed in float64 by ``freeze()``);
-* BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+* BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
+  (the running stats too, so a trainer's BN state carries over);
+* VGG19 convs -> torchvision's ``features.{i}`` indices;
 * SRFlow actnorm bias/logs (C,) -> (1, C, 1, 1), Conv2dZeros logs (C,) ->
   (C, 1, 1), invconv ``w`` (C, C) as it is (``w_inv`` and the folds are
   recomputed in float64 by ``freeze()``).
@@ -168,6 +170,25 @@ def srflow_unet_state_dict(params):
             _double_conv(sd, f"up_layers{b}.{i}.conv", q)
         _conv(sd, f"outc{b}.conv", p["outc"])
     return sd
+
+
+def vgg_state_dict(params, feature_layer=34):
+    """torchvision-keyed state_dict (``features.{i}.*``) of a VGG19
+    feature extractor cut after layer ``feature_layer``."""
+    from bfsr_tpu_torch.models.vgg import layer_plan
+
+    sd, convs = {}, iter(params["convs"])
+    for i, item in enumerate(layer_plan(feature_layer)):
+        if item[0] == "conv":
+            _conv(sd, f"features.{i}", next(convs))
+    return sd
+
+
+def load_vgg(vgg, params):
+    """Install JAX VGG19 feature params into a port
+    ``VGGFeatureExtractor``."""
+    vgg.load_state_dict(vgg_state_dict(params, vgg.args["feature_layer"]))
+    return vgg
 
 
 def load_srflow(model, params):

@@ -1,6 +1,8 @@
 // K3: 3x3 stride-1 SAME convolution over an implicit channel concat of 1-5
 // NHWC inputs, with a per-channel scale/bias epilogue (folded BatchNorm +
-// conv bias) and an optional ReLU / LeakyReLU.  Batch 1, float32.
+// conv bias) and an optional ReLU / LeakyReLU.  Float32, any batch: the
+// image is blockIdx.z, and every input and the output are offset by whole
+// images, so a batch-1 launch is the launch it was before the batch.
 //
 // Replaces bfsr_tpu/ops/pallas/s2d_conv.py:_kernel (the space-to-depth
 // Pallas conv the encoder and the UNet's full-resolution stages run on).
@@ -50,7 +52,7 @@ constexpr int kCoT = 8;     // output channels per thread
 constexpr int kHCP = 36;    // halo row stride, floats (34 used)
 
 struct ConvInputs {
-  const float* x[kMaxInputs];  // (H, W, cin[i]) NHWC
+  const float* x[kMaxInputs];  // (B, H, W, cin[i]) NHWC
   const float* w[kMaxInputs];  // (cin[i], 3, 3, Cout)
   int cin[kMaxInputs];
   int n_in;
@@ -129,6 +131,9 @@ conv3x3_cat_kernel(ConvInputs in, const float* __restrict__ scale,
   const int prow = pg / (kTileW / kPxT);
   const int pcol = (pg % (kTileW / kPxT)) * kPxT;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * TH;
+  // pixels before this block's image, in every input and the output
+  const size_t img_px = static_cast<size_t>(blockIdx.z) * H * W;
+  out += img_px * COUT;
 
   int n_stages = 0;
 #pragma unroll
@@ -140,9 +145,9 @@ conv3x3_cat_kernel(ConvInputs in, const float* __restrict__ scale,
   auto load_stage = [&](int slot) {
     float* s_a = smem + slot * G::STAGE;
     float* s_b = s_a + G::SA;
-    const float* x = pick(in.x, li);
-    const float* w = pick(in.w, li);
     const int ci = pick(in.cin, li);
+    const float* x = pick(in.x, li) + img_px * ci;
+    const float* w = pick(in.w, li);
     // halo [c][r][col]: channel fastest in the global read
     for (int e = tid; e < KC * HR * (kTileW + 2); e += kThreads) {
       const int c = e % KC, rest = e / KC;
@@ -292,7 +297,7 @@ int num_sms() {
 
 template <int COUT, int TH>
 int launch_tile(const ConvInputs& in, const float* scale, const float* bias,
-                float* out, int H, int W, int act, float slope,
+                float* out, int B, int H, int W, int act, float slope,
                 cudaStream_t stream) {
   constexpr int bytes = Cfg<COUT, TH>::FLOATS * 4;
   static bool configured = false;
@@ -303,40 +308,43 @@ int launch_tile(const ConvInputs& in, const float* scale, const float* bias,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + TH - 1) / TH);
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + TH - 1) / TH, B);
   conv3x3_cat_kernel<COUT, TH><<<grid, kThreads, bytes, stream>>>(
       in, scale, bias, out, H, W, act, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
-// TH = 8 where it still gives every SM 4 blocks, else the small tile
+// TH = 8 where it still gives every SM 4 blocks over the batch, else the
+// small tile
 template <int COUT, int TH_SMALL>
 int launch(const ConvInputs& in, const float* scale, const float* bias,
-           float* out, int H, int W, int act, float slope,
+           float* out, int B, int H, int W, int act, float slope,
            cudaStream_t stream) {
   const long big = static_cast<long>((W + kTileW - 1) / kTileW) *
-                   ((H + 7) / 8);
+                   ((H + 7) / 8) * B;
   if (big >= 4L * num_sms()) {
-    return launch_tile<COUT, 8>(in, scale, bias, out, H, W, act, slope,
+    return launch_tile<COUT, 8>(in, scale, bias, out, B, H, W, act, slope,
                                 stream);
   }
-  return launch_tile<COUT, TH_SMALL>(in, scale, bias, out, H, W, act, slope,
-                                     stream);
+  return launch_tile<COUT, TH_SMALL>(in, scale, bias, out, B, H, W, act,
+                                     slope, stream);
 }
 
 }  // namespace
 
-// xs[i]: (H, W, cins[i]) NHWC; ws[i]: (cins[i], 3, 3, cout), 16-byte
-// aligned; scale, bias: (cout,), or null for 1 / 0; out: (H, W, cout).
+// xs[i]: (B, H, W, cins[i]) NHWC; ws[i]: (cins[i], 3, 3, cout), 16-byte
+// aligned; scale, bias: (cout,), or null for 1 / 0; out: (B, H, W, cout).
 // act: 0 none, 1 relu, 2 leaky relu.  cout must be 8, 16, 32 or 64;
-// 1 <= n_in <= 5.
+// 1 <= n_in <= 5; B <= 65535.
 extern "C" int conv3x3_cat(int n_in, const void* const* xs,
                            const void* const* ws, const int* cins,
                            const void* scale, const void* bias, void* out,
-                           int H, int W, int cout, int act, float slope,
-                           void* stream) {
-  if (n_in < 1 || n_in > kMaxInputs) return static_cast<int>(cudaErrorInvalidValue);
-  if (H <= 0 || W <= 0) return 0;
+                           int B, int H, int W, int cout, int act,
+                           float slope, void* stream) {
+  if (n_in < 1 || n_in > kMaxInputs || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
   ConvInputs in{};
   in.n_in = n_in;
   for (int i = 0; i < n_in; ++i) {
@@ -352,10 +360,10 @@ extern "C" int conv3x3_cat(int n_in, const void* const* xs,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (cout) {
-    case 8: return launch<8, 8>(in, s, b, o, H, W, act, slope, st);
-    case 16: return launch<16, 4>(in, s, b, o, H, W, act, slope, st);
-    case 32: return launch<32, 2>(in, s, b, o, H, W, act, slope, st);
-    case 64: return launch<64, 2>(in, s, b, o, H, W, act, slope, st);
+    case 8: return launch<8, 8>(in, s, b, o, B, H, W, act, slope, st);
+    case 16: return launch<16, 4>(in, s, b, o, B, H, W, act, slope, st);
+    case 32: return launch<32, 2>(in, s, b, o, B, H, W, act, slope, st);
+    case 64: return launch<64, 2>(in, s, b, o, B, H, W, act, slope, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,8 +11,10 @@
 //     phase)), by sincospif;
 //   * per corner, (weight * coef) * basis times that corner's C-row block
 //     of W1, summed over the corners; ReLU hidden layers; the last linear.
-// It writes only the info, channel-major (out_dim, H*W); the 4C features
-// never leave the block.  The TPU workarounds are gone: no one-hot column
+// It writes only the info, channel-major (out_dim, B*H*W), sample-major
+// along the columns; the 4C features never leave the block.  A batch of B
+// samples, each with its own maps, grid axes and phase, is blockIdx.y:
+// a batch-1 launch is the launch it was before the batch came in.  The TPU workarounds are gone: no one-hot column
 // select matmuls (the corner columns are gathered directly), no polynomial
 // sincos, no 64-row / 128-col pads, no VMEM window estimator.
 //
@@ -407,8 +409,8 @@ linf_info_kernel(const float* __restrict__ coef, const float* __restrict__ freq,
                  const float* __restrict__ coord_x,
                  const float* __restrict__ phase,
                  const float* __restrict__ mlp, float* __restrict__ out,
-                 int h, int w, int H, int W, int n_hidden, int out_dim,
-                 float shift_y, float shift_x) {
+                 int B, int h, int w, int H, int W, int n_hidden,
+                 int out_dim, float shift_y, float shift_x) {
   constexpr int C = T::C, M = T::M, HALF = C / 2;
   constexpr int NT = kNT<T, C>, NT4 = kNT<T, T::kPass>;
   // the packed MLP: every offset is a multiple of 4 floats (C % 4 == 0),
@@ -429,6 +431,15 @@ linf_info_kernel(const float* __restrict__ coef, const float* __restrict__ freq,
   const int tid = threadIdx.x;
   const int n = H * W;
   const int q0 = blockIdx.x * M;
+  // sample b's maps, axes and phase; its queries are columns b n .. of out
+  const int b = blockIdx.y;
+  coef += static_cast<size_t>(b) * h * w * C;
+  freq += static_cast<size_t>(b) * h * w * C;
+  coord_y += static_cast<size_t>(b) * H;
+  coord_x += static_cast<size_t>(b) * W;
+  phase += static_cast<size_t>(b) * HALF;
+  const size_t n_all = static_cast<size_t>(B) * n;
+  out += static_cast<size_t>(b) * n;
 
   prime<T, C, true>(ring, w1, C, C);
   if (tid < M) {
@@ -504,7 +515,8 @@ linf_info_kernel(const float* __restrict__ coef, const float* __restrict__ freq,
     for (int e = tid; e < ncols * M; e += T::kThreads) {
       const int o = e / M, m = e % M;
       if (q0 + m < n) {
-        out[static_cast<size_t>(c0 + o) * n + q0 + m] = ring[o * T::kSP + m];
+        out[static_cast<size_t>(c0 + o) * n_all + q0 + m] =
+            ring[o * T::kSP + m];
       }
     }
     __syncthreads();  // the next pass's W chunks overwrite the staging
@@ -518,43 +530,45 @@ linf_info_kernel(const float* __restrict__ coef, const float* __restrict__ freq,
 template <int C>
 int launch(const float* coef, const float* freq, const float* coord_y,
            const float* coord_x, const float* phase, const float* mlp,
-           float* out, int h, int w, int H, int W, int n_hidden, int out_dim,
-           float shift_y, float shift_x, cudaStream_t stream) {
+           float* out, int B, int h, int w, int H, int W, int n_hidden,
+           int out_dim, float shift_y, float shift_x, cudaStream_t stream) {
   using T = TileFor<C>;
   cudaError_t err = cudaFuncSetAttribute(
       linf_info_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = H * W;
-  const int blocks = (n + T::M - 1) / T::M;
+  const dim3 blocks((n + T::M - 1) / T::M, B);
   linf_info_kernel<T><<<blocks, T::kThreads, T::kSmemBytes, stream>>>(
-      coef, freq, coord_y, coord_x, phase, mlp, out, h, w, H, W, n_hidden,
+      coef, freq, coord_y, coord_x, phase, mlp, out, B, h, w, H, W, n_hidden,
       out_dim, shift_y, shift_x);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// coef, freq: (h, w, C) NHWC; coord_y: (H,), coord_x: (W,) grid-center
-// coords; phase: (C/2,); mlp: one f32 buffer holding, in order, W1 (4C, C),
-// b1 (C,), then per hidden layer W (C, C) and b (C,), then W (C, out_dim)
-// and b (out_dim,), each W (in, out) row-major; out: (out_dim, H*W).
-// shift_y = 1/h, shift_x = 1/w as f32.  C must be 128 or 256 and
-// 0 < out_dim <= 1024.
+// coef, freq: (B, h, w, C) NHWC; coord_y: (B, H), coord_x: (B, W)
+// grid-center coords; phase: (B, C/2); mlp: one f32 buffer holding, in
+// order, W1 (4C, C), b1 (C,), then per hidden layer W (C, C) and b (C,),
+// then W (C, out_dim) and b (out_dim,), each W (in, out) row-major; out:
+// (out_dim, B*H*W), sample b's query (y, x) at column b H W + y W + x.
+// shift_y = 1/h, shift_x = 1/w as f32.  C must be 128 or 256,
+// 0 < out_dim <= 1024 and B <= 65535.
 extern "C" int linf_info(const void* coef, const void* freq,
                          const void* coord_y, const void* coord_x,
-                         const void* phase, const void* mlp, void* out, int h,
-                         int w, int H, int W, int C, int n_hidden, int out_dim,
-                         float shift_y, float shift_x, void* stream) {
-  if (out_dim > 1024 || out_dim <= 0 || n_hidden < 0) {
+                         const void* phase, const void* mlp, void* out, int B,
+                         int h, int w, int H, int W, int C, int n_hidden,
+                         int out_dim, float shift_y, float shift_x,
+                         void* stream) {
+  if (out_dim > 1024 || out_dim <= 0 || n_hidden < 0 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (H <= 0 || W <= 0) return 0;
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
 #define BFSR_ARGS                                                           \
   static_cast<const float*>(coef), static_cast<const float*>(freq),          \
       static_cast<const float*>(coord_y), static_cast<const float*>(coord_x), \
       static_cast<const float*>(phase), static_cast<const float*>(mlp),      \
-      static_cast<float*>(out), h, w, H, W, n_hidden, out_dim, shift_y,      \
+      static_cast<float*>(out), B, h, w, H, W, n_hidden, out_dim, shift_y,   \
       shift_x, static_cast<cudaStream_t>(stream)
   switch (C) {
     case 128: return launch<128>(BFSR_ARGS);

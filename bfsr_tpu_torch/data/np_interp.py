@@ -1,9 +1,9 @@
-"""Host-side (numpy) bilinear resize with ``F.interpolate(mode='bilinear')``
-semantics, on (H, W, C) arrays.
+"""Host-side (numpy) resampling on (H, W, C) arrays: the bilinear resize
+with ``F.interpolate(mode='bilinear')`` semantics, and the reference's PIL
+bicubic downsampler.
 
-The counterpart of ``bfsr_tpu/data/np_interp.py:resize_bilinear_np``; the
-PIL bicubic ``resize_fn_pil`` of that module is not ported (the wrappers
-that need it are not).
+The counterpart of ``bfsr_tpu/data/np_interp.py``; PIL is imported by
+``resize_fn_pil`` alone, where it is called.
 """
 
 import numpy as np
@@ -34,3 +34,26 @@ def resize_bilinear_np(x_hwc, out_hw, align_corners=False):
     left = xh[:, x0]
     right = xh[:, x1]
     return left + (right - left) * wx[None, :, None]
+
+
+def resize_fn_pil(img_hwc, size):
+    """The reference wrappers' ``resize_fn``: float [0, 1] HWC -> uint8
+    (truncating, as torchvision's ToPILImage does) -> PIL BICUBIC resize
+    -> float [0, 1].  size: int (the shorter side, torchvision Resize
+    semantics) or (h, w)."""
+    from PIL import Image
+
+    arr = img_hwc
+    if arr.dtype != np.uint8:
+        arr = (np.clip(arr, 0.0, 1.0) * 255.0).astype(np.uint8)
+    pil = Image.fromarray(arr)
+    if isinstance(size, int):
+        w, h = pil.size
+        if h <= w:
+            oh, ow = size, max(1, round(size * w / h))
+        else:
+            ow, oh = size, max(1, round(size * h / w))
+    else:
+        oh, ow = size
+    out = pil.resize((ow, oh), Image.BICUBIC)
+    return np.asarray(out, dtype=np.float32) / 255.0

@@ -1,9 +1,19 @@
-"""Eval dataset wrappers for paired LR/HR images, host-side numpy.
+"""Dataset wrappers, host-side numpy: the counterpart of
+``bfsr_tpu/data/wrappers.py``'s ``sr-implicit-paired-fast`` and
+``sr-implicit-paired-fast-patch`` (the wrappers of the LINF-LP eval
+configs) and ``sr-implicit-downsampled-fast-crop`` (the trainer's).
 
-The counterpart of ``bfsr_tpu/data/wrappers.py``'s
-``sr-implicit-paired-fast`` and ``sr-implicit-paired-fast-patch`` (the
-wrappers of the LINF-LP eval configs).  A dataset is any sequence of
-(LR, HR) float32 HWC arrays in [0, 1].  Each item is a dict of arrays:
+The train wrapper takes a dataset of HR float32 HWC images in [0, 1]; per
+item it draws a scale from U(1, ``scale_max``), crops an HR window of
+``inp_size`` x scale, downsamples it with PIL bicubic to the LR input,
+flips both when ``augment``, and crops an ``inp_size``^2 window of the HR
+grid with its coords, its HR pixels (``gt``), the up-down-up residual of
+the LR (``gt_lr_up``) and the HR residual against the LR-up (``gt_pixel``).
+Its draws come from Python's ``random``, in the JAX wrapper's order, so
+the same ``random.seed`` gives the same crops.
+
+The eval wrappers take a dataset of (LR, HR) float32 HWC arrays in
+[0, 1].  Each item is a dict of arrays:
 ``inp`` (h, w, 3), ``coord`` ((H, W, 2) grid centres in [-1, 1], axis 0
 the height), ``cell`` ((2,) = (2/H, 2/W)), ``gt`` (H, W, 3) and
 ``gt_lr_up``, the up-down-up residual of the normalised LR image.
@@ -20,9 +30,11 @@ their train-time random crop and flips (``inp_size``, ``augment``) are not
 ported.
 """
 
+import random
+
 import numpy as np
 
-from bfsr_tpu_torch.data.np_interp import resize_bilinear_np
+from bfsr_tpu_torch.data.np_interp import resize_bilinear_np, resize_fn_pil
 from bfsr_tpu_torch.registry import register
 from bfsr_tpu_torch.utils.coords import make_cell, make_coord
 
@@ -30,9 +42,38 @@ from bfsr_tpu_torch.utils.coords import make_cell, make_coord
 def updownup_residual(img_lr, hr_hw):
     """The LR image normalised to [-1, 1], bilinear up to ``hr_hw``, minus
     its up-down-up copy (up to ``hr_hw``, down to the LR size, up again)."""
-    lr_up = resize_bilinear_np((img_lr - 0.5) / 0.5, hr_hw)
-    lr_up_down = resize_bilinear_np(lr_up, img_lr.shape[:2])
-    return (lr_up - resize_bilinear_np(lr_up_down, hr_hw)).astype(np.float32)
+    return residuals(img_lr, hr_hw)[1]
+
+
+def residuals(crop_lr, hr_hw):
+    """(lr_up, up-down-up residual) of an LR crop at the HR size: the LR
+    normalised to [-1, 1], bilinear up to ``hr_hw``, and its difference
+    from its up-down-up copy; float32."""
+    lr_up = resize_bilinear_np((crop_lr - 0.5) / 0.5, hr_hw)
+    lr_up_down = resize_bilinear_np(lr_up, crop_lr.shape[:2])
+    return (lr_up.astype(np.float32),
+            (lr_up - resize_bilinear_np(lr_up_down, hr_hw)).astype(np.float32))
+
+
+def augment_factory(augment):
+    """A random flip function (vertical, horizontal, transpose, each with
+    probability 1/2, drawn now from ``random``), or the identity."""
+    if not augment:
+        return lambda x: x
+    hflip = random.random() < 0.5
+    vflip = random.random() < 0.5
+    dflip = random.random() < 0.5
+
+    def fn(x_hwc):
+        if hflip:
+            x_hwc = x_hwc[::-1, :, :]
+        if vflip:
+            x_hwc = x_hwc[:, ::-1, :]
+        if dflip:
+            x_hwc = np.transpose(x_hwc, (1, 0, 2))
+        return np.ascontiguousarray(x_hwc)
+
+    return fn
 
 
 def patchify_stride_ps(x_hwc, ps, pad_end_h, pad_end_w):
@@ -92,6 +133,43 @@ class SRImplicitPairedFastPatch:
                                                pad_w),
                 "coord": center_coords(base["coord"], ps, pad_h, pad_w),
                 "cell": base["cell"], "gt": base["gt"]}
+
+
+@register("sr-implicit-downsampled-fast-crop")
+class SRImplicitDownsampledFastCrop:
+    """Train-time: one scale and aligned HR / coord / residual window crops
+    per item (the JAX wrapper of the same name)."""
+
+    def __init__(self, dataset, inp_size=48, scale_max=4, augment=False):
+        self.dataset = dataset
+        self.out_size = inp_size
+        self.scale_max = scale_max
+        self.augment = augment
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        img = self.dataset[idx]
+        s = random.uniform(1, self.scale_max)
+        n_lr = self.out_size
+        n_hr = round(n_lr * s)
+        x0 = random.randint(0, img.shape[0] - n_hr)
+        y0 = random.randint(0, img.shape[1] - n_hr)
+        crop_hr = img[x0:x0 + n_hr, y0:y0 + n_hr]
+        crop_lr = resize_fn_pil(crop_hr, (n_lr, n_lr))
+        aug = augment_factory(self.augment)
+        crop_lr, crop_hr = aug(crop_lr), aug(crop_hr)
+        lr_up, lr_up_residual = residuals(crop_lr, crop_hr.shape[:2])
+        hr_residual = (((crop_hr - 0.5) / 0.5) - lr_up).astype(np.float32)
+        coord = make_coord(crop_hr.shape[:2], flatten=False)
+
+        x0 = random.randint(0, n_hr - self.out_size)
+        y0 = random.randint(0, n_hr - self.out_size)
+        sl = np.s_[x0:x0 + self.out_size, y0:y0 + self.out_size]
+        return {"inp": crop_lr, "coord": coord[sl],
+                "cell": make_cell(crop_hr.shape[:2]), "gt": crop_hr[sl],
+                "gt_lr_up": lr_up_residual[sl], "gt_pixel": hr_residual[sl]}
 
 
 def batches(dataset):

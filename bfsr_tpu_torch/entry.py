@@ -13,6 +13,17 @@ Weights are random, drawn from
 trained checkpoints are well conditioned and random ones make the inverse
 chain explode.
 
+``build_flagship_trainer`` is the LINF-LP trainer of
+``configs/train/train_edsr-baseline-linf-LP.yaml`` on the same models:
+the frozen LINF, the UNet prior to train, and a frozen VGG19 through
+conv5_4 (``feature_layer`` 34; 8 with ``tiny=True``, which runs on the CPU
+only).  No VGG weights ship with the repository: the VGG's convs are drawn
+He-normal (fan-in, ReLU gain) with zero biases, so that its features keep
+their scale through 16 convs as trained ones do; torch's default init
+(``VGGFeatureExtractor.reset_parameters``) shrinks them by ~1e6 and leaves
+the perceptual loss's gradients under Adam's eps.  ``example_train_batch``
+makes a synthetic batch in the crop wrapper's layout.
+
 ``build_linf_patch`` is the patch model of ``bench.py``'s patch workload:
 ``linf-patch`` with ps = 3 (d = 27), the same encoder, flow L = 10, info
 MLP 1024 -> 256 -> 256 -> 256 -> 540, and a UNet prior with in_chans 27,
@@ -33,9 +44,12 @@ runs on the CPU only.
 
 import numpy as np
 import torch
+from torch import nn
 
 import bfsr_tpu_torch.models  # noqa: F401  (registers the components)
 from bfsr_tpu_torch import registry
+from bfsr_tpu_torch.data.np_interp import resize_bilinear_np
+from bfsr_tpu_torch.data.wrappers import residuals
 from bfsr_tpu_torch.models.base import seeded
 from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
 from bfsr_tpu_torch.utils.coords import make_cell, make_coord
@@ -96,6 +110,60 @@ def entry(device="cuda", seed=0, tiny=False, lr_size=32, scale=4):
     args = example_inputs(device, (lr_size, lr_size),
                           (lr_size * scale, lr_size * scale), seed)
     return predictor.predict, args
+
+
+@torch.no_grad()
+def build_flagship_trainer(device="cuda", seed=0, tiny=False):
+    """(frozen LINF, UNet prior in train mode, frozen VGG19 features) on
+    ``device``, from ``seed``."""
+    device = torch.device(device)
+    if tiny and device.type == "cuda":
+        raise ValueError("the tiny trainer config runs on the CPU only: K2 "
+                         "takes hidden 128 or 256")
+    model, prior = build_flagship(device, seed, tiny)
+    vgg = registry.make({"name": "VGGFeatureExtractor",
+                         "args": {"feature_layer": 8 if tiny else 34}})
+    gen = seeded(seed + 1)
+    for m in vgg.features:
+        if isinstance(m, nn.Conv2d):
+            m.weight.normal_(0.0, (2.0 / m.weight[0].numel()) ** 0.5,
+                             generator=gen)
+            m.bias.zero_()
+    vgg = vgg.to(device).eval().requires_grad_(False)
+    return model, prior.train(), vgg
+
+
+def synthetic_train_sample(rng, inp_size=48, scale_max=4, scale=None):
+    """One sample in the ``sr-implicit-downsampled-fast-crop`` layout from
+    the numpy generator ``rng``: a scale s ~ U(1, scale_max) (or
+    ``scale``), a smooth
+    random HR image of round(inp_size s)^2 in [0, 1] (a coarse random
+    field, bilinear up, plus noise), its LR by a bilinear resize to
+    ``inp_size``^2 (no PIL), and an ``inp_size``^2 crop of the HR grid's
+    coords, pixels, LR-up residual and HR residual, with the HR cell."""
+    n_hr = round(inp_size * (scale or rng.uniform(1, scale_max)))
+    coarse = rng.random((max(2, n_hr // 8), max(2, n_hr // 8), 3))
+    hr = np.clip(resize_bilinear_np(coarse, (n_hr, n_hr))
+                 + 0.05 * rng.standard_normal((n_hr, n_hr, 3)), 0, 1)
+    hr = hr.astype(np.float32)
+    lr = resize_bilinear_np(hr, (inp_size, inp_size)).astype(np.float32)
+    lr_up, lr_up_residual = residuals(lr, (n_hr, n_hr))
+    hr_residual = ((hr - 0.5) / 0.5 - lr_up).astype(np.float32)
+    y0, x0 = rng.integers(0, n_hr - inp_size + 1, 2)
+    sl = np.s_[y0:y0 + inp_size, x0:x0 + inp_size]
+    return {"inp": lr, "coord": make_coord((n_hr, n_hr), flatten=False)[sl],
+            "cell": make_cell((n_hr, n_hr)), "gt": hr[sl],
+            "gt_lr_up": lr_up_residual[sl], "gt_pixel": hr_residual[sl]}
+
+
+def example_train_batch(device, seed=0, batch=16, inp_size=48, scale_max=4):
+    """A batch of ``synthetic_train_sample`` s from
+    ``np.random.default_rng(seed)``, as float32 tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    samples = [synthetic_train_sample(rng, inp_size, scale_max)
+               for _ in range(batch)]
+    return {k: torch.as_tensor(np.stack([s[k] for s in samples]),
+                               device=device) for k in samples[0]}
 
 
 def srflow_specs(tiny=False):

@@ -64,7 +64,8 @@ class EDSR(Model):
         return self
 
     def forward(self, x, kernels=True):
-        """x: (1, H, W, 3) -> features (1, H, W, n_feats)."""
+        """x: (B, H, W, 3) -> features (B, H, W, n_feats); the f32 K3
+        takes the batch (the trainer's B = 16), the bf16 K3 batch 1."""
 
         def c(t, m, act=None):
             if kernels:

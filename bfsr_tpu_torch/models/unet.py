@@ -1,4 +1,5 @@
-"""UNet latent (prior) module, eval mode.
+"""UNet latent (prior) module: eval mode, and the trainer's batch-stat
+mode.
 
 The counterpart of ``bfsr_tpu/models/unet.py``: a DenseBlock_5C input
 projection of the latent z plus a stride-3 LR projection (conv + lrelu +
@@ -18,6 +19,12 @@ full-resolution convs run the bf16 K3 and every other conv takes bf16
 operands.  ``freeze()`` keeps what the K3 stages take: their conv weights
 in K3's layouts and their BatchNorm folded; call it again after changing
 the weights.
+
+``forward(z, lr, training=True)`` is the trainer's form, ``unet_apply(...,
+training=True)``: plain convs (cuDNN on the card, as XLA convs in JAX),
+every BatchNorm normalising with its batch's statistics, which it returns
+beside the output, keyed by the BatchNorm's ``state_dict`` name;
+``apply_bn_updates`` folds them into the running stats.
 
 ``state_dict`` keys are the reference's (``input_proj.conv{1..5}``,
 ``lr_proj.{0,2}``, ``inc.double_conv.{0,1,3,4}``,
@@ -71,6 +78,15 @@ class DenseBlock5C(nn.Module):
             cache_kernel_weight(c)
 
 
+def _bn_lrelu(h, bn, bn_stats):
+    """lrelu(BatchNorm(h)): eval mode, or with a dict ``bn_stats`` the
+    batch's statistics, recorded there under ``bn``."""
+    if bn_stats is None:
+        return fnn.leaky_relu(fnn.batch_norm(h, bn))
+    h, bn_stats[bn] = fnn.batch_norm(h, bn, training=True)
+    return fnn.leaky_relu(h)
+
+
 class DoubleConv(nn.Module):
     def __init__(self, cin, cout, mid=None):
         super().__init__()
@@ -83,11 +99,13 @@ class DoubleConv(nn.Module):
         self.register_buffer("folded1", None, persistent=False)
         self.register_buffer("folded2", None, persistent=False)
 
-    def forward(self, x):
+    def forward(self, x, bn_stats=None):
+        """Reference order.  With a dict ``bn_stats``, each BatchNorm takes
+        its batch's statistics and records them there, keyed by the
+        BatchNorm module."""
         dc = self.double_conv
-        h = fnn.leaky_relu(fnn.batch_norm(fnn.conv2d(x, dc[0].weight), dc[1]))
-        return fnn.leaky_relu(fnn.batch_norm(fnn.conv2d(h, dc[3].weight),
-                                             dc[4]))
+        h = _bn_lrelu(fnn.conv2d(x, dc[0].weight), dc[1], bn_stats)
+        return _bn_lrelu(fnn.conv2d(h, dc[3].weight), dc[4], bn_stats)
 
     def _fold(self):
         dc = self.double_conv
@@ -116,8 +134,8 @@ class Down(nn.Module):
         super().__init__()
         self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
 
-    def forward(self, x):
-        return self.maxpool_conv[1](fnn.max_pool2d(x, 2))
+    def forward(self, x, bn_stats=None):
+        return self.maxpool_conv[1](fnn.max_pool2d(x, 2), bn_stats)
 
 
 def _upsample_to(x1, hw):
@@ -133,8 +151,9 @@ class Up(nn.Module):
         super().__init__()
         self.conv = DoubleConv(cin, cout, mid)
 
-    def forward(self, x1, x2):
-        return self.conv(torch.cat([x2, _upsample_to(x1, x2.shape[1:3])], -1))
+    def forward(self, x1, x2, bn_stats=None):
+        return self.conv(torch.cat([x2, _upsample_to(x1, x2.shape[1:3])], -1),
+                         bn_stats)
 
 
 class OutConv(nn.Module):
@@ -210,9 +229,17 @@ class UNet(Model):
     def _out(self, x):
         return fnn.conv2d(x, self.outc.conv.weight, self.outc.conv.bias)
 
-    def forward(self, z, lr, kernels=True):
-        """z: (1, H, W, in_chans) latent; lr: (1, h, w, 3) normalized LR.
-        Returns (1, H, W, in_chans)."""
+    def forward(self, z, lr, kernels=True, training=False):
+        """z: (B, H, W, in_chans) latent; lr: (B, h, w, 3) normalized LR.
+        Returns (B, H, W, in_chans); with ``training=True`` (plain convs,
+        batch statistics, any batch) ``(out, bn_stats)``, bn_stats mapping
+        each BatchNorm's ``state_dict`` name to its batch's (mean, unbiased
+        var)."""
+        if training:
+            stats = {}
+            out = self._forward_plain(z, lr, stats)
+            names = {m: n for n, m in self.named_modules()}
+            return out, {names[m]: v for m, v in stats.items()}
         if not kernels:
             return self._forward_plain(z, lr)
         hw = z.shape[1:3]
@@ -228,14 +255,25 @@ class UNet(Model):
             [feats[0], _upsample_to(x, hw)])
         return self._out(x)
 
-    def _forward_plain(self, z, lr):
+    def _forward_plain(self, z, lr, bn_stats=None):
         x = self.input_proj(z)
         x = torch.cat([x, self._lr_embed(lr, x.shape[1:3])], -1)
-        x = self.inc(x)
+        x = self.inc(x, bn_stats)
         feats = [x]
         for down in self.down_layers:
-            x = down(x)
+            x = down(x, bn_stats)
             feats.append(x)
         for i, up in enumerate(self.up_layers):
-            x = up(x, feats[self.depth - 1 - i])
+            x = up(x, feats[self.depth - 1 - i], bn_stats)
         return self._out(x)
+
+    @torch.no_grad()
+    def apply_bn_updates(self, bn_stats, momentum=0.1):
+        """Fold the batch statistics of ``forward(..., training=True)`` into
+        the running stats, torch's update at ``momentum``:
+        ``bfsr_tpu/models/unet.py:apply_bn_updates``."""
+        for name, (mean, var) in bn_stats.items():
+            bn = self.get_submodule(name)
+            bn.running_mean.mul_(1 - momentum).add_(momentum * mean.detach())
+            bn.running_var.mul_(1 - momentum).add_(momentum * var.detach())
+            bn.num_batches_tracked += 1

@@ -56,9 +56,10 @@ _SIGNATURES = {
     "linf_flow_nd_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "linf_flow_nd_inverse": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "linf_info": [_P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "conv3x3_cat": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                    ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _F, _P],
+                    ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                    _P],
     "conv3x3_cat_bf16": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                          ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _F,
                          _P],

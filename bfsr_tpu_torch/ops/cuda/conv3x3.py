@@ -8,11 +8,13 @@ f32 accumulation), which replace ``bfsr_tpu/ops/pallas/s2d_conv.py:_kernel``
 ``bfsr_tpu/ops/pallas/conv3x3.py:_kernel`` (K6) over the f32 kernel.
 
 ``y = act(conv3x3(concat(inputs, -1), weight) * scale + bias)`` with
-inputs NHWC (batch 1) and weight torch OIHW over the concatenated input
-channels.  The concat is never built on the kernel path: each input keeps
-its own pointer and its own slice of the weight, which the kernels read in
-the layouts of ``kernel_weight`` and ``kernel_weight_bf16`` (a frozen
-model keeps them as the conv's ``kweight`` and ``kweight_bf16`` buffers).
+inputs NHWC and weight torch OIHW over the concatenated input channels.
+The f32 kernel takes any batch (the trainer's encoder runs it at B = 16);
+the bf16 kernel and K6 take batch 1.  The concat is never built on the
+kernel path: each input keeps its own pointer and its own slice of the
+weight, which the kernels read in the layouts of ``kernel_weight`` and
+``kernel_weight_bf16`` (a frozen model keeps them as the conv's
+``kweight`` and ``kweight_bf16`` buffers).
 
 ``conv3x3_cat`` follows the precision of the current stage
 (``ops/nn.py``): bf16 operands where the stage is ``default``, f32
@@ -33,6 +35,7 @@ from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 ACTS = {None: 0, "relu": 1, "lrelu": 2}
 MAX_INPUTS = 5
 KERNEL_COUTS = (8, 16, 32, 64)
+KERNEL_MAX_BATCH = 65535  # the f32 kernel's grid z extent
 
 
 def kernel_weight(weight):
@@ -117,23 +120,24 @@ def _check(inputs, weight, act):
                          f"(Cout, {cin}, 3, 3)")
 
 
-def _require_cuda(x, name):
+def _require_cuda(x, name, max_batch=1):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.shape[0] != 1:
-        raise ValueError(f"{name} takes batch 1; got B={x.shape[0]}")
+    if x.shape[0] > max_batch:
+        raise ValueError(f"{name} takes B <= {max_batch}; got B={x.shape[0]}")
 
 
 def _launch(entry, inputs, kweight, scale, bias, act, slope, cout,
             counter=None):
     """Launch C entry ``entry`` over ``inputs`` with the weight laid out as
     ``kweight`` (Cin, 3, 3, Cout or Cout_p): input i's block starts
-    sum(cins[:i]) rows into it."""
+    sum(cins[:i]) rows into it.  The f32 entry takes the batch; the bf16
+    entry is called with batch 1."""
     x0 = inputs[0]
-    _, H, W, _ = x0.shape
+    B, H, W, _ = x0.shape
     inputs = [x.contiguous() for x in inputs]
     scale, bias = (None if t is None else t.contiguous() for t in (scale, bias))
-    out = torch.empty((1, H, W, cout), device=x0.device)
+    out = torch.empty((B, H, W, cout), device=x0.device)
     cuda.check_cuda(entry, *inputs, *[t for t in (scale, bias) if t is not None],
                     out)
     if kweight.device != x0.device or not kweight.is_contiguous():
@@ -146,8 +150,9 @@ def _launch(entry, inputs, kweight, scale, bias, act, slope, cout,
     wp = (ctypes.c_void_p * n)(*[kweight.data_ptr() + sum(cins[:i]) * row
                                  for i in range(n)])
     cins = (ctypes.c_int * n)(*cins)
+    shape = (B, H, W) if entry == "conv3x3_cat" else (H, W)
     cuda.launch(entry, n, xs, wp, cins, cuda.ptr(scale), cuda.ptr(bias),
-                cuda.ptr(out), H, W, cout, ACTS[act], ctypes.c_float(slope),
+                cuda.ptr(out), *shape, cout, ACTS[act], ctypes.c_float(slope),
                 counter=counter)
     return out
 
@@ -184,9 +189,9 @@ def conv3x3_cat_bf16(inputs, weight, scale=None, bias=None, act=None,
 
 def conv3x3_cat(inputs, weight, scale=None, bias=None, act=None, slope=0.2,
                 kweight=None, kweight_bf16=None):
-    """K3 at the current stage's precision: on CUDA the f32 kernel (batch
-    1, Cout in 8/16/32/64) or, in a bf16 stage, ``conv3x3_cat_bf16``; on
-    CPU the twin of that precision.
+    """K3 at the current stage's precision: on CUDA the f32 kernel (any
+    batch up to 65535, Cout in 8/16/32/64) or, in a bf16 stage,
+    ``conv3x3_cat_bf16`` (batch 1); on CPU the twin of that precision.
 
     inputs: list of 1-5 NHWC tensors; weight: (Cout, sum Ci, 3, 3);
     scale/bias: (Cout,) or None; act: None | 'relu' | 'lrelu';
@@ -201,7 +206,7 @@ def conv3x3_cat(inputs, weight, scale=None, bias=None, act=None, slope=0.2,
     _check(inputs, weight, act)
     if inputs[0].device.type == "cpu":
         return conv3x3_cat_plain(inputs, weight, scale, bias, act, slope)
-    _require_cuda(inputs[0], "conv3x3_cat")
+    _require_cuda(inputs[0], "conv3x3_cat", KERNEL_MAX_BATCH)
     cout = weight.shape[0]
     if cout not in KERNEL_COUTS:
         raise ValueError(f"K3 takes Cout in {KERNEL_COUTS}; got {cout}")

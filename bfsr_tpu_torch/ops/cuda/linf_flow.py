@@ -8,9 +8,16 @@ which replaces ``_forward_kernel_nd`` / ``_inverse_kernel_nd``.
 
 Layouts: z and x are (N, d) row-major; the affine info is channel-major
 (2dL, N), as ``ops/cuda/linf_info.py`` writes it: rows 2di..2di+d-1 are
-layer i's s, the next d rows its t.  Any number of layers L.  A CPU
-tensor runs the plain twin below; a CUDA tensor launches K1 (d = 3) or K4
-(``KERNEL_ND_DIMS``), or raises.
+layer i's s, the next d rows its t.  Any number of layers L; a batch of
+samples is one flat N.  A CPU tensor runs the plain twin below; a CUDA
+tensor launches K1 (d = 3) or K4 (``KERNEL_ND_DIMS``), or raises.
+
+``FlowInverse`` (``flow_inverse_diff``) is the inverse with a gradient
+with respect to z, for the trainer: the frozen flow's weights and info
+take none.  Its forward is ``flow_inverse``; its backward runs the plain
+twin, as ``bfsr_tpu/models/edsr.py:_edsr_fused_diff`` gives a kernel with
+no differentiation rule the VJP of its plain form: the JAX package has no
+backward kernel for the flow, so neither has the port.
 """
 
 import torch
@@ -90,3 +97,29 @@ def flow_forward(w, b, x, info_cm):
 def flow_inverse(w_inv, b, z, info_cm):
     """x = flow^-1(z): K1 / K4 on CUDA, the twin on CPU."""
     return _run("inverse", flow_inverse_plain, w_inv, b, z, info_cm)
+
+
+class FlowInverse(torch.autograd.Function):
+    """x = flow^-1(z) through ``flow_inverse`` (K1 / K4 on CUDA), with the
+    gradient with respect to z of the plain twin: the backward recomputes
+    ``flow_inverse_plain`` of the saved z and info under autograd and
+    returns its vector-Jacobian product for z only."""
+
+    @staticmethod
+    def forward(ctx, w_inv, b, z, info_cm):
+        ctx.save_for_backward(w_inv, b, z, info_cm)
+        return flow_inverse(w_inv, b, z, info_cm)
+
+    @staticmethod
+    def backward(ctx, grad_x):
+        w_inv, b, z, info_cm = ctx.saved_tensors
+        with torch.enable_grad():
+            zr = z.detach().requires_grad_(True)
+            x = flow_inverse_plain(w_inv, b, zr, info_cm)
+            (grad_z,) = torch.autograd.grad(x, zr, grad_x)
+        return None, None, grad_z, None
+
+
+def flow_inverse_diff(w_inv, b, z, info_cm):
+    """``flow_inverse`` that autograd differentiates with respect to z."""
+    return FlowInverse.apply(w_inv, b, z, info_cm)

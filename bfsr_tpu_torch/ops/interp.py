@@ -1,11 +1,14 @@
 """Resampling ops with PyTorch numerical semantics, NHWC layout.
 
-The counterpart of ``bfsr_tpu/ops/interp.py`` for the three the inference
-paths use:
+The counterpart of ``bfsr_tpu/ops/interp.py`` for the four the inference
+and training paths use:
 
-* ``grid_sample_bilinear_separable`` — ``F.grid_sample(mode='bilinear',
-  padding_mode='border', align_corners=False)`` on a *regular* grid, as
-  two axis interpolations: the LR add-back of the LINF pixel model;
+* ``grid_sample_bilinear`` — ``F.grid_sample(mode='bilinear',
+  align_corners=False)``, border or zero padding, at any query set
+  (B, ..., 2): the LR add-back at coords that are not a regular grid;
+* ``grid_sample_bilinear_separable`` — the same on a *regular* grid per
+  sample, as two axis interpolations: the LR add-back of the LINF pixel
+  model (the predictors' grid, the trainer's per-sample crops);
 * ``resize_bilinear`` — ``F.interpolate(mode='bilinear')`` with torch's
   per-axis source positions, both ``align_corners`` settings: the UNets'
   up paths, the LINF LR-embedding resize, SRFlow's LR-up image and its
@@ -34,19 +37,67 @@ def _sample_axis_weights(coord, n):
     return i0, torch.clamp(i0 + 1, max=n - 1), 1.0 - w1, w1
 
 
+def grid_sample_bilinear(x, coord, padding_mode="border"):
+    """Bilinear grid sample, align_corners=False, at any query set.
+
+    x: (B, H, W, C); coord: (B, ..., 2) in (h, w) order.  padding_mode:
+    'border' (clamp) or 'zeros'.  Returns (B, ..., C), the four corners
+    weighted as ``bfsr_tpu/ops/interp.py:grid_sample_bilinear`` weights
+    them."""
+    B, H, W, C = x.shape
+    fy = _unnormalize(coord[..., 0], H)
+    fx = _unnormalize(coord[..., 1], W)
+    if padding_mode == "border":
+        fy = torch.clamp(fy, 0.0, H - 1.0)
+        fx = torch.clamp(fx, 0.0, W - 1.0)
+    elif padding_mode != "zeros":
+        raise ValueError(f"padding_mode must be 'border' or 'zeros', got "
+                         f"{padding_mode!r}")
+    y0, x0 = torch.floor(fy), torch.floor(fx)
+    wy, wx = (fy - y0)[..., None], (fx - x0)[..., None]
+    y0, x0 = y0.long(), x0.long()
+    flat = x.reshape(B, H * W, C)
+
+    def corner(iy, ix):
+        idx = (torch.clamp(iy, 0, H - 1) * W
+               + torch.clamp(ix, 0, W - 1)).reshape(B, -1, 1)
+        v = torch.gather(flat, 1, idx.expand(-1, -1, C))
+        v = v.reshape(*iy.shape, C)
+        if padding_mode == "zeros":
+            inb = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+            v = torch.where(inb[..., None], v, torch.zeros_like(v))
+        return v
+
+    return (corner(y0, x0) * (1 - wy) * (1 - wx)
+            + corner(y0, x0 + 1) * (1 - wy) * wx
+            + corner(y0 + 1, x0) * wy * (1 - wx)
+            + corner(y0 + 1, x0 + 1) * wy * wx)
+
+
 def grid_sample_bilinear_separable(x, coord_y, coord_x):
     """Bilinear grid sample (border padding) at the regular grid
     coord_y x coord_x.
 
-    x: (B, H, W, C); coord_y: (Hg,); coord_x: (Wg,).  Returns (B, Hg, Wg, C).
+    x: (B, H, W, C); coord_y: (Hg,) and coord_x: (Wg,), one grid for the
+    batch, or (B, Hg) and (B, Wg), each sample's own.  Returns
+    (B, Hg, Wg, C).
     """
-    _, H, W, _ = x.shape
+    B, H, W, _ = x.shape
+    if coord_y.ndim == 1:
+        coord_y, coord_x = coord_y.expand(B, -1), coord_x.expand(B, -1)
     y0, y1, wy0, wy1 = _sample_axis_weights(coord_y, H)
     x0, x1, wx0, wx1 = _sample_axis_weights(coord_x, W)
-    rows = (x[:, y0] * wy0[None, :, None, None]
-            + x[:, y1] * wy1[None, :, None, None])
-    return (rows[:, :, x0] * wx0[None, None, :, None]
-            + rows[:, :, x1] * wx1[None, None, :, None])
+
+    def rows_at(i):
+        return torch.take_along_dim(x, i[:, :, None, None], dim=1)
+
+    def cols_at(t, i):
+        return torch.take_along_dim(t, i[:, None, :, None], dim=2)
+
+    rows = (rows_at(y0) * wy0[:, :, None, None]
+            + rows_at(y1) * wy1[:, :, None, None])
+    return (cols_at(rows, x0) * wx0[:, None, :, None]
+            + cols_at(rows, x1) * wx1[:, None, :, None])
 
 
 def _resize_axis_weights(in_size, out_size, align_corners, device):

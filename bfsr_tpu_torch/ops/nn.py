@@ -6,7 +6,9 @@ The counterpart of ``bfsr_tpu/ops/nn.py``.  Conventions:
 * conv weights are torch's OIHW ``(cout, cin, kh, kw)`` and linears
   ``(out, in)`` — the layout the modules' ``state_dict`` s carry, so a
   reference checkpoint loads as it is;
-* batch norm is the eval form over running statistics.
+* batch norm is the eval form over running statistics, or, for the
+  trainer, the batch-statistics form, which also returns the batch's
+  statistics for the running-stat update.
 
 Precision modes, as ``bfsr_tpu/ops/nn.py`` defines them (a TPU computes
 them so):
@@ -156,11 +158,22 @@ def max_pool2d(x, window=2):
     return nchw_to_nhwc(F.max_pool2d(nhwc_to_nchw(x), window))
 
 
-def batch_norm(x, bn, eps=1e-5):
-    """Eval-mode BatchNorm over the last (channel) axis of an NHWC tensor.
-    ``bn``: an ``nn.BatchNorm2d`` (its running stats and affine)."""
-    return ((x - bn.running_mean) * torch.rsqrt(bn.running_var + eps)
-            * bn.weight + bn.bias)
+def batch_norm(x, bn, training=False, eps=1e-5):
+    """BatchNorm over the last (channel) axis of an NHWC tensor.  ``bn``:
+    an ``nn.BatchNorm2d`` (its running stats and affine).  Eval mode
+    normalises with the running stats.  ``training=True`` normalises with
+    the batch's mean and biased variance over (B, H, W) and returns
+    ``(y, (mean, unbiased var))``: torch folds the unbiased (n / (n - 1))
+    variance into ``running_var``, as ``bfsr_tpu/ops/nn.py:batch_norm``
+    returns it for ``apply_bn_updates``."""
+    if not training:
+        return ((x - bn.running_mean) * torch.rsqrt(bn.running_var + eps)
+                * bn.weight + bn.bias)
+    mean = x.mean(dim=(0, 1, 2))
+    var = ((x - mean) ** 2).mean(dim=(0, 1, 2))
+    y = (x - mean) * torch.rsqrt(var + eps) * bn.weight + bn.bias
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    return y, (mean, var * (n / max(n - 1, 1)))
 
 
 def fold_bn(bn, conv_bias=None, eps=1e-5):

@@ -1,0 +1,80 @@
+"""Fingerprints of K3's f32 kernel and K2 at batch 1 on fixed inputs, to
+show that two checkouts compute the same bits.
+
+    PYTHONPATH=<checkout> python bfsr_tpu_torch/profiling/kernel_bits.py \\
+        --label <name> [--out chiprun_out/kernel_bits.jsonl]
+
+prints (and appends to ``--out``) one JSON line: per case, the SHA-256 of
+the output's bytes.  Run it once per checkout in one call (the parent
+unpacked with ``git archive`` into ``_archive/``) and compare the lines.
+The cases are the main paths' batch-1 shapes: the encoder's conv at LR
+128^2 and 96x80, the prior's dense and ``up`` convs at 512^2, a ragged
+16-channel conv; K2 at 128^2 -> 512^2 and 96x80 -> 300x250 (out 60) and
+the patch model's 172^2 grid (out 540).  It uses only ``conv3x3_cat`` and
+``affine_info`` with 1-D grid axes, the API every checkout since PR 3
+has.
+"""
+
+import argparse
+import hashlib
+import json
+
+import numpy as np
+import torch
+
+from bfsr_tpu_torch.ops.cuda import conv3x3, linf_info
+
+K3_CASES = [([64], 64, (128, 128)), ([3], 64, (96, 80)),
+            ([3, 32, 32, 32, 32], 32, (512, 512)), ([64, 64], 64, (512, 512)),
+            ([16, 16], 16, (37, 45))]
+K2_CASES = [(256, 2, 60, (128, 128), (512, 512)),
+            (256, 2, 540, (128, 128), (172, 172)),
+            (256, 2, 60, (96, 80), (300, 250))]
+
+
+def fingerprints(dev):
+    g = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+
+    def digest(y):
+        return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+
+    out = {}
+    for cins, cout, hw in K3_CASES:
+        xs = [t(g.standard_normal((1, *hw, c))) for c in cins]
+        w = t(0.2 * g.standard_normal((cout, sum(cins), 3, 3)))
+        b, s = t(g.standard_normal(cout)), t(g.random(cout) + 0.5)
+        out[f"k3 {cins}->{cout} @{hw}"] = digest(
+            conv3x3.conv3x3_cat(xs, w, s, b, "lrelu"))
+    for C, n_hidden, out_dim, hw, HW in K2_CASES:
+        coef, freq = (t(g.standard_normal((1, *hw, C))) for _ in range(2))
+        ys = t((np.arange(HW[0]) * 2 + 1) / HW[0] - 1)
+        xs = t((np.arange(HW[1]) * 2 + 1) / HW[1] - 1)
+        phase = t(g.standard_normal(C // 2))
+        dims = [4 * C] + [C] * (n_hidden + 1) + [out_dim]
+        mlp = [(t(g.uniform(-1, 1, (o, i)) / np.sqrt(i)),
+                t(0.1 * g.standard_normal(o)))
+               for i, o in zip(dims[:-1], dims[1:])]
+        out[f"k2 C={C} out={out_dim} {hw}->{HW}"] = digest(
+            linf_info.affine_info(coef, freq, ys, xs, phase, mlp))
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", required=True)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    line = json.dumps({"label": args.label,
+                       "bits": fingerprints(torch.device("cuda"))})
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()

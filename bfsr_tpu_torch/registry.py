@@ -5,9 +5,11 @@ components register under a string name and are built from
 ``{'name': ..., 'args': {...}}`` dicts, which compose recursively (an
 ``encoder_spec`` lives inside a model spec).  Importing
 ``bfsr_tpu_torch.models`` registers ``linf``, ``linf-patch``,
-``edsr-baseline``, ``flow``, ``unet``, ``srflow`` and ``srflow-unet``;
-importing ``bfsr_tpu_torch.data.wrappers`` registers
-``sr-implicit-paired-fast`` and ``sr-implicit-paired-fast-patch``.
+``edsr-baseline``, ``flow``, ``unet``, ``VGGFeatureExtractor``, ``srflow``
+and ``srflow-unet``; importing ``bfsr_tpu_torch.data.wrappers`` registers
+``sr-implicit-paired-fast``, ``sr-implicit-paired-fast-patch`` and
+``sr-implicit-downsampled-fast-crop``, and ``bfsr_tpu_torch.data.
+image_folder`` registers ``image-folder``.
 """
 
 import copy

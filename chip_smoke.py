@@ -78,17 +78,37 @@ fails (non-zero exit, no result line) if any phase fails:
    512^2 predict: its K5 48 + 48, its agreement with ``high`` beside the
    served form's); times ``high``, ``mixed`` and ``default`` interleaved at
    both shapes, splits ``mixed`` and ``default`` into stages and profiles
-   one ``default`` predict.
+   one ``default`` predict;
+10. the LINF-LP trainer (``configs/train/train_edsr-baseline-linf-LP.yaml``:
+   the LINF-LP models above, VGG19 through conv5_4, Adam at 1e-4, batch
+   16 of 48^2 LR crops, each at its own scale from U(1, 4)), on synthetic
+   batches from ``np.random.default_rng`` in the crop wrapper's layout
+   (smooth random HR images, downsampled bilinearly: no PIL) and a VGG
+   drawn He-normal (no weights ship with the repository): holds the
+   batched K3 (the encoder's 64 -> 64 and head 3 -> 64 convs at B = 16,
+   48^2, beside cuDNN) and the batched K2 (per-sample axes and cells, out
+   60) against their twins, and K1 inverse's gradient (``FlowInverse``)
+   against autograd through the twin; takes one step's loss and gradients
+   on the kernel path and on the twin path from the same state, with the
+   launch counters reset (K3 34, K2 1, K1 1 + 1; K1 forward 2 with the
+   latent loss, a second check): the losses within 1e-5 relative, each
+   gradient tensor within twice the twin path's own spread under a 1e-7
+   nudge of its input, in relative L2 (``TRAIN_TOL``); runs 20 steps (finite
+   losses, every parameter moved; the first and last loss printed, not
+   gated: the VGG is random); times steps on resident batches (kernel and
+   twin paths interleaved) and fed by the port's ``DataLoader``, splits a
+   step into its stages, profiles one and prints its peak memory.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
-full-size predicts (512^2; 516^2 for the patch model), its max abs
-error, its time beside the twin's and the one PyTorch call's that
-computes the same function, where there is one, and its bound: the least
-time the card could take for the same work, with the peak it is taken
-at in ``bound_rate``: K2's f32-grade products at 3xTF32, three TF32
-products each at the 495 TFLOP/s TF32 rate); the
-last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+full-size predicts (512^2; 516^2 for the patch model) and the trainer's
+step, its max abs error, its time beside the twin's and the one PyTorch
+call's that computes the same function, where there is one, and its
+bound: the least time the card could take for the same work, with the
+peak it is taken at in ``bound_rate``: K2's f32-grade products at
+3xTF32, three TF32 products each at the 495 TFLOP/s TF32 rate; K1, K2
+and K3 also carry ``train_checks``, phase 10's checks at the trainer's
+shapes, K1's inverse with ``FlowInverse``'s gradient); the last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": N}}``.
 """
 
@@ -172,6 +192,25 @@ MODE_LAUNCHES = {
     for mode, bf16 in (("mixed", 9), ("default", 43))}
 # the SRFlow-LP prior's K3 convs: 2 branches x (5 dense + 2 inc + 2 up)
 SRFLOW_PRIOR_K3 = 18
+# the trainer: batch, LR crop, scale range; a step's launches (the 34
+# encoder convs on K3, the info once, the LR-up residual's encode and the
+# decode on K1; the HR residual's encode too with the latent loss)
+TRAIN_BATCH, TRAIN_INP, TRAIN_SCALE_MAX = 16, 48, 4
+TRAIN_LAUNCHES = {"conv3x3_cat": 34, "linf_info": 1, "linf_flow_forward": 1,
+                  "linf_flow_inverse": 1}
+# the step on the kernel path against the twin path: the loss, relative
+# (1e-7 to 1.4e-7 measured, PERF.md); FlowInverse's gradient (the same twin
+# computes both) absolutely.  The prior's gradients are not continuous in
+# the step's inputs: ReLU, LeakyReLU, max-pool and clip decisions at
+# near-ties flip under any f32-level change, so the twin path itself, with
+# gt_lr_up scaled by (1 + GRAD_NUDGE), moves them by up to ~4% of a
+# tensor's largest value (~1% in L2; PERF.md, PR 13).  Each tensor's
+# relative L2 error against the twin path is held to GRAD_SPREAD_FACTOR x
+# that nudge's worst relative L2 change in the same run, and never less
+# than GRAD_FLOOR; a fault (a wrong sample, crop or layout) moves them by
+# O(1).
+TRAIN_TOL = {"loss_rel": 1e-5, "flow_inverse_grad": 1e-5}
+GRAD_NUDGE, GRAD_SPREAD_FACTOR, GRAD_FLOOR = 1e-7, 2.0, 1e-3
 KERNELS = {
     "linf_flow_forward": ("bfsr_tpu_torch/csrc/linf_flow.cu",
                           "bfsr_tpu/ops/pallas/linf_flow.py:47"),
@@ -433,9 +472,9 @@ def check_k3(label, xs, conv, s, b, act):
     from bfsr_tpu_torch.ops.cuda import conv3x3
 
     w = conv.weight
-    H, W = xs[0].shape[1], xs[0].shape[2]
+    B, H, W = xs[0].shape[:3]
     with torch.inference_mode():
-        flops = 2 * 9 * w.shape[1] * w.shape[0] * H * W
+        flops = 2 * 9 * w.shape[1] * w.shape[0] * H * W * B
         xcat = torch.cat(xs, -1).permute(0, 3, 1, 2).contiguous()
         wl = w if s is None else w * s[:, None, None, None]
         n_bytes = nbytes(*xs, conv.kweight, *[t for t in (s, b) if t is not None])
@@ -444,7 +483,7 @@ def check_k3(label, xs, conv, s, b, act):
             lambda: conv3x3.conv3x3_cat(xs, w, s, b, act, kweight=conv.kweight),
             lambda: conv3x3.conv3x3_cat_plain(xs, w, s, b, act),
             TOL["conv3x3_cat"], flops, f" {label}",
-            n_bytes + 4 * w.shape[0] * H * W,
+            n_bytes + 4 * w.shape[0] * H * W * B,
             lambda: F.conv2d(xcat, wl, b, padding=1))
 
 
@@ -673,12 +712,12 @@ def time_paths(paths, mp, label, blocks=3, per_block=5):
     return out
 
 
-def profile_predict(fn, unprofiled_ms, label, top=14):
-    """One kernel-path predict ``fn()`` under torch.profiler: device time
-    by kernel (device-side events only, so a CPU op and its kernels are
-    not counted twice), the busy share of the profiled wall time, and an
-    estimate of the idle share of an unprofiled predict (``unprofiled_ms``,
-    the median of this run's timing blocks)."""
+def profile_predict(fn, unprofiled_ms, label, top=14, what="predict"):
+    """One kernel-path predict (or ``what``) ``fn()`` under torch.profiler:
+    device time by kernel (device-side events only, so a CPU op and its
+    kernels are not counted twice), the busy share of the profiled wall
+    time, and an estimate of the idle share of an unprofiled one
+    (``unprofiled_ms``, the median of this run's timing blocks)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -698,10 +737,10 @@ def profile_predict(fn, unprofiled_ms, label, top=14):
             f"measured)")
         return
     busy = sum(r[0] for r in rows) / 1e3
-    log(f"profile {label}: one kernel-path predict: {busy:.3f} ms of kernels "
+    log(f"profile {label}: one kernel-path {what}: {busy:.3f} ms of kernels "
         f"in {wall_ms:.3f} ms wall under the profiler (busy share "
         f"{100 * busy / wall_ms:.1f}%), {sum(r[2] for r in rows)} launches; "
-        f"idle share of an unprofiled predict, estimated against this run's "
+        f"idle share of an unprofiled {what}, estimated against this run's "
         f"median {unprofiled_ms:.3f} ms: "
         f"{100 * max(0.0, 1 - busy / unprofiled_ms):.1f}%")
     for dev_us, key, count in sorted(rows, reverse=True)[:top]:
@@ -1215,6 +1254,306 @@ def check_patch_eval(model, prior):
                            f"twin {psnr['twin']} dB")
 
 
+# ---------------------------------------------------------------------------
+# the LINF-LP trainer
+# ---------------------------------------------------------------------------
+
+
+class SyntheticCrops:
+    """A dataset of ``n`` synthetic crop-wrapper samples, sample i from
+    ``np.random.default_rng(seed + i)``."""
+
+    def __init__(self, n, seed=0):
+        self.n, self.seed = n, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        from bfsr_tpu_torch.entry import synthetic_train_sample
+
+        return synthetic_train_sample(np.random.default_rng(self.seed + i),
+                                      TRAIN_INP, TRAIN_SCALE_MAX)
+
+
+def check_train_kernels(linf, batch):
+    """The trainer's kernel shapes: K3 at B = 16 (the encoder's 64 -> 64
+    and the head's 3 -> 64, beside cuDNN), K2 at B = 16 with per-sample
+    axes and cells, K1 both ways on the batch's 36,864 queries, and K1
+    inverse's gradient through ``FlowInverse`` against autograd through
+    the twin.  Returns {name: [results]}."""
+    import torch
+
+    from bfsr_tpu_torch.models.linf import grid_axes
+    from bfsr_tpu_torch.ops.cuda import linf_flow, linf_info
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    inp = (batch["inp"] - 0.5) / 0.5
+    feat_in = torch.randn((TRAIN_BATCH, TRAIN_INP, TRAIN_INP, 64),
+                          generator=gen, device="cuda")
+    enc = linf.encoder
+    out["conv3x3_cat"] = [
+        check_k3(f"train encoder 64->64 B={TRAIN_BATCH} @{TRAIN_INP}^2",
+                 [feat_in], enc.body[0].body[0], None,
+                 enc.body[0].body[0].bias, "relu"),
+        check_k3(f"train head 3->64 B={TRAIN_BATCH} @{TRAIN_INP}^2", [inp],
+                 enc.head[0], None, enc.head[0].bias, None)]
+    # no_grad, not inference_mode: FlowInverse saves the info for backward
+    with torch.no_grad():
+        feat = linf.gen_feat(inp, kernels=False)
+        coef, freq = linf.head(feat)
+        phase = linf.phase_of(batch["cell"], TRAIN_INP, TRAIN_INP)
+        cy, cx = grid_axes(batch["coord"])
+        args = (coef, freq, cy, cx, phase, linf.mlp())
+        n = TRAIN_BATCH * cy.shape[1] * cx.shape[1]
+        flops = 2 * n * sum(w.shape[0] * w.shape[1] for w, _ in linf.mlp())
+        out_dim = linf.mlp()[-1][0].shape[0]
+        out["linf_info"] = [compare(
+            "linf_info", lambda: linf_info.affine_info(*args, linf.mlp_packed),
+            lambda: linf_info.affine_info_plain(*args), TOL["linf_info"],
+            flops, f" train B={TRAIN_BATCH} {TRAIN_INP}^2 crops",
+            nbytes(coef, freq, cy, cx, phase, linf.mlp_packed)
+            + 4 * out_dim * n, peak=PEAK_3XTF32_FLOPS)]
+        info = linf_info.affine_info_plain(*args)
+    # the step's own values: the batch's LR-up residual and its latent
+    flow = linf.imnet
+    x = batch["gt_lr_up"].reshape(-1, 3).contiguous()
+    with torch.no_grad():
+        z = linf_flow.flow_forward_plain(flow.w, flow.b, x, info)
+    up = torch.randn((n, 3), generator=gen, device="cuda")
+
+    def grad(fn):
+        zr = z.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(flow.w_inv, flow.b, zr, info), zr,
+                                   up)[0]
+
+    # per query and layer: a 3x3 matvec + bias (21 flop) and the affine
+    # coupling of 3 channels (15); the VJP about twice the forward
+    n_layers = flow.w.shape[0] - 1
+    k1_flops = n * (36 * n_layers + 21)
+    k1_bytes = nbytes(flow.w, flow.b, z, info) + z.numel() * 4
+    with torch.no_grad():
+        out["linf_flow_forward"] = [compare(
+            "linf_flow_forward",
+            lambda: linf_flow.flow_forward(flow.w, flow.b, x, info),
+            lambda: linf_flow.flow_forward_plain(flow.w, flow.b, x, info),
+            TOL["linf_flow_forward"], k1_flops, f" train N={n}", k1_bytes)]
+        inverse = compare(
+            "linf_flow_inverse",
+            lambda: linf_flow.flow_inverse(flow.w_inv, flow.b, z, info),
+            lambda: linf_flow.flow_inverse_plain(flow.w_inv, flow.b, z, info),
+            TOL["linf_flow_inverse"], k1_flops, f" train N={n}", k1_bytes)
+    # FlowInverse: z, the info, the weights and the upstream gradient read,
+    # x and z's gradient written
+    out["linf_flow_inverse"] = [inverse, compare(
+        "linf_flow_inverse", lambda: grad(linf_flow.flow_inverse_diff),
+        lambda: grad(linf_flow.flow_inverse_plain),
+        TRAIN_TOL["flow_inverse_grad"], 3 * k1_flops,
+        f" gradient (FlowInverse) N={n}",
+        nbytes(flow.w_inv, flow.b, z, info, up) + 2 * z.numel() * 4)]
+    return out
+
+
+def grad_errors(grads, ref):
+    """Per tensor: (relative L2 error, error relative to the largest
+    |ref|) of ``grads`` against ``ref``."""
+    out = {}
+    for name, g in grads.items():
+        d = g - ref[name]
+        out[name] = (float(d.norm() / ref[name].norm().clamp_min(1e-30)),
+                     float(d.abs().max() / ref[name].abs().max()
+                           .clamp_min(1e-30)))
+    return out
+
+
+def train_step_check(linf, prior, vgg, batch, latent_weight):
+    """One step's loss and gradients on the kernel path, with the launch
+    counters reset first, and on the twin path from the same state; the
+    twin path once more with gt_lr_up nudged by GRAD_NUDGE, the
+    gradients' own spread (see TRAIN_TOL).  Returns the kernel path's
+    launches."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    label = f"train step latent_weight={latent_weight:g}"
+    cuda.reset_launch_counts()
+    mets, grads, _ = make_train_step(
+        linf, prior, vgg, opt, latent_weight=latent_weight).loss_and_grads(
+            batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    want = dict(TRAIN_LAUNCHES)
+    if latent_weight > 0:
+        want["linf_flow_forward"] = 2
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, expected {want}")
+    twin = make_train_step(linf, prior, vgg, opt, latent_weight=latent_weight,
+                           kernels=False)
+    ref, ref_grads, _ = twin.loss_and_grads(batch)
+    nudged = dict(batch, gt_lr_up=batch["gt_lr_up"] * (1 + GRAD_NUDGE))
+    spread = grad_errors(twin.loss_and_grads(nudged)[1], ref_grads)
+    errs = grad_errors(grads, ref_grads)
+    loss, ref_loss = float(mets["loss"]), float(ref["loss"])
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    tol = max(GRAD_FLOOR, GRAD_SPREAD_FACTOR * max(v[0] for v in
+                                                   spread.values()))
+    if not all(torch.isfinite(g).all() for g in grads.values()):
+        raise RuntimeError(f"{label}: a gradient is not finite")
+    bad = {k: v[0] for k, v in errs.items() if not v[0] <= tol}
+    if bad or not rel <= TRAIN_TOL["loss_rel"]:
+        raise RuntimeError(f"{label}: loss {loss!r} vs twin path "
+                           f"{ref_loss!r} ({rel:.3e} relative); gradients "
+                           f"past {tol:.3e} relative L2: {bad}")
+
+    def worst(e, i):
+        name = max(e, key=lambda k: e[k][i])
+        return f"{e[name][i]:.3e} ({name})"
+
+    log(f"{label}: launches {launches}; loss {loss!r} (vgg_l "
+        f"{float(mets['vgg_l'])!r}, latent_l {float(mets['latent_l'])!r}), "
+        f"twin path {ref_loss!r}: {rel:.3e} relative (at most "
+        f"{TRAIN_TOL['loss_rel']:g}); {len(grads)} gradient tensors against "
+        f"the twin path: worst relative L2 {worst(errs, 0)}, median "
+        f"{statistics.median(v[0] for v in errs.values()):.3e}, worst of max "
+        f"|g| {worst(errs, 1)}; the twin path's own spread (gt_lr_up x (1 + "
+        f"{GRAD_NUDGE:g})): worst relative L2 {worst(spread, 0)}, median "
+        f"{statistics.median(v[0] for v in spread.values()):.3e}, worst of "
+        f"max |g| {worst(spread, 1)}; tolerance {tol:.3e} relative L2")
+    return launches
+
+
+def time_steps(steps, label, blocks=3, per_block=5):
+    """ms/step of each path (name -> step fn), 2 warm-ups each, blocks
+    interleaved as in ``time_paths``."""
+    import torch
+
+    for fn in steps.values():
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in steps}
+    names = list(steps)
+    for k in [k for b in range(blocks)
+              for k in (names if b % 2 == 0 else names[::-1])]:
+        t0 = time.perf_counter()
+        for _ in range(per_block):
+            steps[k]()
+        torch.cuda.synchronize()
+        times[k].append((time.perf_counter() - t0) * 1e3 / per_block)
+    out = {}
+    for k, ts in times.items():
+        med, best = statistics.median(ts), min(ts)
+        out[k] = med
+        log(f"time {label} {k} path: median {med:.3f} ms/step, best "
+            f"{best:.3f} ms/step, {1e3 / med:.3f} steps/s (median), "
+            f"{1e3 / best:.3f} (best); blocks {[round(t, 3) for t in ts]}")
+    return out
+
+
+def train_stages(make_step, batch, label, reps=3):
+    """A step split into its stages by CUDA events at the step's marks:
+    the median over ``reps`` steps of each stage's time between events.
+    ``make_step(marks)`` builds the step."""
+    import torch
+
+    events = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    step = make_step(mark)
+    split = {}
+    for _ in range(reps):
+        events.clear()
+        step(batch)
+        torch.cuda.synchronize()
+        for (name, a), (_, b) in zip(events, events[1:]):
+            split.setdefault(name, []).append(a.elapsed_time(b))
+    med = {k: statistics.median(v) for k, v in split.items()}
+    total = sum(med.values())
+    log(f"stages {label}: " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in med.items())
+        + f"; total {total:.3f} ms")
+    return med
+
+
+def run_trainer(dev):
+    """Phase 10: the LINF-LP trainer at its full configuration."""
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch.data.loader import DataLoader
+    from bfsr_tpu_torch.entry import (build_flagship_trainer,
+                                      example_train_batch)
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    linf, prior, vgg = build_flagship_trainer(dev, seed=0)
+    batches = [example_train_batch(dev, seed, TRAIN_BATCH, TRAIN_INP,
+                                   TRAIN_SCALE_MAX) for seed in range(4)]
+    log(f"train: models and 4 synthetic batches of {TRAIN_BATCH} x "
+        f"{TRAIN_INP}^2 (scales U(1, {TRAIN_SCALE_MAX})) built in "
+        f"{time.perf_counter() - t0:.2f} s; prior "
+        f"{sum(p.numel() for p in prior.parameters())} parameters")
+    checks = check_train_kernels(linf, batches[0])
+    launches = train_step_check(linf, prior, vgg, batches[0], 0.0)
+    train_step_check(linf, prior, vgg, batches[1], 1.0)
+
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    steps = {k: make_train_step(linf, prior, vgg, opt, kernels=k == "kernel")
+             for k in ("twin", "kernel")}
+    before = {k: v.detach().clone() for k, v in prior.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses = [steps["kernel"](batches[i % 4])["loss"] for i in range(20)]
+    peak = torch.cuda.max_memory_allocated()
+    still = [k for k, v in prior.named_parameters()
+             if torch.equal(v, before[k])]
+    if not np.isfinite(losses).all() or still:
+        raise RuntimeError(f"train: 20 steps: losses {losses}, parameters "
+                           f"that did not move: {still}")
+    log(f"train: 20 kernel-path steps: loss {losses[0]!r} at step 1, "
+        f"{losses[-1]!r} at step 20 (not gated: random VGG); every one of "
+        f"{len(before)} parameter tensors moved; peak memory "
+        f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above the "
+        f"{base / 2**20:.1f} MiB resident)")
+
+    it = iter(range(10 ** 9))
+    medians = time_steps({k: (lambda s=s: s(batches[next(it) % 4]))
+                          for k, s in steps.items()},
+                         f"train B={TRAIN_BATCH} {TRAIN_INP}^2 resident")
+    loader = DataLoader(SyntheticCrops(10 * TRAIN_BATCH), TRAIN_BATCH,
+                        shuffle=True, num_workers=4, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in loader:
+        steps["kernel"](b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"time train B={TRAIN_BATCH} loader-fed kernel path: 10 steps in "
+        f"{wall * 1e3:.3f} ms, {10 / wall:.3f} steps/s ({wall * 100:.3f} "
+        f"ms/step; the DataLoader's 4 threads making the batches)")
+    for k in ("kernel", "twin"):
+        train_stages(lambda marks, k=k: make_train_step(
+            linf, prior, vgg, opt, kernels=k == "kernel", marks=marks),
+            batches[0], f"train B={TRAIN_BATCH} {k} path")
+    profile_predict(lambda: steps["kernel"](batches[0]), medians["kernel"],
+                    f"train B={TRAIN_BATCH} step", top=16, what="step")
+    return checks, launches
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -1372,6 +1711,12 @@ def main():
         medians["srflow 128x128->512x512 modes"]["default"],
         "srflow 512^2 default", top=16)
 
+    del smodel, sprior
+    torch.cuda.empty_cache()
+
+    # --- the LINF-LP trainer ---
+    train_checks, launches["linf_train"] = run_trainer(dev)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rs = checks[name]
@@ -1394,6 +1739,13 @@ def main():
             "library_ms": (sum(r["library_ms"] for r in timed)
                            if timed[0]["library_ms"] is not None else None),
         })
+        if name in train_checks:
+            # the trainer's shapes (K3 at B = 16, K2's batched crops) and,
+            # for K1's inverse, FlowInverse's gradient, each check as it ran
+            kernels[-1]["train_checks"] = [
+                {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in train_checks[name]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

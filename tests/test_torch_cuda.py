@@ -243,8 +243,12 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
     x = torch.zeros((1, 4, 4, 8), device=dev)
     with pytest.raises(ValueError):
         conv3x3.conv3x3_cat([x], torch.zeros((48, 8, 3, 3), device=dev))
+    # the f32 K3 takes a batch, up to the grid's z extent
+    assert conv3x3.conv3x3_cat(
+        [torch.zeros((2, 4, 4, 8), device=dev)],
+        torch.zeros((8, 8, 3, 3), device=dev)).shape == (2, 4, 4, 8)
     with pytest.raises(ValueError):
-        conv3x3.conv3x3_cat([torch.zeros((2, 4, 4, 8), device=dev)],
+        conv3x3.conv3x3_cat([torch.zeros((65536, 1, 1, 8), device=dev)],
                             torch.zeros((8, 8, 3, 3), device=dev))
     with pytest.raises(TypeError):
         conv3x3.conv3x3_cat([x.double()],
@@ -864,3 +868,135 @@ def test_k5_bf16_launches_are_bitwise_repeatable(dev, restore_mode, form, c,
         first = fn(x, rt, None, 64, pb, form)
         second = fn(x, rt, None, 64, pb, form)
         assert torch.equal(first, second)
+
+
+# --- the trainer's batch: K3 and K2 at B > 1, K1's inverse gradient ------
+
+
+@pytest.mark.parametrize("cins,cout,act,hw,batch", [
+    ([64], 64, "relu", (48, 48), 3),      # the encoder's conv at B 3
+    ([3], 64, None, (37, 45), 3),         # the head conv, ragged
+    ([8, 8, 8], 32, "lrelu", (19, 70), 2),
+    ([64], 64, None, (96, 128), 5),       # enough blocks for the TH 8 tile
+])
+def test_batched_k3_matches_twin_and_batch_1(dev, cins, cout, act, hw,
+                                             batch):
+    g = _gen(sum(cins) + cout + batch)
+    xs = [_t(g.standard_normal((batch, *hw, c)), dev) for c in cins]
+    w = _t(0.2 * g.standard_normal((cout, sum(cins), 3, 3)), dev)
+    b = _t(g.standard_normal(cout), dev)
+    got = conv3x3.conv3x3_cat(xs, w, None, b, act)
+    assert got.shape == (batch, *hw, cout)
+    twin = conv3x3.conv3x3_cat_plain(xs, w, None, b, act)
+    torch.testing.assert_close(got, twin, rtol=0, atol=1e-4)
+    if batch * ((hw[1] + 31) // 32) * ((hw[0] + 7) // 8) < 4 * 132:
+        # the same tile at B = 1: each image's bits are its own launch's
+        for i in range(batch):
+            one = conv3x3.conv3x3_cat([x[i:i + 1] for x in xs], w, None, b,
+                                      act)
+            assert torch.equal(got[i:i + 1], one), i
+
+
+def _k2_batch(C, n_hidden, out_dim, hw, HWs, dev):
+    """K2 inputs for a batch of samples, each with its own axes (a crop
+    of the extent HWs[0] from a grid of HWs[b]) and phase."""
+    g = _gen(C + len(HWs))
+    B, (H, W) = len(HWs), HWs[0]
+    coef = _t(g.standard_normal((B, *hw, C)), dev)
+    freq = _t(g.standard_normal((B, *hw, C)), dev)
+    ys, xs = [], []
+    for n_y, n_x in HWs:
+        y0, x0 = g.integers(0, n_y - H + 1), g.integers(0, n_x - W + 1)
+        ys.append(((np.arange(n_y) * 2 + 1) / n_y - 1)[y0:y0 + H])
+        xs.append(((np.arange(n_x) * 2 + 1) / n_x - 1)[x0:x0 + W])
+    phase = _t(g.standard_normal((B, C // 2)), dev)
+    dims = [4 * C] + [C] * (n_hidden + 1) + [out_dim]
+    mlp = [(_t(g.uniform(-1, 1, (o, i)) / np.sqrt(i), dev),
+            _t(0.1 * g.standard_normal(o), dev))
+           for i, o in zip(dims[:-1], dims[1:])]
+    return coef, freq, _t(np.stack(ys), dev), _t(np.stack(xs), dev), phase, mlp
+
+
+@pytest.mark.parametrize("C,n_hidden,out_dim,hw,crops", [
+    # B 3 crops of 48^2 from x1.5 / x2.7 / x4 grids of a 48^2 LR
+    (256, 2, 60, (48, 48), [(72, 72), (130, 130), (192, 192)]),
+    # ragged: a crop of 13 x 29 at three scales of a 7 x 11 LR
+    (128, 1, 60, (7, 11), [(13, 29), (20, 40), (27, 31)]),
+    (256, 2, 540, (9, 11), [(12, 15), (30, 20)]),
+])
+def test_batched_k2_matches_twin_and_batch_1(dev, C, n_hidden, out_dim, hw,
+                                             crops):
+    coef, freq, cy, cx, phase, mlp = _k2_batch(C, n_hidden, out_dim, hw,
+                                               crops, dev)
+    H, W = crops[0]
+    got = linf_info.affine_info(coef, freq, cy, cx, phase, mlp)
+    assert got.shape == (out_dim, len(crops) * H * W)
+    twin = linf_info.affine_info_plain(coef, freq, cy, cx, phase, mlp)
+    torch.testing.assert_close(got, twin, atol=2e-4, rtol=1e-4)
+    for b in range(len(crops)):
+        one = linf_info.affine_info(coef[b:b + 1], freq[b:b + 1], cy[b],
+                                    cx[b], phase[b], mlp)
+        assert torch.equal(got[:, b * H * W:(b + 1) * H * W], one), b
+
+
+def test_flow_inverse_gradient_on_the_card(dev):
+    g = _gen(3)
+    n_layers, n = 10, 36864
+    w = g.uniform(-1, 1, (n_layers + 1, 3, 3)) / np.sqrt(8) + np.eye(3)
+    b = _t(0.1 * g.standard_normal((n_layers + 1, 3)), dev)
+    w_inv = _t(np.linalg.inv(w), dev)
+    info = _t(0.5 * g.standard_normal((6 * n_layers, n)), dev)
+    z = _t(g.standard_normal((n, 3)), dev).requires_grad_(True)
+    up = _t(g.standard_normal((n, 3)), dev)
+    before = kcuda.LAUNCHES["linf_flow_inverse"]
+    x = linf_flow.flow_inverse_diff(w_inv, b, z, info)
+    assert kcuda.LAUNCHES["linf_flow_inverse"] == before + 1
+    (gz,) = torch.autograd.grad(x, z, up)
+    zr = z.detach().requires_grad_(True)
+    xr = linf_flow.flow_inverse_plain(w_inv, b, zr, info)
+    (gr,) = torch.autograd.grad(xr, zr, up)
+    torch.testing.assert_close(x, xr, rtol=0, atol=1e-4)
+    torch.testing.assert_close(gz, gr, rtol=0, atol=1e-5)
+
+
+def test_small_train_step_kernel_path_matches_twin_path(dev):
+    """One LINF-LP train step at the tiny size (hidden 128 for K2) on the
+    kernel path and on the twin path from the same state: K3 on the
+    encoder's 6 convs, K2 once, K1 twice forward (with the latent loss)
+    and once inverse; the losses and the prior's gradients agree."""
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.entry import example_train_batch, flagship_specs
+    from bfsr_tpu_torch.models.base import seeded
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    linf_spec, unet_spec = flagship_specs(tiny=True)
+    linf_spec["args"]["hidden_dim"] = 128
+    model = registry.make(linf_spec)
+    model.reset_parameters(seeded(3))
+    with torch.no_grad():
+        for lin in [*model.imnet.linears, model.imnet.last]:
+            lin._weight.add_(torch.eye(3))
+    model = model.to(dev).freeze()
+    prior = registry.make(unet_spec).to(dev).train()
+    vgg = registry.make({"name": "VGGFeatureExtractor", "args": {
+        "feature_layer": 8}}).to(dev).requires_grad_(False)
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    batch = example_train_batch(dev, 0, batch=3, inp_size=12)
+    kcuda.reset_launch_counts()
+    mets, grads, _ = make_train_step(model, prior, vgg, opt,
+                                     latent_weight=1.0).loss_and_grads(batch)
+    assert kcuda.LAUNCHES["conv3x3_cat"] == 6, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES["linf_info"] == 1, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES["linf_flow_forward"] == 2, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES["linf_flow_inverse"] == 1, kcuda.LAUNCHES
+    ref_mets, ref_grads, _ = make_train_step(
+        model, prior, vgg, opt, latent_weight=1.0,
+        kernels=False).loss_and_grads(batch)
+    for k in mets:
+        torch.testing.assert_close(mets[k], ref_mets[k], rtol=1e-4, atol=0)
+    for name, g in grads.items():
+        scale = float(ref_grads[name].abs().max())
+        torch.testing.assert_close(g, ref_grads[name], rtol=0,
+                                   atol=1e-3 * scale)
