@@ -2,7 +2,8 @@
 
     python -m bfsr_tpu_torch.cli.train \\
         --config configs/train/train_edsr-baseline-linf-LP.yaml \\
-        [--name NAME] [--tag TAG] [--seed N] [--device cuda|cpu] \\
+        [--name NAME] [--tag TAG] [--patch PS] [--seed N] \\
+        [--device cuda|cpu] [--precision high|highest|mixed|default] \\
         [--allow_random_vgg]
 
 It reads the JAX trainer's YAML schema: ``train_dataset`` (dataset and
@@ -17,11 +18,16 @@ and ``vgg_weights`` are torch files: the reference's LINF checkpoint
 ``prior_model-epoch-N.ckpt`` every ``epoch_save``) under ``./save/<name>``;
 ``resume_prior_model`` resumes from one, optimizer and epoch included.
 
-Not yet ported, and refused or skipped with a message: ``--patch`` (the
-patch trainer), training under ``--precision mixed`` or ``default`` (the
-bf16 K3 at batch B), the ``grain`` loader, and validation
-(``val_dataset``, ``epoch_val``: the batched eval of the
-``sr-implicit-downsampled-fast`` wrapper).
+``--patch PS`` (odd, > 1) trains the patch model's prior, as ``train.py``
+rewrites the config: ``-patch`` on the train wrapper (with
+``patch_size``) and on the model (``linf-patch``, ``patch_size``), and the
+prior's ``in_chans`` 3 PS^2.  ``--precision`` sets the mode
+(``ops/nn.py``): ``mixed`` trains the prior in bf16, ``default`` every
+conv that reads the mode.
+
+Not yet ported, and refused or skipped with a message: the ``grain``
+loader, and validation (``val_dataset``, ``epoch_val``: the batched eval
+of the ``sr-implicit-downsampled-fast`` wrapper).
 """
 
 import argparse
@@ -44,11 +50,11 @@ from bfsr_tpu_torch.train.optim import (lr_scheduler, make_optimizer,
 from bfsr_tpu_torch.utils.misc import (Averager, Timer, compute_num_params,
                                        log, set_save_path, time_text)
 
-LATER = {"patch": "the patch trainer (--patch) is a later slice of the "
-                  "port",
-         "precision": "training under the bf16 modes (mixed, default) waits "
-                      "for the bf16 K3 at batch B, a later slice of the "
-                      "port"}
+LATER = {"grain": "the grain loader is not ported (multi-GPU sharding, a "
+                  "later slice); drop 'loader: grain' to use the "
+                  "thread-prefetch DataLoader",
+         "validation": "val_dataset is not read: validation during "
+                       "training is not ported yet"}
 
 
 def make_data_loader(spec, seed=0):
@@ -58,8 +64,7 @@ def make_data_loader(spec, seed=0):
                                       "dataset": dataset}})
     log(f"train dataset: size={len(dataset)}")
     if spec.get("loader") == "grain":
-        raise SystemExit("the grain loader is not ported; drop 'loader: "
-                         "grain' to use the thread-prefetch DataLoader")
+        raise SystemExit(LATER["grain"])
     return DataLoader(dataset, batch_size=spec["batch_size"], shuffle=True,
                       num_workers=4, seed=seed)
 
@@ -107,8 +112,7 @@ def main(config, save_path, seed=0, device="cuda"):
     device = torch.device(device)
     train_loader = make_data_loader(config["train_dataset"], seed)
     if config.get("val_dataset"):
-        log("WARNING: val_dataset is not read: validation during training "
-            "is not ported yet")
+        log(f"WARNING: {LATER['validation']}")
     data_norm = config.get("data_norm") or {
         "inp": {"sub": [0], "div": [1]}, "gt": {"sub": [0], "div": [1]}}
 
@@ -183,7 +187,8 @@ def cli(argv=None):
     parser.add_argument("--name", default=None)
     parser.add_argument("--tag", default=None)
     parser.add_argument("--patch", type=int, default=None,
-                        help="not ported: " + LATER["patch"])
+                        help="patch size (odd, > 1): train the patch "
+                             "model's prior")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--allow_random_vgg", action="store_true",
@@ -191,13 +196,12 @@ def cli(argv=None):
                              "features when no weights are given")
     parser.add_argument("--precision", default=None,
                         choices=["default", "high", "highest", "mixed"],
-                        help="high (the default) or highest; the bf16 "
-                             "modes are not ported for training")
+                        help="high (the default), highest, mixed (the "
+                             "prior in bf16) or default (bf16 convs)")
     args = parser.parse_args(argv)
-    if args.patch is not None:
-        parser.error(LATER["patch"])
-    if args.precision in ("mixed", "default"):
-        parser.error(f"--precision {args.precision}: {LATER['precision']}")
+    if args.patch is not None and (args.patch <= 1 or args.patch % 2 == 0):
+        parser.error("--patch must be an odd integer > 1 (patch models "
+                     "query patch-centre coordinates)")
     if args.precision:
         fnn.set_default_precision(args.precision)
 
@@ -212,6 +216,13 @@ def cli(argv=None):
     if args.tag is not None:
         name += "_" + args.tag
     config["train_dataset"]["wrapper"]["name"] += "-crop"
+    if args.patch:
+        wrapper = config["train_dataset"]["wrapper"]
+        wrapper["name"] += "-patch"
+        wrapper.setdefault("args", {})["patch_size"] = args.patch
+        config["model"]["name"] += "-patch"
+        config["model"]["args"]["patch_size"] = args.patch
+        config["prior_model"]["args"]["in_chans"] = 3 * args.patch ** 2
     if args.allow_random_vgg:
         config["allow_random_vgg"] = True
     main(config, os.path.join("./save", name), seed=args.seed,

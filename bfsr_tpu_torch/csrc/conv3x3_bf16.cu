@@ -2,8 +2,11 @@
 // over an implicit channel concat of 1-5 NHWC float32 inputs, operands
 // rounded to bf16 (round to nearest even), products accumulated in f32 on
 // the tensor cores, then a per-channel f32 scale/bias epilogue (folded
-// BatchNorm + conv bias) and an optional ReLU / LeakyReLU.  Batch 1; any H
-// and W; Cout 8, 16, 32, 64 or a multiple of 64.
+// BatchNorm + conv bias) and an optional ReLU / LeakyReLU.  Any batch; any
+// H and W; Cout 8, 16, 32, 64 or a multiple of 64.  blockIdx.z is
+// image * (cout_p / NB) + the block's Cout block, and every input and the
+// output are offset by whole images, so a batch-1 launch is the launch it
+// was before the batch (the trainer's encoder runs it at B = 16).
 //
 // Replaces bfsr_tpu/ops/pallas/s2d_conv.py:_kernel at passes=1, and is the
 // conv that profiling/mosaic_probe.py (kern_a/b/c) lays out three ways in
@@ -58,7 +61,7 @@ constexpr int kKC = 16;      // input channels per stage (one MMA k-step)
 constexpr int kMaxNB = 64;   // output channels per block
 
 struct ConvInputs {
-  const float* x[kMaxInputs];           // (H, W, cin[i]) NHWC, f32
+  const float* x[kMaxInputs];           // (B, H, W, cin[i]) NHWC, f32
   const __nv_bfloat16* w[kMaxInputs];   // (cin[i], 3, 3, cout_p), bf16
   int cin[kMaxInputs];
   int n_in;
@@ -173,7 +176,11 @@ conv3x3_bf16_kernel(ConvInputs in, const float* __restrict__ scale,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int x0 = blockIdx.x * T::TW, y0 = blockIdx.y * T::TH;
-  const int n0 = blockIdx.z * NB;
+  const int n_blocks = cout_p / NB;
+  const int img = blockIdx.z / n_blocks;
+  const int n0 = (blockIdx.z - img * n_blocks) * NB;
+  const size_t img_px = static_cast<size_t>(img) * H * W;
+  out += img_px * cout;
 
   int n_stages = 0;
 #pragma unroll
@@ -187,9 +194,9 @@ conv3x3_bf16_kernel(ConvInputs in, const float* __restrict__ scale,
     float* s_a = reinterpret_cast<float*>(smem + slot * S::STAGE);
     __nv_bfloat16* s_b =
         reinterpret_cast<__nv_bfloat16*>(smem + slot * S::STAGE + S::A);
-    const float* x = pick(in.x, li);
-    const __nv_bfloat16* w = pick(in.w, li);
     const int ci = pick(in.cin, li);
+    const float* x = pick(in.x, li) + img_px * ci;
+    const __nv_bfloat16* w = pick(in.w, li);
     if (ci % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
 #pragma unroll (S::CU)
       for (int e = tid; e < T::NPIX * 4; e += T::THREADS) {
@@ -329,8 +336,8 @@ int num_sms() {
 
 template <class T, int NB>
 int launch_tile(const ConvInputs& in, const float* scale, const float* bias,
-                float* out, int H, int W, int cout, int cout_p, int act,
-                float slope, cudaStream_t stream) {
+                float* out, int B, int H, int W, int cout, int cout_p,
+                int act, float slope, cudaStream_t stream) {
   using S = Smem<T, NB>;
   static bool configured = false;
   if (!configured) {
@@ -341,7 +348,7 @@ int launch_tile(const ConvInputs& in, const float* scale, const float* bias,
     configured = true;
   }
   const dim3 grid((W + T::TW - 1) / T::TW, (H + T::TH - 1) / T::TH,
-                  cout_p / NB);
+                  B * (cout_p / NB));
   conv3x3_bf16_kernel<T, NB><<<grid, T::THREADS, S::BYTES, stream>>>(
       in, scale, bias, out, H, W, cout, cout_p, act, slope);
   return static_cast<int>(cudaGetLastError());
@@ -349,37 +356,41 @@ int launch_tile(const ConvInputs& in, const float* scale, const float* bias,
 
 template <int NB>
 int launch(const ConvInputs& in, const float* scale, const float* bias,
-           float* out, int H, int W, int cout, int cout_p, int act,
+           float* out, int B, int H, int W, int cout, int cout_p, int act,
            float slope, cudaStream_t stream) {
-  // the big tile where it still gives every SM 4 blocks, else the small one
+  // the big tile where it still gives every SM 4 blocks over the batch,
+  // else the small one
   const long big_blocks = static_cast<long>((W + Big::TW - 1) / Big::TW) *
-                          ((H + Big::TH - 1) / Big::TH) * (cout_p / NB);
+                          ((H + Big::TH - 1) / Big::TH) * (cout_p / NB) * B;
   if (big_blocks >= 4L * num_sms()) {
-    return launch_tile<Big, NB>(in, scale, bias, out, H, W, cout, cout_p,
+    return launch_tile<Big, NB>(in, scale, bias, out, B, H, W, cout, cout_p,
                                 act, slope, stream);
   }
-  return launch_tile<Small, NB>(in, scale, bias, out, H, W, cout, cout_p,
+  return launch_tile<Small, NB>(in, scale, bias, out, B, H, W, cout, cout_p,
                                 act, slope, stream);
 }
 
 }  // namespace
 
-// xs[i]: (H, W, cins[i]) NHWC f32; ws[i]: (cins[i], 3, 3, cout_p) bf16 with
-// cout_p = cout rounded up to 16 (zero columns past cout), 16-byte aligned;
-// scale, bias: (cout,) f32, or null for 1 / 0; out: (H, W, cout) f32.
-// act: 0 none, 1 relu, 2 leaky relu.  cout must be a multiple of 8 with
-// cout_p 16, 32, 64 or a multiple of 64; 1 <= n_in <= 5.
+// xs[i]: (B, H, W, cins[i]) NHWC f32; ws[i]: (cins[i], 3, 3, cout_p) bf16
+// with cout_p = cout rounded up to 16 (zero columns past cout), 16-byte
+// aligned; scale, bias: (cout,) f32, or null for 1 / 0; out: (B, H, W,
+// cout) f32.  act: 0 none, 1 relu, 2 leaky relu.  cout must be a multiple
+// of 8 with cout_p 16, 32, 64 or a multiple of 64; 1 <= n_in <= 5;
+// B * max(1, cout_p / 64) <= 65535 (the grid's z extent).
 extern "C" int conv3x3_cat_bf16(int n_in, const void* const* xs,
                                 const void* const* ws, const int* cins,
                                 const void* scale, const void* bias,
-                                void* out, int H, int W, int cout, int act,
-                                float slope, void* stream) {
+                                void* out, int B, int H, int W, int cout,
+                                int act, float slope, void* stream) {
   const int cout_p = (cout + 15) / 16 * 16;
   if (n_in < 1 || n_in > kMaxInputs || cout <= 0 || cout % 8 != 0 ||
-      (cout_p > kMaxNB && cout_p % kMaxNB != 0)) {
+      (cout_p > kMaxNB && cout_p % kMaxNB != 0) ||
+      static_cast<long>(B) * (cout_p > kMaxNB ? cout_p / kMaxNB : 1) >
+          65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (H <= 0 || W <= 0) return 0;
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
   ConvInputs in{};
   in.n_in = n_in;
   for (int i = 0; i < n_in; ++i) {
@@ -395,9 +406,12 @@ extern "C" int conv3x3_cat_bf16(int n_in, const void* const* xs,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (cout_p >= kMaxNB ? kMaxNB : cout_p) {
-    case 16: return launch<16>(in, s, b, o, H, W, cout, cout_p, act, slope, st);
-    case 32: return launch<32>(in, s, b, o, H, W, cout, cout_p, act, slope, st);
-    case 64: return launch<64>(in, s, b, o, H, W, cout, cout_p, act, slope, st);
+    case 16:
+      return launch<16>(in, s, b, o, B, H, W, cout, cout_p, act, slope, st);
+    case 32:
+      return launch<32>(in, s, b, o, B, H, W, cout, cout_p, act, slope, st);
+    case 64:
+      return launch<64>(in, s, b, o, B, H, W, cout, cout_p, act, slope, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

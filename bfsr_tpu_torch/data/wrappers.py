@@ -1,7 +1,8 @@
 """Dataset wrappers, host-side numpy: the counterpart of
 ``bfsr_tpu/data/wrappers.py``'s ``sr-implicit-paired-fast`` and
 ``sr-implicit-paired-fast-patch`` (the wrappers of the LINF-LP eval
-configs) and ``sr-implicit-downsampled-fast-crop`` (the trainer's).
+configs), ``sr-implicit-downsampled-fast-crop`` (the trainer's) and
+``sr-implicit-downsampled-fast-crop-patch`` (the patch trainer's).
 
 The train wrapper takes a dataset of HR float32 HWC images in [0, 1]; per
 item it draws a scale from U(1, ``scale_max``), crops an HR window of
@@ -10,7 +11,14 @@ flips both when ``augment``, and crops an ``inp_size``^2 window of the HR
 grid with its coords, its HR pixels (``gt``), the up-down-up residual of
 the LR (``gt_lr_up``) and the HR residual against the LR-up (``gt_pixel``).
 Its draws come from Python's ``random``, in the JAX wrapper's order, so
-the same ``random.seed`` gives the same crops.
+the same ``random.seed`` gives the same crops.  The patch trainer's
+wrapper crops an LR of ``inp_size`` x ps (the HR window too), unfolds
+both residuals into stride-1 ps x ps patches ((c, ky, kx) order, zero
+padded by ps // 2) and keeps those centred at every ps-th pixel of the
+window, with their coords (``coord``, ``inp_size``^2 of them), the
+window's own coords for the LR add-back (``interpolate_coord``) and the HR
+window (``gt``); it pads the window only where ps does not divide it, as
+the JAX wrapper does (``pad_amount``).
 
 The eval wrappers take a dataset of (LR, HR) float32 HWC arrays in
 [0, 1].  Each item is a dict of arrays:
@@ -85,6 +93,22 @@ def patchify_stride_ps(x_hwc, ps, pad_end_h, pad_end_w):
     return np.ascontiguousarray(x.reshape(H // ps, W // ps, C * ps * ps))
 
 
+def patchify_stride_1(x_hwc, ps):
+    """'Same' stride-1 unfold with ps // 2 zero padding: each pixel's ps x
+    ps patch flattened in (c, ky, kx) order."""
+    pad = ps // 2
+    x = np.pad(x_hwc, ((pad, pad), (pad, pad), (0, 0)))
+    H, W, C = x_hwc.shape
+    windows = np.lib.stride_tricks.sliding_window_view(x, (ps, ps),
+                                                       axis=(0, 1))
+    return np.ascontiguousarray(windows.reshape(H, W, C * ps * ps))
+
+
+def pad_amount(n, ps):
+    """The end padding that makes n a multiple of ps (0 if it is one)."""
+    return (ps - n % ps) if n % ps else 0
+
+
 def center_coords(coord_hw2, ps, pad_h, pad_w):
     """The patch-centre coords of a zero end-padded coord grid."""
     c = np.pad(coord_hw2, ((0, pad_h), (0, pad_w), (0, 0)))
@@ -135,6 +159,30 @@ class SRImplicitPairedFastPatch:
                 "cell": base["cell"], "gt": base["gt"]}
 
 
+def train_crops(img, n_lr, scale_max, augment, window):
+    """The train wrappers' draws from Python's ``random``, in the JAX
+    wrappers' order: a scale s ~ U(1, ``scale_max``), an HR crop of round(
+    ``n_lr`` s)^2 and its PIL-bicubic LR of ``n_lr``^2, the flips, then a
+    ``window``^2 window of the HR grid.  Returns (LR crop, HR crop, the
+    LR-up residual and the HR residual at the HR crop's size, its coords,
+    the window's slice)."""
+    s = random.uniform(1, scale_max)
+    n_hr = round(n_lr * s)
+    x0 = random.randint(0, img.shape[0] - n_hr)
+    y0 = random.randint(0, img.shape[1] - n_hr)
+    crop_hr = img[x0:x0 + n_hr, y0:y0 + n_hr]
+    crop_lr = resize_fn_pil(crop_hr, (n_lr, n_lr))
+    aug = augment_factory(augment)
+    crop_lr, crop_hr = aug(crop_lr), aug(crop_hr)
+    lr_up, lr_up_residual = residuals(crop_lr, crop_hr.shape[:2])
+    hr_residual = (((crop_hr - 0.5) / 0.5) - lr_up).astype(np.float32)
+    coord = make_coord(crop_hr.shape[:2], flatten=False)
+    x0 = random.randint(0, n_hr - window)
+    y0 = random.randint(0, n_hr - window)
+    return (crop_lr, crop_hr, lr_up_residual, hr_residual, coord,
+            np.s_[x0:x0 + window, y0:y0 + window])
+
+
 @register("sr-implicit-downsampled-fast-crop")
 class SRImplicitDownsampledFastCrop:
     """Train-time: one scale and aligned HR / coord / residual window crops
@@ -150,26 +198,58 @@ class SRImplicitDownsampledFastCrop:
         return len(self.dataset)
 
     def __getitem__(self, idx):
-        img = self.dataset[idx]
-        s = random.uniform(1, self.scale_max)
-        n_lr = self.out_size
-        n_hr = round(n_lr * s)
-        x0 = random.randint(0, img.shape[0] - n_hr)
-        y0 = random.randint(0, img.shape[1] - n_hr)
-        crop_hr = img[x0:x0 + n_hr, y0:y0 + n_hr]
-        crop_lr = resize_fn_pil(crop_hr, (n_lr, n_lr))
-        aug = augment_factory(self.augment)
-        crop_lr, crop_hr = aug(crop_lr), aug(crop_hr)
-        lr_up, lr_up_residual = residuals(crop_lr, crop_hr.shape[:2])
-        hr_residual = (((crop_hr - 0.5) / 0.5) - lr_up).astype(np.float32)
-        coord = make_coord(crop_hr.shape[:2], flatten=False)
-
-        x0 = random.randint(0, n_hr - self.out_size)
-        y0 = random.randint(0, n_hr - self.out_size)
-        sl = np.s_[x0:x0 + self.out_size, y0:y0 + self.out_size]
+        crop_lr, crop_hr, lr_up_residual, hr_residual, coord, sl = \
+            train_crops(self.dataset[idx], self.out_size, self.scale_max,
+                        self.augment, self.out_size)
         return {"inp": crop_lr, "coord": coord[sl],
                 "cell": make_cell(crop_hr.shape[:2]), "gt": crop_hr[sl],
                 "gt_lr_up": lr_up_residual[sl], "gt_pixel": hr_residual[sl]}
+
+
+@register("sr-implicit-downsampled-fast-crop-patch")
+class SRImplicitDownsampledFastCropPatch:
+    """The patch trainer's crops: ``sr-implicit-downsampled-fast-crop`` at
+    an LR of ``inp_size`` x ps, with the residuals as stride-1 patches
+    sampled at the ps-stride centres (the JAX wrapper of the same
+    name)."""
+
+    def __init__(self, dataset, inp_size=48, scale_max=4, augment=False,
+                 patch_size=3):
+        self.dataset = dataset
+        self.out_size = inp_size * patch_size
+        self.scale_max = scale_max
+        self.augment = augment
+        self.patch_size = patch_size
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        crop_lr, crop_hr, lr_up_residual, hr_residual, coord, sl = \
+            train_crops(self.dataset[idx], self.out_size, self.scale_max,
+                        self.augment, self.out_size)
+        return {"inp": crop_lr, "cell": make_cell(crop_hr.shape[:2]),
+                "gt": crop_hr[sl],
+                **patch_centres(lr_up_residual, hr_residual, coord, sl,
+                                self.patch_size)}
+
+
+def patch_centres(lr_up_residual, hr_residual, coord, sl, ps):
+    """The crop-patch wrapper's per-query arrays: both residuals of the HR
+    crop unfolded into stride-1 ps x ps patches and taken, with their
+    coords, at every ps-th pixel of the window ``sl`` (from ps // 2); the
+    window's own coords as ``interpolate_coord``.  The centre grid pads
+    the window only where ps does not divide it."""
+    centre = np.s_[ps // 2::ps, ps // 2::ps]
+    coord = coord[sl]
+    h, w = coord.shape[:2]
+    return {"coord": center_coords(coord, ps, pad_amount(h, ps),
+                                   pad_amount(w, ps)),
+            "gt_patch": np.ascontiguousarray(
+                patchify_stride_1(hr_residual, ps)[sl][centre]),
+            "gt_lr_up": np.ascontiguousarray(
+                patchify_stride_1(lr_up_residual, ps)[sl][centre]),
+            "interpolate_coord": np.ascontiguousarray(coord)}
 
 
 def batches(dataset):

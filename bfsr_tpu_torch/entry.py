@@ -30,7 +30,11 @@ MLP 1024 -> 256 -> 256 -> 256 -> 540, and a UNet prior with in_chans 27,
 depth 3, dim 64; the flow weights are ``w * 0.05 + I``, as in
 ``bench.py``.  ``tiny=True`` gives ``tests/test_pallas_predictor.py``'s
 patch size (EDSR 2 x 16, L = 3, hidden 32, UNet depth 2 / dim 16) and runs
-on the CPU only.
+on the CPU only.  ``build_patch_trainer`` is its trainer (``train.py
+--patch 3``): the frozen patch model, its prior in train mode and the
+VGG19 as ``build_flagship_trainer`` draws it; ``example_patch_train_batch``
+a synthetic batch in the ``sr-implicit-downsampled-fast-crop-patch``
+layout (LR crops of 3 x ``inp_size``).
 
 ``build_srflow_lp`` is the same for SRFlow-LP: the network_G and
 prior_model of ``configs/srflow/SRFlow-LP_DF2K_4X.yml`` (RRDB nf 64,
@@ -49,7 +53,7 @@ from torch import nn
 import bfsr_tpu_torch.models  # noqa: F401  (registers the components)
 from bfsr_tpu_torch import registry
 from bfsr_tpu_torch.data.np_interp import resize_bilinear_np
-from bfsr_tpu_torch.data.wrappers import residuals
+from bfsr_tpu_torch.data.wrappers import patch_centres, residuals
 from bfsr_tpu_torch.models.base import seeded
 from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
 from bfsr_tpu_torch.utils.coords import make_cell, make_coord
@@ -121,6 +125,13 @@ def build_flagship_trainer(device="cuda", seed=0, tiny=False):
         raise ValueError("the tiny trainer config runs on the CPU only: K2 "
                          "takes hidden 128 or 256")
     model, prior = build_flagship(device, seed, tiny)
+    return model, prior.train(), he_normal_vgg(device, seed, tiny)
+
+
+@torch.no_grad()
+def he_normal_vgg(device, seed=0, tiny=False):
+    """The frozen VGG19 features (through conv5_4, or conv2_2 with
+    ``tiny``) with He-normal convs from ``seed + 1`` and zero biases."""
     vgg = registry.make({"name": "VGGFeatureExtractor",
                          "args": {"feature_layer": 8 if tiny else 34}})
     gen = seeded(seed + 1)
@@ -129,31 +140,39 @@ def build_flagship_trainer(device="cuda", seed=0, tiny=False):
             m.weight.normal_(0.0, (2.0 / m.weight[0].numel()) ** 0.5,
                              generator=gen)
             m.bias.zero_()
-    vgg = vgg.to(device).eval().requires_grad_(False)
-    return model, prior.train(), vgg
+    return vgg.to(device).eval().requires_grad_(False)
 
 
-def synthetic_train_sample(rng, inp_size=48, scale_max=4, scale=None):
-    """One sample in the ``sr-implicit-downsampled-fast-crop`` layout from
-    the numpy generator ``rng``: a scale s ~ U(1, scale_max) (or
-    ``scale``), a smooth
-    random HR image of round(inp_size s)^2 in [0, 1] (a coarse random
-    field, bilinear up, plus noise), its LR by a bilinear resize to
-    ``inp_size``^2 (no PIL), and an ``inp_size``^2 crop of the HR grid's
-    coords, pixels, LR-up residual and HR residual, with the HR cell."""
-    n_hr = round(inp_size * (scale or rng.uniform(1, scale_max)))
+def _synthetic_crops(rng, n_lr, scale_max, scale):
+    """A scale s ~ U(1, ``scale_max``) (or ``scale``), a smooth random HR
+    image of round(``n_lr`` s)^2 in [0, 1] (a coarse random field, bilinear
+    up, plus noise), its LR by a bilinear resize to ``n_lr``^2 (no PIL), an
+    ``n_lr``^2 window of the HR grid: (LR, HR, the LR-up and HR residuals,
+    the HR grid's coords, the window's slice), drawn from ``rng``."""
+    n_hr = round(n_lr * (scale or rng.uniform(1, scale_max)))
     coarse = rng.random((max(2, n_hr // 8), max(2, n_hr // 8), 3))
     hr = np.clip(resize_bilinear_np(coarse, (n_hr, n_hr))
                  + 0.05 * rng.standard_normal((n_hr, n_hr, 3)), 0, 1)
     hr = hr.astype(np.float32)
-    lr = resize_bilinear_np(hr, (inp_size, inp_size)).astype(np.float32)
+    lr = resize_bilinear_np(hr, (n_lr, n_lr)).astype(np.float32)
     lr_up, lr_up_residual = residuals(lr, (n_hr, n_hr))
     hr_residual = ((hr - 0.5) / 0.5 - lr_up).astype(np.float32)
-    y0, x0 = rng.integers(0, n_hr - inp_size + 1, 2)
-    sl = np.s_[y0:y0 + inp_size, x0:x0 + inp_size]
-    return {"inp": lr, "coord": make_coord((n_hr, n_hr), flatten=False)[sl],
-            "cell": make_cell((n_hr, n_hr)), "gt": hr[sl],
-            "gt_lr_up": lr_up_residual[sl], "gt_pixel": hr_residual[sl]}
+    y0, x0 = rng.integers(0, n_hr - n_lr + 1, 2)
+    return (lr, hr, lr_up_residual, hr_residual,
+            make_coord((n_hr, n_hr), flatten=False),
+            np.s_[y0:y0 + n_lr, x0:x0 + n_lr])
+
+
+def synthetic_train_sample(rng, inp_size=48, scale_max=4, scale=None):
+    """One sample in the ``sr-implicit-downsampled-fast-crop`` layout from
+    the numpy generator ``rng`` (``_synthetic_crops`` at an LR of
+    ``inp_size``): the LR, and the window's coords, HR pixels, LR-up
+    residual and HR residual, with the HR cell."""
+    lr, hr, lr_up_residual, hr_residual, coord, sl = _synthetic_crops(
+        rng, inp_size, scale_max, scale)
+    return {"inp": lr, "coord": coord[sl], "cell": make_cell(hr.shape[:2]),
+            "gt": hr[sl], "gt_lr_up": lr_up_residual[sl],
+            "gt_pixel": hr_residual[sl]}
 
 
 def example_train_batch(device, seed=0, batch=16, inp_size=48, scale_max=4):
@@ -161,6 +180,29 @@ def example_train_batch(device, seed=0, batch=16, inp_size=48, scale_max=4):
     ``np.random.default_rng(seed)``, as float32 tensors on ``device``."""
     rng = np.random.default_rng(seed)
     samples = [synthetic_train_sample(rng, inp_size, scale_max)
+               for _ in range(batch)]
+    return {k: torch.as_tensor(np.stack([s[k] for s in samples]),
+                               device=device) for k in samples[0]}
+
+
+def synthetic_patch_train_sample(rng, inp_size=48, scale_max=4, scale=None,
+                                 ps=3):
+    """One sample in the ``sr-implicit-downsampled-fast-crop-patch`` layout
+    from ``rng`` (``_synthetic_crops`` at an LR of ``inp_size`` ps): the LR,
+    the window's HR pixels, and the wrapper's ``patch_centres`` of the
+    residuals."""
+    lr, hr, lr_up_residual, hr_residual, coord, sl = _synthetic_crops(
+        rng, inp_size * ps, scale_max, scale)
+    return {"inp": lr, "cell": make_cell(hr.shape[:2]), "gt": hr[sl],
+            **patch_centres(lr_up_residual, hr_residual, coord, sl, ps)}
+
+
+def example_patch_train_batch(device, seed=0, batch=16, inp_size=48,
+                              scale_max=4):
+    """A batch of ``synthetic_patch_train_sample`` s from
+    ``np.random.default_rng(seed)``, as float32 tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    samples = [synthetic_patch_train_sample(rng, inp_size, scale_max)
                for _ in range(batch)]
     return {k: torch.as_tensor(np.stack([s[k] for s in samples]),
                                device=device) for k in samples[0]}
@@ -209,6 +251,14 @@ def build_linf_patch(device="cuda", seed=0, tiny=False):
     prior.reset_parameters(gen)
     model = model.to(device).eval().freeze()
     return model, prior.to(device).eval().freeze()
+
+
+@torch.no_grad()
+def build_patch_trainer(device="cuda", seed=0, tiny=False):
+    """(frozen LINFPatch, its UNet prior in train mode, frozen VGG19
+    features) on ``device``, from ``seed``: the patch trainer."""
+    model, prior = build_linf_patch(device, seed, tiny)
+    return model, prior.train(), he_normal_vgg(device, seed, tiny)
 
 
 def example_patch_inputs(device, lr_hw, grid_hw, seed=0):

@@ -63,11 +63,15 @@ class EDSR(Model):
                 cache_kernel_weight(m)
         return self
 
-    def forward(self, x, kernels=True):
-        """x: (B, H, W, 3) -> features (B, H, W, n_feats); the f32 K3
-        takes the batch (the trainer's B = 16), the bf16 K3 batch 1."""
+    def forward(self, x, kernels=True, conv=None):
+        """x: (B, H, W, 3) -> features (B, H, W, n_feats); both K3s take
+        the batch (the trainer's B = 16).  ``conv``: None, or ``conv(t, m,
+        act)`` in place of each conv (``chip_smoke.py`` holds each K3
+        launch against its twin on the launch's own input through it)."""
 
         def c(t, m, act=None):
+            if conv is not None:
+                return conv(t, m, act)
             if kernels:
                 return conv3x3_cat([t], m.weight, bias=m.bias, act=act,
                                    kweight=m.kweight,

@@ -6,7 +6,8 @@ The counterpart of ``bfsr_tpu/models/vgg.py`` (the reference's
 input normalisation.  The layers keep torchvision's indices, so
 ``features.{i}.weight`` / ``.bias`` are the keys of torchvision's VGG19
 ``state_dict``.  NHWC in and out; inside, one NCHW pass of cuDNN convs
-(TF32 off), which follow the stage's precision as ``ops/nn.conv2d`` does.
+(TF32 off), which follow the stage's precision, forward and backward, as
+``ops/nn.conv2d`` does (``ops/nn.conv2d_nchw``).
 
 No weights are bundled: ``reset_parameters`` draws torch's default init,
 as ``init_vgg19_features`` does; random features still define a (noisy)
@@ -79,10 +80,7 @@ class VGGFeatureExtractor(Model):
         x = fnn.nhwc_to_nchw(x)
         for m in self.features:
             if isinstance(m, nn.Conv2d):
-                w = m.weight
-                if fnn.bf16_stage():
-                    x, w = fnn.round_bf16(x), fnn.round_bf16(w)
-                x = F.conv2d(x, w, m.bias, padding=1)
+                x = fnn.conv2d_nchw(x, m.weight, m.bias, padding=1)
             elif isinstance(m, nn.ReLU):
                 x = torch.relu(x)
             else:

@@ -61,8 +61,8 @@ _SIGNATURES = {
                     ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _I, _F,
                     _P],
     "conv3x3_cat_bf16": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                         ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _F,
-                         _P],
+                         ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _I,
+                         _F, _P],
     "flow_step_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flow_step_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flow_step_bf16_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

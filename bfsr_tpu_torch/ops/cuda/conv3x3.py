@@ -9,8 +9,8 @@ f32 accumulation), which replace ``bfsr_tpu/ops/pallas/s2d_conv.py:_kernel``
 
 ``y = act(conv3x3(concat(inputs, -1), weight) * scale + bias)`` with
 inputs NHWC and weight torch OIHW over the concatenated input channels.
-The f32 kernel takes any batch (the trainer's encoder runs it at B = 16);
-the bf16 kernel and K6 take batch 1.  The concat is never built on the
+Both kernels take a batch (the trainer's encoder runs them at B = 16);
+K6 takes batch 1.  The concat is never built on the
 kernel path: each input keeps its own pointer and its own slice of the
 weight, which the kernels read in the layouts of ``kernel_weight`` and
 ``kernel_weight_bf16`` (a frozen model keeps them as the conv's
@@ -35,7 +35,8 @@ from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 ACTS = {None: 0, "relu": 1, "lrelu": 2}
 MAX_INPUTS = 5
 KERNEL_COUTS = (8, 16, 32, 64)
-KERNEL_MAX_BATCH = 65535  # the f32 kernel's grid z extent
+# the grid's z extent: the images (f32), images x Cout blocks (bf16)
+GRID_Z = 65535
 
 
 def kernel_weight(weight):
@@ -131,8 +132,7 @@ def _launch(entry, inputs, kweight, scale, bias, act, slope, cout,
             counter=None):
     """Launch C entry ``entry`` over ``inputs`` with the weight laid out as
     ``kweight`` (Cin, 3, 3, Cout or Cout_p): input i's block starts
-    sum(cins[:i]) rows into it.  The f32 entry takes the batch; the bf16
-    entry is called with batch 1."""
+    sum(cins[:i]) rows into it.  Both entries take the batch."""
     x0 = inputs[0]
     B, H, W, _ = x0.shape
     inputs = [x.contiguous() for x in inputs]
@@ -150,9 +150,8 @@ def _launch(entry, inputs, kweight, scale, bias, act, slope, cout,
     wp = (ctypes.c_void_p * n)(*[kweight.data_ptr() + sum(cins[:i]) * row
                                  for i in range(n)])
     cins = (ctypes.c_int * n)(*cins)
-    shape = (B, H, W) if entry == "conv3x3_cat" else (H, W)
     cuda.launch(entry, n, xs, wp, cins, cuda.ptr(scale), cuda.ptr(bias),
-                cuda.ptr(out), *shape, cout, ACTS[act], ctypes.c_float(slope),
+                cuda.ptr(out), B, H, W, cout, ACTS[act], ctypes.c_float(slope),
                 counter=counter)
     return out
 
@@ -168,18 +167,20 @@ def _check_kweight(kweight, weight, cout_p, dtype):
 def conv3x3_cat_bf16(inputs, weight, scale=None, bias=None, act=None,
                      slope=0.2, kweight_bf16=None):
     """K3 with bf16 operands and f32 accumulation, in any stage: the bf16
-    kernel on CUDA (batch 1, Cout in 8/16/32/64 or a multiple of 64), its
-    twin ``conv3x3_cat_bf16_plain`` on CPU.  ``kweight_bf16``:
+    kernel on CUDA (any batch, Cout in 8/16/32/64 or a multiple of 64; the
+    batch times the Cout blocks of 64 at most 65535), its twin
+    ``conv3x3_cat_bf16_plain`` on CPU.  ``kweight_bf16``:
     ``kernel_weight_bf16(weight)`` if the caller keeps it."""
     inputs = list(inputs)
     _check(inputs, weight, act)
     if inputs[0].device.type == "cpu":
         return conv3x3_cat_bf16_plain(inputs, weight, scale, bias, act, slope)
-    _require_cuda(inputs[0], "conv3x3_cat_bf16")
     cout = weight.shape[0]
     if not (cout in KERNEL_COUTS or cout % 64 == 0):
         raise ValueError("the bf16 K3 takes Cout 8, 16, 32, 64 or a multiple "
                          f"of 64; got {cout}")
+    _require_cuda(inputs[0], "conv3x3_cat_bf16",
+                  GRID_Z // max(1, cout // 64))
     if kweight_bf16 is None:
         kweight_bf16 = kernel_weight_bf16(weight)
     _check_kweight(kweight_bf16, weight, cout + (-cout % 16), torch.bfloat16)
@@ -191,7 +192,7 @@ def conv3x3_cat(inputs, weight, scale=None, bias=None, act=None, slope=0.2,
                 kweight=None, kweight_bf16=None):
     """K3 at the current stage's precision: on CUDA the f32 kernel (any
     batch up to 65535, Cout in 8/16/32/64) or, in a bf16 stage,
-    ``conv3x3_cat_bf16`` (batch 1); on CPU the twin of that precision.
+    ``conv3x3_cat_bf16``; on CPU the twin of that precision.
 
     inputs: list of 1-5 NHWC tensors; weight: (Cout, sum Ci, 3, 3);
     scale/bias: (Cout,) or None; act: None | 'relu' | 'lrelu';
@@ -206,7 +207,7 @@ def conv3x3_cat(inputs, weight, scale=None, bias=None, act=None, slope=0.2,
     _check(inputs, weight, act)
     if inputs[0].device.type == "cpu":
         return conv3x3_cat_plain(inputs, weight, scale, bias, act, slope)
-    _require_cuda(inputs[0], "conv3x3_cat", KERNEL_MAX_BATCH)
+    _require_cuda(inputs[0], "conv3x3_cat", GRID_Z)
     cout = weight.shape[0]
     if cout not in KERNEL_COUTS:
         raise ValueError(f"K3 takes Cout in {KERNEL_COUTS}; got {cout}")

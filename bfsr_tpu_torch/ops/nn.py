@@ -18,7 +18,12 @@ them so):
   cuDNN and cuBLAS, so every plain op computes in f32.
 * ``default`` (bf16 serving): every conv and linear that reads the mode
   takes its operands rounded to bf16 (round to nearest even) and
-  accumulates the products in f32; its output and bias stay f32.
+  accumulates the products in f32; its output and bias stay f32.  Its
+  gradient is what XLA's transposed ops at ``Precision.DEFAULT`` compute
+  (``bfsr_tpu/pipelines/linf_train.py``: the backward inherits the
+  precision): each backward product takes bf16-rounded operands, the
+  incoming gradient among them, and sums in f32, unrounded; the bias's
+  gradient is the f32 sum of the unrounded incoming gradient.
 * ``mixed``: per stage, by ``MIXED_POLICY`` (the prior in bf16, every
   other stage f32).  Pipelines name their stages with ``stage(name)``.
 
@@ -125,23 +130,72 @@ def nchw_to_nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+class _RoundBf16(torch.autograd.Function):
+    """``round_bf16`` whose backward passes the gradient straight
+    through."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return round_bf16(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Bf16Grad(torch.autograd.Function):
+    """The identity on the output y of a product whose bias was added
+    detached: the backward rounds the gradient that flows into the
+    product to bf16 and gives the bias the sum of the unrounded gradient
+    over ``dims`` (XLA's bias add is not a dot)."""
+
+    @staticmethod
+    def forward(ctx, y, bias, dims):
+        ctx.dims, ctx.has_bias = dims, bias is not None
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (round_bf16(g), g.sum(ctx.dims) if ctx.has_bias else None,
+                None)
+
+
+def _bf16_product(op, x, weight, bias, dims):
+    """``op(x, weight, bias)`` in a bf16 stage (the module docstring):
+    dx = op^T(round(g), round(w)), dw = op_w(round(x), round(g)) in f32,
+    db = the sum of g; the forward is bit for bit ``op`` on the rounded
+    operands."""
+    y = op(_RoundBf16.apply(x), _RoundBf16.apply(weight),
+           None if bias is None else bias.detach())
+    return _Bf16Grad.apply(y, bias, dims)
+
+
+def conv2d_nchw(x, weight, bias=None, stride=1, padding=0):
+    """``F.conv2d`` on NCHW that follows the stage's precision, forward
+    and backward (the module docstring)."""
+    def op(x, w, b):
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+    if bf16_stage():
+        return _bf16_product(op, x, weight, bias, (0, 2, 3))
+    return op(x, weight, bias)
+
+
 def conv2d(x, weight, bias=None, stride=1, padding=None):
     """x: (B, H, W, Cin); weight: (Cout, Cin, kh, kw).  ``padding=None`` is
     SAME for odd kernels at stride 1.  Follows the stage's precision."""
     if padding is None:
         padding = weight.shape[-1] // 2
-    if bf16_stage():
-        x, weight = round_bf16(x), round_bf16(weight)
-    y = F.conv2d(nhwc_to_nchw(x), weight, bias, stride=stride,
-                 padding=padding)
-    return nchw_to_nhwc(y)
+    return nchw_to_nhwc(conv2d_nchw(nhwc_to_nchw(x), weight, bias, stride,
+                                    padding))
 
 
 def linear(x, weight, bias=None):
     """x @ weight.T + bias; weight (out, in).  Follows the stage's
-    precision."""
+    precision, forward and backward."""
     if bf16_stage():
-        x, weight = round_bf16(x), round_bf16(weight)
+        return _bf16_product(F.linear, x, weight, bias,
+                             tuple(range(x.dim() - 1)))
     return F.linear(x, weight, bias)
 
 

@@ -1,5 +1,5 @@
-"""Fingerprints of K3's f32 kernel and K2 at batch 1 on fixed inputs, to
-show that two checkouts compute the same bits.
+"""Fingerprints of K3 (f32 and bf16) and K2 at batch 1 on fixed inputs,
+to show that two checkouts compute the same bits.
 
     PYTHONPATH=<checkout> python bfsr_tpu_torch/profiling/kernel_bits.py \\
         --label <name> [--out chiprun_out/kernel_bits.jsonl]
@@ -9,10 +9,12 @@ the output's bytes.  Run it once per checkout in one call (the parent
 unpacked with ``git archive`` into ``_archive/``) and compare the lines.
 The cases are the main paths' batch-1 shapes: the encoder's conv at LR
 128^2 and 96x80, the prior's dense and ``up`` convs at 512^2, a ragged
-16-channel conv; K2 at 128^2 -> 512^2 and 96x80 -> 300x250 (out 60) and
-the patch model's 172^2 grid (out 540).  It uses only ``conv3x3_cat`` and
-``affine_info`` with 1-D grid axes, the API every checkout since PR 3
-has.
+16-channel conv; the bf16 K3 at those five and at the RRDB's conv4 (160
+-> 32) and conv5 (192 -> 64) at 128^2 and the conv probe's 64 -> 192 at
+128^2 (three Cout blocks); K2 at 128^2 -> 512^2 and 96x80 -> 300x250 (out
+60) and the patch model's 172^2 grid (out 540).  It uses only
+``conv3x3_cat``, ``conv3x3_cat_bf16`` and ``affine_info`` with 1-D grid
+axes, so it runs against any checkout of the port that has the bf16 K3.
 """
 
 import argparse
@@ -27,6 +29,9 @@ from bfsr_tpu_torch.ops.cuda import conv3x3, linf_info
 K3_CASES = [([64], 64, (128, 128)), ([3], 64, (96, 80)),
             ([3, 32, 32, 32, 32], 32, (512, 512)), ([64, 64], 64, (512, 512)),
             ([16, 16], 16, (37, 45))]
+K3_BF16_CASES = K3_CASES + [([64, 32, 32, 32], 32, (128, 128)),
+                            ([64, 32, 32, 32, 32], 64, (128, 128)),
+                            ([64], 192, (128, 128))]
 K2_CASES = [(256, 2, 60, (128, 128), (512, 512)),
             (256, 2, 540, (128, 128), (172, 172)),
             (256, 2, 60, (96, 80), (300, 250))]
@@ -60,6 +65,13 @@ def fingerprints(dev):
                for i, o in zip(dims[:-1], dims[1:])]
         out[f"k2 C={C} out={out_dim} {hw}->{HW}"] = digest(
             linf_info.affine_info(coef, freq, ys, xs, phase, mlp))
+    # after K2, so the earlier cases draw what they drew before
+    for cins, cout, hw in K3_BF16_CASES:
+        xs = [t(g.standard_normal((1, *hw, c))) for c in cins]
+        w = t(0.2 * g.standard_normal((cout, sum(cins), 3, 3)))
+        b, s = t(g.standard_normal(cout)), t(g.random(cout) + 0.5)
+        out[f"k3 bf16 {cins}->{cout} @{hw}"] = digest(
+            conv3x3.conv3x3_cat_bf16(xs, w, s, b, "lrelu"))
     return out
 
 

@@ -5,8 +5,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's three main paths at their full configurations,
-random weights from seed 0 — LINF-LP learned-prior inference
+It drives the port's three main paths and its two trainers at their full
+configurations, random weights from seed 0 — LINF-LP learned-prior inference
 (EDSR-baseline 16x64 encoder, 10-layer pointwise flow, 256-wide info MLP,
 UNet depth 3 / dim 64), its patch model (``bench.py``'s patch workload:
 ps = 3, d = 27, info MLP out 540, UNet in_chans 27) and SRFlow-LP
@@ -85,19 +85,41 @@ fails (non-zero exit, no result line) if any phase fails:
    batches from ``np.random.default_rng`` in the crop wrapper's layout
    (smooth random HR images, downsampled bilinearly: no PIL) and a VGG
    drawn He-normal (no weights ship with the repository): holds the
-   batched K3 (the encoder's 64 -> 64 and head 3 -> 64 convs at B = 16,
-   48^2, beside cuDNN) and the batched K2 (per-sample axes and cells, out
+   batched K3 in f32 and bf16 (the encoder's 64 -> 64 and head 3 -> 64
+   convs at B = 16, 48^2, beside cuDNN) and the batched K2 (per-sample axes and cells, out
    60) against their twins, and K1 inverse's gradient (``FlowInverse``)
    against autograd through the twin; takes one step's loss and gradients
    on the kernel path and on the twin path from the same state, with the
    launch counters reset (K3 34, K2 1, K1 1 + 1; K1 forward 2 with the
    latent loss, a second check): the losses within 1e-5 relative, each
-   gradient tensor within twice the twin path's own spread under a 1e-7
-   nudge of its input, in relative L2 (``TRAIN_TOL``); runs 20 steps (finite
+   gradient tensor, and all as one vector, within twice the twin path's
+   own spread under a 1e-7 nudge of its input, in relative L2, at most
+   0.5 (``TRAIN_TOL``); runs 20 steps (finite
    losses, every parameter moved; the first and last loss printed, not
    gated: the VGG is random); times steps on resident batches (kernel and
    twin paths interleaved) and fed by the port's ``DataLoader``, splits a
-   step into its stages, profiles one and prints its peak memory.
+   step into its stages, profiles one and prints its peak memory;
+11. the LINF-LP patch trainer (``train.py --patch 3``: the patch model of
+   phase 6, its UNet at in_chans 27, the VGG19 and Adam of phase 10) on
+   batches of 16 synthetic samples in the crop-patch wrapper's layout (LR
+   crops of 144^2, 48^2 patch centres, HR windows of 144^2): holds K3 in
+   f32 and bf16 at B = 16 over the 144^2 crops (the encoder's 64 -> 64 and
+   the head's 3 -> 64, beside cuDNN), K2 at out 540 over the 16 crops'
+   centre grids and K4 both ways at N = 36,864 (d = 27) against their
+   twins, and ``FlowInverse``'s gradient at d = 27 against autograd
+   through the twin; one step's loss and gradients on both paths with the
+   launch counters reset (K3 34, K2 1, K4 1 + 1; K4 forward 2 with the
+   latent loss, a second check; K1 0), held as phase 10 holds them; 20
+   steps, steps/s resident and loader-fed, the stage split, a profile and
+   peak memory; then both trainers under ``mixed`` and ``default``: one
+   step each with the counters reset (the encoder's 34 convs on the f32 K3
+   under ``mixed``, on the bf16 K3 under ``default``), its frozen part
+   held launch by launch against the twins on the step's own values (each
+   kernel's own tolerance), its trainable part on both paths from those
+   values (``MODE_TRAIN_TOL``), its loss against ``high``'s on the same
+   batch; and ``high``, ``mixed`` and ``default`` steps timed
+   interleaved.  It prints
+   the run's seconds in all.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -106,10 +128,12 @@ step, its max abs error, its time beside the twin's and the one PyTorch
 call's that computes the same function, where there is one, and its
 bound: the least time the card could take for the same work, with the
 peak it is taken at in ``bound_rate``: K2's f32-grade products at
-3xTF32, three TF32 products each at the 495 TFLOP/s TF32 rate; K1, K2
-and K3 also carry ``train_checks``, phase 10's checks at the trainer's
-shapes, K1's inverse with ``FlowInverse``'s gradient); the last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": N}}``.
+3xTF32, three TF32 products each at the 495 TFLOP/s TF32 rate; K1, K2,
+K4 and both K3s also carry ``train_checks``, phases 10-11's checks at the
+trainers' shapes, K1's and K4's inverse with ``FlowInverse``'s gradient;
+``launches_by_path`` gives a step's launches on each trainer and mode);
+the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
+..., "count": N}}``.
 """
 
 import contextlib
@@ -122,6 +146,7 @@ from pathlib import Path
 
 # the checkout this script belongs to: bfsr_tpu_torch is imported from here
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()  # the run's start
 
 LR, HR = (128, 128), (512, 512)
 RAGGED_LR, RAGGED_HR = (96, 80), (300, 250)
@@ -201,16 +226,43 @@ TRAIN_LAUNCHES = {"conv3x3_cat": 34, "linf_info": 1, "linf_flow_forward": 1,
 # the step on the kernel path against the twin path: the loss, relative
 # (1e-7 to 1.4e-7 measured, PERF.md); FlowInverse's gradient (the same twin
 # computes both) absolutely.  The prior's gradients are not continuous in
-# the step's inputs: ReLU, LeakyReLU, max-pool and clip decisions at
-# near-ties flip under any f32-level change, so the twin path itself, with
-# gt_lr_up scaled by (1 + GRAD_NUDGE), moves them by up to ~4% of a
-# tensor's largest value (~1% in L2; PERF.md, PR 13).  Each tensor's
-# relative L2 error against the twin path is held to GRAD_SPREAD_FACTOR x
-# that nudge's worst relative L2 change in the same run, and never less
-# than GRAD_FLOOR; a fault (a wrong sample, crop or layout) moves them by
-# O(1).
+# the step's inputs: ReLU, LeakyReLU, max-pool and clip decisions and the
+# L1 loss's signs at near-ties flip under any f32-level change, so the twin
+# path itself, with gt_lr_up scaled by (1 + GRAD_NUDGE), moves them by up
+# to ~4% of a tensor's largest value (~1% in L2; PERF.md).  Each
+# tensor's relative L2 error against the twin path, and all of them as one
+# vector, is held to GRAD_SPREAD_FACTOR x that nudge's worst relative L2
+# change in the same run, never less than GRAD_FLOOR and never more than
+# GRAD_CAP, half the distance of a gradient of zeros (1.0; a wrong one of
+# the right size reads ~1.4, one of twice the size 1.0); a fault (a wrong
+# sample, crop or layout) moves them by O(1).  Under default the patch
+# trainer's bf16 VGG spreads single tensors by up to 0.21 (PERF.md).
 TRAIN_TOL = {"loss_rel": 1e-5, "flow_inverse_grad": 1e-5}
-GRAD_NUDGE, GRAD_SPREAD_FACTOR, GRAD_FLOOR = 1e-7, 2.0, 1e-3
+GRAD_NUDGE, GRAD_SPREAD_FACTOR, GRAD_FLOOR, GRAD_CAP = 1e-7, 2.0, 1e-3, 0.5
+# the patch trainer's step (ps = 3, d = 27): the 34 encoder convs on K3 over
+# the 144^2 LR crops, the info once at out 540, K4's forward of the LR-up
+# residual (twice with the latent loss) and its inverse; no K1
+PATCH_TRAIN_LAUNCHES = {"conv3x3_cat": 34, "linf_info": 1,
+                        "linf_flow_nd_forward": 1, "linf_flow_nd_inverse": 1}
+# a trainer's step under a bf16 mode.  Two runs of the step that differ at
+# the f32 level (the kernel path and the twin path) flip bf16 roundings at
+# ties, and the flips reach the L1 loss's signs through the random VGG:
+# whole-step gradients differ by 0.13-0.64 in relative L2, and even from
+# the same frozen values, where only the flow inverse's forward differs
+# (by ~1e-7), how many roundings flip is a matter of chance, so one
+# nudge's spread is no measure of it (PERF.md).  The kernels are held
+# launch by launch instead: the frozen part on the kernel path's own
+# values (each of the encoder's 34 K3 launches, K2, the flow forward)
+# within each kernel's own tolerance (TOL); the flow inverse reads no mode
+# and is held with its gradient at the step's shapes by
+# check_train_kernels.  The trainable part then runs on both paths from
+# those values as a sanity check: each gradient and all as one vector
+# within GRAD_CAP, the loss within loss_rel = 2^-10, half the relative
+# rounding of one bf16 operand.  Against high's loss on the same batch:
+# every operand of a bf16 conv carries a relative error of at most 2^-9;
+# vs_high_rel is five times that, a sanity floor as the serving modes'
+# agreement floors are.
+MODE_TRAIN_TOL = {"vs_high_rel": 1e-2, "loss_rel": 2.0 ** -10}
 KERNELS = {
     "linf_flow_forward": ("bfsr_tpu_torch/csrc/linf_flow.cu",
                           "bfsr_tpu/ops/pallas/linf_flow.py:47"),
@@ -310,6 +362,32 @@ def bound(flops, n_bytes, peak=PEAK_F32_FLOPS):
             "bound_rate": PEAK_NAMES[peak]}
 
 
+def within(got, ref, tol):
+    """(whether ``got`` is finite and within ``tol`` of ``ref``, the max
+    abs error, the tolerance as text).  tol: an atol; (atol, rtol),
+    elementwise; or {"max", "mean"} abs errors."""
+    import torch
+
+    err = (got - ref).abs()
+    max_abs = float(err.max())
+    if isinstance(tol, dict):
+        # max and mean abs err; the share past 1e-4 + 1e-4 rel is reported
+        mean = float(err.mean())
+        share = float((err > 1e-4 + 1e-4 * ref.abs()).float().mean())
+        ok = max_abs <= tol["max"] and mean <= tol["mean"]
+        tol_s = (f"atol {tol['max']:g}; mean {mean:.3e} (at most "
+                 f"{tol['mean']:g}), {share:.2e} of elements past 1e-4 + "
+                 "1e-4 rel")
+    elif isinstance(tol, tuple):
+        atol, rtol = tol
+        ok = bool((err <= atol + rtol * ref.abs()).all())
+        tol_s = f"atol {atol:g} + rtol {rtol:g}"
+    else:
+        ok = max_abs <= tol
+        tol_s = f"atol {tol:g}"
+    return bool(torch.isfinite(got).all()) and ok, max_abs, tol_s
+
+
 def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
             n_bytes=None, library_fn=None, peak=PEAK_F32_FLOPS, launches=1):
     """Run both once, check agreement (and that ``kernel_fn`` launched
@@ -328,24 +406,8 @@ def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
     if cuda.LAUNCHES[name] != before[name] + launches:
         raise RuntimeError(f"{name}: the wrapper did not launch its kernel "
                            f"{launches} time(s)")
-    err = (got - ref).abs()
-    max_abs = float(err.max())
-    if isinstance(tol, dict):
-        # max and mean abs err; the share past 1e-4 + 1e-4 rel is reported
-        mean = float(err.mean())
-        share = float((err > 1e-4 + 1e-4 * ref.abs()).float().mean())
-        ok = max_abs <= tol["max"] and mean <= tol["mean"]
-        tol_s = (f"atol {tol['max']:g}; mean {mean:.3e} (at most "
-                 f"{tol['mean']:g}), {share:.2e} of elements past 1e-4 + "
-                 "1e-4 rel")
-    elif isinstance(tol, tuple):
-        atol, rtol = tol
-        ok = bool((err <= atol + rtol * ref.abs()).all())
-        tol_s = f"atol {atol:g} + rtol {rtol:g}"
-    else:
-        ok = max_abs <= tol
-        tol_s = f"atol {tol:g}"
-    if not (torch.isfinite(got).all() and ok):
+    ok, max_abs, tol_s = within(got, ref, tol)
+    if not ok:
         raise RuntimeError(f"{name}{label}: kernel disagrees with its twin: "
                            f"max abs err {max_abs:.3e} ({tol_s}), max |ref| "
                            f"{float(ref.abs().max()):.3e}")
@@ -499,9 +561,9 @@ def check_k3_bf16(label, xs, conv, s, b, act):
     from bfsr_tpu_torch.ops.cuda import conv3x3
 
     w = conv.weight
-    H, W = xs[0].shape[1], xs[0].shape[2]
+    B, H, W = xs[0].shape[:3]
     with torch.inference_mode():
-        flops = 2 * 9 * w.shape[1] * w.shape[0] * H * W
+        flops = 2 * 9 * w.shape[1] * w.shape[0] * H * W * B
         xcat = torch.cat(xs, -1).permute(0, 3, 1, 2).contiguous().bfloat16()
         wl = (w if s is None else w * s[:, None, None, None]).bfloat16()
         bl = None if b is None else b.bfloat16()
@@ -513,7 +575,7 @@ def check_k3_bf16(label, xs, conv, s, b, act):
                                              kweight_bf16=conv.kweight_bf16),
             lambda: conv3x3.conv3x3_cat_bf16_plain(xs, w, s, b, act),
             TOL["conv3x3_cat_bf16"], flops, f" {label}",
-            n_bytes + 4 * w.shape[0] * H * W,
+            n_bytes + 4 * w.shape[0] * H * W * B,
             lambda: F.conv2d(xcat, wl, bl, padding=1), peak=PEAK_BF16_FLOPS)
 
 
@@ -1260,11 +1322,12 @@ def check_patch_eval(model, prior):
 
 
 class SyntheticCrops:
-    """A dataset of ``n`` synthetic crop-wrapper samples, sample i from
-    ``np.random.default_rng(seed + i)``."""
+    """A dataset of ``n`` synthetic crop-wrapper samples (the crop-patch
+    wrapper's with ``patch``), sample i from ``np.random.default_rng(seed
+    + i)``."""
 
-    def __init__(self, n, seed=0):
-        self.n, self.seed = n, seed
+    def __init__(self, n, seed=0, patch=False):
+        self.n, self.seed, self.patch = n, seed, patch
 
     def __len__(self):
         return self.n
@@ -1272,87 +1335,108 @@ class SyntheticCrops:
     def __getitem__(self, i):
         import numpy as np
 
-        from bfsr_tpu_torch.entry import synthetic_train_sample
+        from bfsr_tpu_torch.entry import (synthetic_patch_train_sample,
+                                          synthetic_train_sample)
 
-        return synthetic_train_sample(np.random.default_rng(self.seed + i),
-                                      TRAIN_INP, TRAIN_SCALE_MAX)
+        make = (synthetic_patch_train_sample if self.patch
+                else synthetic_train_sample)
+        return make(np.random.default_rng(self.seed + i), TRAIN_INP,
+                    TRAIN_SCALE_MAX)
 
 
-def check_train_kernels(linf, batch):
-    """The trainer's kernel shapes: K3 at B = 16 (the encoder's 64 -> 64
-    and the head's 3 -> 64, beside cuDNN), K2 at B = 16 with per-sample
-    axes and cells, K1 both ways on the batch's 36,864 queries, and K1
-    inverse's gradient through ``FlowInverse`` against autograd through
-    the twin.  Returns {name: [results]}."""
+def check_train_kernels(linf, batch, bf16=False):
+    """A trainer's kernel shapes (the pixel model's or, for a patch model,
+    the patch trainer's): K3 at the batch's B (the encoder's 64 -> 64 and
+    the head's 3 -> 64, beside cuDNN; with ``bf16`` the bf16 K3 too), K2
+    over the batch's crops with per-sample axes and cells, K1 / K4 both
+    ways on their queries, and the flow inverse's gradient through
+    ``FlowInverse`` against autograd through the twin.  Returns {name:
+    [results]}."""
     import torch
 
     from bfsr_tpu_torch.models.linf import grid_axes
     from bfsr_tpu_torch.ops.cuda import linf_flow, linf_info
+    from bfsr_tpu_torch.pipelines.linf_train import patch_grid_axes
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    ps = linf.patch_size
+    tag = "train" if ps == 1 else "patch train"
+    gen = torch.Generator(device="cuda").manual_seed(1 if ps == 1 else 2)
     out = {}
     inp = (batch["inp"] - 0.5) / 0.5
-    feat_in = torch.randn((TRAIN_BATCH, TRAIN_INP, TRAIN_INP, 64),
-                          generator=gen, device="cuda")
+    B, n_lr = inp.shape[0], inp.shape[1]
+    feat_in = torch.randn((B, n_lr, n_lr, 64), generator=gen, device="cuda")
     enc = linf.encoder
-    out["conv3x3_cat"] = [
-        check_k3(f"train encoder 64->64 B={TRAIN_BATCH} @{TRAIN_INP}^2",
-                 [feat_in], enc.body[0].body[0], None,
-                 enc.body[0].body[0].bias, "relu"),
-        check_k3(f"train head 3->64 B={TRAIN_BATCH} @{TRAIN_INP}^2", [inp],
-                 enc.head[0], None, enc.head[0].bias, None)]
+    convs = [(f"{tag} encoder 64->64 B={B} @{n_lr}^2", [feat_in],
+              enc.body[0].body[0], enc.body[0].body[0].bias, "relu"),
+             (f"{tag} head 3->64 B={B} @{n_lr}^2", [inp], enc.head[0],
+              enc.head[0].bias, None)]
+    out["conv3x3_cat"] = [check_k3(label, xs, conv, None, b, act)
+                          for label, xs, conv, b, act in convs]
+    if bf16:
+        out["conv3x3_cat_bf16"] = [check_k3_bf16(label, xs, conv, None, b,
+                                                 act)
+                                   for label, xs, conv, b, act in convs]
     # no_grad, not inference_mode: FlowInverse saves the info for backward
     with torch.no_grad():
         feat = linf.gen_feat(inp, kernels=False)
         coef, freq = linf.head(feat)
-        phase = linf.phase_of(batch["cell"], TRAIN_INP, TRAIN_INP)
-        cy, cx = grid_axes(batch["coord"])
+        phase = linf.phase_of(batch["cell"], n_lr, n_lr)
+        cy, cx = (grid_axes(batch["coord"]) if ps == 1 else patch_grid_axes(
+            batch["coord"], batch["interpolate_coord"].shape[1:3], ps))
         args = (coef, freq, cy, cx, phase, linf.mlp())
-        n = TRAIN_BATCH * cy.shape[1] * cx.shape[1]
+        n = B * cy.shape[1] * cx.shape[1]
         flops = 2 * n * sum(w.shape[0] * w.shape[1] for w, _ in linf.mlp())
         out_dim = linf.mlp()[-1][0].shape[0]
+        label = (f" train B={B} {n_lr}^2 crops" if ps == 1 else
+                 f" patch train B={B} {cy.shape[1]}^2 centre grids "
+                 f"out_dim={out_dim}")
         out["linf_info"] = [compare(
             "linf_info", lambda: linf_info.affine_info(*args, linf.mlp_packed),
             lambda: linf_info.affine_info_plain(*args), TOL["linf_info"],
-            flops, f" train B={TRAIN_BATCH} {TRAIN_INP}^2 crops",
-            nbytes(coef, freq, cy, cx, phase, linf.mlp_packed)
+            flops, label, nbytes(coef, freq, cy, cx, phase, linf.mlp_packed)
             + 4 * out_dim * n, peak=PEAK_3XTF32_FLOPS)]
         info = linf_info.affine_info_plain(*args)
     # the step's own values: the batch's LR-up residual and its latent
     flow = linf.imnet
-    x = batch["gt_lr_up"].reshape(-1, 3).contiguous()
+    n_layers, d = flow.w.shape[0] - 1, flow.w.shape[-1]
+    x = batch["gt_lr_up"].reshape(-1, d).contiguous()
     with torch.no_grad():
         z = linf_flow.flow_forward_plain(flow.w, flow.b, x, info)
-    up = torch.randn((n, 3), generator=gen, device="cuda")
+    up = torch.randn((n, d), generator=gen, device="cuda")
 
     def grad(fn):
         zr = z.clone().requires_grad_(True)
         return torch.autograd.grad(fn(flow.w_inv, flow.b, zr, info), zr,
                                    up)[0]
 
-    # per query and layer: a 3x3 matvec + bias (21 flop) and the affine
-    # coupling of 3 channels (15); the VJP about twice the forward
-    n_layers = flow.w.shape[0] - 1
-    k1_flops = n * (36 * n_layers + 21)
-    k1_bytes = nbytes(flow.w, flow.b, z, info) + z.numel() * 4
+    if d == 3:
+        # per query and layer: a 3x3 matvec + bias (21 flop) and the affine
+        # coupling of 3 channels (15)
+        fwd, inv = "linf_flow_forward", "linf_flow_inverse"
+        k_flops = n * (36 * n_layers + 21)
+        label = f" train N={n}"
+    else:
+        # as check_patch_kernels counts them
+        fwd, inv = "linf_flow_nd_forward", "linf_flow_nd_inverse"
+        k_flops = n * ((n_layers + 1) * (2 * d * d + d) + 7 * d * n_layers)
+        label = f" patch train N={n} d={d} L={n_layers}"
+    k_bytes = nbytes(flow.w, flow.b, z, info) + z.numel() * 4
     with torch.no_grad():
-        out["linf_flow_forward"] = [compare(
-            "linf_flow_forward",
-            lambda: linf_flow.flow_forward(flow.w, flow.b, x, info),
+        out[fwd] = [compare(
+            fwd, lambda: linf_flow.flow_forward(flow.w, flow.b, x, info),
             lambda: linf_flow.flow_forward_plain(flow.w, flow.b, x, info),
-            TOL["linf_flow_forward"], k1_flops, f" train N={n}", k1_bytes)]
+            TOL[fwd], k_flops, label, k_bytes)]
         inverse = compare(
-            "linf_flow_inverse",
-            lambda: linf_flow.flow_inverse(flow.w_inv, flow.b, z, info),
+            inv, lambda: linf_flow.flow_inverse(flow.w_inv, flow.b, z, info),
             lambda: linf_flow.flow_inverse_plain(flow.w_inv, flow.b, z, info),
-            TOL["linf_flow_inverse"], k1_flops, f" train N={n}", k1_bytes)
+            TOL[inv], k_flops, label, k_bytes)
     # FlowInverse: z, the info, the weights and the upstream gradient read,
-    # x and z's gradient written
-    out["linf_flow_inverse"] = [inverse, compare(
-        "linf_flow_inverse", lambda: grad(linf_flow.flow_inverse_diff),
+    # x and z's gradient written; the VJP about twice the forward
+    out[inv] = [inverse, compare(
+        inv, lambda: grad(linf_flow.flow_inverse_diff),
         lambda: grad(linf_flow.flow_inverse_plain),
-        TRAIN_TOL["flow_inverse_grad"], 3 * k1_flops,
-        f" gradient (FlowInverse) N={n}",
+        TRAIN_TOL["flow_inverse_grad"], 3 * k_flops,
+        f" gradient (FlowInverse) N={n}" + ("" if d == 3 else f" d={d}"),
         nbytes(flow.w_inv, flow.b, z, info, up) + 2 * z.numel() * 4)]
     return out
 
@@ -1369,65 +1453,165 @@ def grad_errors(grads, ref):
     return out
 
 
-def train_step_check(linf, prior, vgg, batch, latent_weight):
+def global_rel_l2(grads, ref):
+    """Relative L2 error of all of ``grads`` against ``ref``, as one
+    vector."""
+    import torch
+
+    g = torch.cat([v.flatten() for v in grads.values()])
+    r = torch.cat([ref[k].flatten() for k in grads])
+    return float((g - r).norm() / r.norm())
+
+
+def frozen_launch_checks(linf, batch, fz, label):
+    """A step's frozen part in the current mode, launch by launch on the
+    kernel path's own values ``fz`` (``step.frozen``): each of the
+    encoder's 34 K3 launches (the bf16 K3 under default) against its twin
+    on that launch's input, K2 against its twin on the encoder's output
+    fz['feat'], and the LR-up residual's flow forward (K1, or K4 at d =
+    27) against its twin at fz['info']; each within its kernel's own
+    tolerance (TOL).  Returns a line for the log."""
+    import torch
+
+    from bfsr_tpu_torch.models.linf import grid_axes
+    from bfsr_tpu_torch.ops import nn as fnn
+    from bfsr_tpu_torch.ops.cuda import conv3x3, linf_flow
+    from bfsr_tpu_torch.pipelines.linf_train import patch_grid_axes
+
+    worst = {}
+
+    def hold(name, got, ref, tol):
+        ok, err, tol_s = within(got, ref, tol)
+        if not ok:
+            raise RuntimeError(f"{label}: {name} on the step's own values "
+                               f"disagrees with its twin: max abs err "
+                               f"{err:.3e} ({tol_s}), max |ref| "
+                               f"{float(ref.abs().max()):.3e}")
+        n, e, _ = worst.get(name, (0, 0.0, tol_s))
+        worst[name] = (n + 1, max(e, err), tol_s)
+
+    def conv(t, m, act):
+        bf16 = fnn.bf16_stage()
+        y = conv3x3.conv3x3_cat([t], m.weight, bias=m.bias, act=act,
+                                kweight=m.kweight,
+                                kweight_bf16=m.kweight_bf16)
+        hold("conv3x3_cat_bf16" if bf16 else "conv3x3_cat", y,
+             conv3x3.conv3x3_cat_twin([t], m.weight, bias=m.bias, act=act),
+             TOL["conv3x3_cat_bf16" if bf16 else "conv3x3_cat"])
+        return y
+
+    with torch.no_grad():
+        feat = linf.encoder(fz["inp"], conv=conv)
+        ps, d = linf.patch_size, linf.dim
+        cy, cx = (grid_axes(batch["coord"]) if ps == 1 else patch_grid_axes(
+            batch["coord"], batch["interpolate_coord"].shape[1:3], ps))
+        hold("linf_info", fz["info"], linf.affine_info_grid(
+            fz["feat"], cy, cx, batch["cell"], kernels=False),
+            TOL["linf_info"])
+        fwd = "linf_flow_forward" if d == 3 else "linf_flow_nd_forward"
+        hold(fwd, fz["z_lr"].reshape(-1, d), linf_flow.flow_forward_plain(
+            linf.imnet.w, linf.imnet.b,
+            batch["gt_lr_up"].reshape(-1, d).contiguous(), fz["info"]),
+            TOL[fwd])
+    return (f"frozen part launch by launch: "
+            + ", ".join(f"{k} x {n} max abs err {e:.3e} ({t})"
+                        for k, (n, e, t) in worst.items())
+            + f"; the checked encoder's output equals the step's: "
+            f"{torch.equal(feat, fz['feat'])}")
+
+
+def train_step_check(linf, prior, vgg, batch, latent_weight, want=None,
+                     label="train step", mode=None):
     """One step's loss and gradients on the kernel path, with the launch
-    counters reset first, and on the twin path from the same state; the
-    twin path once more with gt_lr_up nudged by GRAD_NUDGE, the
-    gradients' own spread (see TRAIN_TOL).  Returns the kernel path's
-    launches."""
+    counters reset first (``want``: the launches expected, by default
+    TRAIN_LAUNCHES with K1's forward twice under the latent loss), against
+    the twin path from the same state.  In high (``mode`` None) both paths
+    run the whole step, held to the twin's spread under ``gt_lr_up``
+    nudged (TRAIN_TOL); in a bf16 mode the frozen part is held launch by
+    launch (``frozen_launch_checks``) and the trainable part runs on both
+    paths from the kernel path's frozen values (MODE_TRAIN_TOL).  Returns
+    (the kernel path's launches, its loss, its gradients)."""
     import torch
 
     from bfsr_tpu_torch.ops import cuda
-    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step, to_device
     from bfsr_tpu_torch.train.optim import make_optimizer
 
     opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
                          prior.parameters())
-    label = f"train step latent_weight={latent_weight:g}"
-    cuda.reset_launch_counts()
-    mets, grads, _ = make_train_step(
-        linf, prior, vgg, opt, latent_weight=latent_weight).loss_and_grads(
-            batch)
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
-    want = dict(TRAIN_LAUNCHES)
-    if latent_weight > 0:
-        want["linf_flow_forward"] = 2
-    if launches != want:
-        raise RuntimeError(f"{label}: launches {launches}, expected {want}")
-    twin = make_train_step(linf, prior, vgg, opt, latent_weight=latent_weight,
-                           kernels=False)
-    ref, ref_grads, _ = twin.loss_and_grads(batch)
-    nudged = dict(batch, gt_lr_up=batch["gt_lr_up"] * (1 + GRAD_NUDGE))
-    spread = grad_errors(twin.loss_and_grads(nudged)[1], ref_grads)
-    errs = grad_errors(grads, ref_grads)
-    loss, ref_loss = float(mets["loss"]), float(ref["loss"])
-    rel = abs(loss - ref_loss) / abs(ref_loss)
-    tol = max(GRAD_FLOOR, GRAD_SPREAD_FACTOR * max(v[0] for v in
-                                                   spread.values()))
-    if not all(torch.isfinite(g).all() for g in grads.values()):
-        raise RuntimeError(f"{label}: a gradient is not finite")
-    bad = {k: v[0] for k, v in errs.items() if not v[0] <= tol}
-    if bad or not rel <= TRAIN_TOL["loss_rel"]:
-        raise RuntimeError(f"{label}: loss {loss!r} vs twin path "
-                           f"{ref_loss!r} ({rel:.3e} relative); gradients "
-                           f"past {tol:.3e} relative L2: {bad}")
+    label = f"{label} latent_weight={latent_weight:g}"
+    if want is None:
+        want = dict(TRAIN_LAUNCHES)
+        if latent_weight > 0:
+            want["linf_flow_forward"] = 2
+    batch = to_device(batch, "cuda")
+    with precision(mode or "high"):
+        step = make_train_step(linf, prior, vgg, opt,
+                               latent_weight=latent_weight)
+        twin = make_train_step(linf, prior, vgg, opt,
+                               latent_weight=latent_weight, kernels=False)
+        cuda.reset_launch_counts()
+        mets, grads, _ = step.loss_and_grads(batch)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        if launches != want:
+            raise RuntimeError(f"{label}: launches {launches}, expected "
+                               f"{want}")
+        if mode:
+            fz = step.frozen(batch)
+            held = "; " + frozen_launch_checks(linf, batch, fz, label)
+            kmets, kgrads, _ = step.loss_and_grads(batch, frozen=fz)
+            ref, ref_grads, _ = twin.loss_and_grads(batch, frozen=fz)
+        else:
+            kmets, kgrads = mets, grads
+            ref, ref_grads, _ = twin.loss_and_grads(batch)
+            nudged = twin.loss_and_grads(dict(
+                batch, gt_lr_up=batch["gt_lr_up"] * (1 + GRAD_NUDGE)))
 
     def worst(e, i):
         name = max(e, key=lambda k: e[k][i])
         return f"{e[name][i]:.3e} ({name})"
 
-    log(f"{label}: launches {launches}; loss {loss!r} (vgg_l "
-        f"{float(mets['vgg_l'])!r}, latent_l {float(mets['latent_l'])!r}), "
-        f"twin path {ref_loss!r}: {rel:.3e} relative (at most "
-        f"{TRAIN_TOL['loss_rel']:g}); {len(grads)} gradient tensors against "
-        f"the twin path: worst relative L2 {worst(errs, 0)}, median "
+    loss, ref_loss = float(kmets["loss"]), float(ref["loss"])
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    errs = grad_errors(kgrads, ref_grads)
+    err_all = global_rel_l2(kgrads, ref_grads)
+    if mode:
+        loss_tol, tol, tol_all = MODE_TRAIN_TOL["loss_rel"], GRAD_CAP, GRAD_CAP
+        part = " (the trainable part from the kernel path's frozen values)"
+    else:
+        def limit(s):
+            return min(GRAD_CAP, max(GRAD_FLOOR, GRAD_SPREAD_FACTOR * s))
+
+        spread = grad_errors(nudged[1], ref_grads)
+        loss_tol = TRAIN_TOL["loss_rel"]
+        tol = limit(max(v[0] for v in spread.values()))
+        tol_all = limit(global_rel_l2(nudged[1], ref_grads))
+        part = ""
+        held = (f"; the twin path's own spread (gt_lr_up x "
+                f"{1 + GRAD_NUDGE:.9g}): worst relative L2 "
+                f"{worst(spread, 0)}, median "
+                f"{statistics.median(v[0] for v in spread.values()):.3e}, "
+                f"worst of max |g| {worst(spread, 1)}")
+    if not all(torch.isfinite(g).all() for g in grads.values()):
+        raise RuntimeError(f"{label}: a gradient is not finite")
+    bad = {k: v[0] for k, v in errs.items() if not v[0] <= tol}
+    if bad or not rel <= loss_tol or not err_all <= tol_all:
+        raise RuntimeError(f"{label}: loss {loss!r} vs twin path "
+                           f"{ref_loss!r} ({rel:.3e} relative, at most "
+                           f"{loss_tol:.3e}); gradients past {tol:.3e} "
+                           f"relative L2: {bad}; all gradients {err_all:.3e} "
+                           f"relative L2 (at most {tol_all:.3e})")
+    log(f"{label}: launches {launches}; loss {float(mets['loss'])!r} (vgg_l "
+        f"{float(mets['vgg_l'])!r}, latent_l {float(mets['latent_l'])!r}); "
+        f"kernel path{part} {loss!r} vs twin path {ref_loss!r}: {rel:.3e} "
+        f"relative (at most {loss_tol:.3e}); {len(grads)} gradient tensors "
+        f"against the twin path: worst relative L2 {worst(errs, 0)}, median "
         f"{statistics.median(v[0] for v in errs.values()):.3e}, worst of max "
-        f"|g| {worst(errs, 1)}; the twin path's own spread (gt_lr_up x (1 + "
-        f"{GRAD_NUDGE:g})): worst relative L2 {worst(spread, 0)}, median "
-        f"{statistics.median(v[0] for v in spread.values()):.3e}, worst of "
-        f"max |g| {worst(spread, 1)}; tolerance {tol:.3e} relative L2")
-    return launches
+        f"|g| {worst(errs, 1)}; tolerance {tol:.3e} relative L2; all "
+        f"gradients as one vector {err_all:.3e} relative L2 (at most "
+        f"{tol_all:.3e}){held}")
+    return launches, float(mets["loss"]), grads
 
 
 def time_steps(steps, label, blocks=3, per_block=5):
@@ -1489,14 +1673,8 @@ def train_stages(make_step, batch, label, reps=3):
 
 def run_trainer(dev):
     """Phase 10: the LINF-LP trainer at its full configuration."""
-    import numpy as np
-    import torch
-
-    from bfsr_tpu_torch.data.loader import DataLoader
     from bfsr_tpu_torch.entry import (build_flagship_trainer,
                                       example_train_batch)
-    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
-    from bfsr_tpu_torch.train.optim import make_optimizer
 
     t0 = time.perf_counter()
     linf, prior, vgg = build_flagship_trainer(dev, seed=0)
@@ -1506,9 +1684,25 @@ def run_trainer(dev):
         f"{TRAIN_INP}^2 (scales U(1, {TRAIN_SCALE_MAX})) built in "
         f"{time.perf_counter() - t0:.2f} s; prior "
         f"{sum(p.numel() for p in prior.parameters())} parameters")
-    checks = check_train_kernels(linf, batches[0])
-    launches = train_step_check(linf, prior, vgg, batches[0], 0.0)
+    checks = check_train_kernels(linf, batches[0], bf16=True)
+    launches = train_step_check(linf, prior, vgg, batches[0], 0.0)[0]
     train_step_check(linf, prior, vgg, batches[1], 1.0)
+    exercise_trainer(linf, prior, vgg, batches, "train",
+                     f"B={TRAIN_BATCH} {TRAIN_INP}^2")
+    return checks, launches, (linf, prior, vgg), batches
+
+
+def exercise_trainer(linf, prior, vgg, batches, tag, shape, patch=False):
+    """20 kernel-path steps (finite losses, every parameter moved, peak
+    memory), steps/s on resident batches (kernel and twin paths
+    interleaved) and fed by the port's ``DataLoader``, the stage split of
+    both paths and one profiled step."""
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch.data.loader import DataLoader
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
 
     opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
                          prior.parameters())
@@ -1522,9 +1716,9 @@ def run_trainer(dev):
     still = [k for k, v in prior.named_parameters()
              if torch.equal(v, before[k])]
     if not np.isfinite(losses).all() or still:
-        raise RuntimeError(f"train: 20 steps: losses {losses}, parameters "
+        raise RuntimeError(f"{tag}: 20 steps: losses {losses}, parameters "
                            f"that did not move: {still}")
-    log(f"train: 20 kernel-path steps: loss {losses[0]!r} at step 1, "
+    log(f"{tag}: 20 kernel-path steps: loss {losses[0]!r} at step 1, "
         f"{losses[-1]!r} at step 20 (not gated: random VGG); every one of "
         f"{len(before)} parameter tensors moved; peak memory "
         f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above the "
@@ -1533,25 +1727,112 @@ def run_trainer(dev):
     it = iter(range(10 ** 9))
     medians = time_steps({k: (lambda s=s: s(batches[next(it) % 4]))
                           for k, s in steps.items()},
-                         f"train B={TRAIN_BATCH} {TRAIN_INP}^2 resident")
-    loader = DataLoader(SyntheticCrops(10 * TRAIN_BATCH), TRAIN_BATCH,
-                        shuffle=True, num_workers=4, seed=0)
+                         f"{tag} {shape} resident")
+    loader = DataLoader(SyntheticCrops(10 * TRAIN_BATCH, patch=patch),
+                        TRAIN_BATCH, shuffle=True, num_workers=4, seed=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b in loader:
         steps["kernel"](b)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    log(f"time train B={TRAIN_BATCH} loader-fed kernel path: 10 steps in "
+    log(f"time {tag} B={TRAIN_BATCH} loader-fed kernel path: 10 steps in "
         f"{wall * 1e3:.3f} ms, {10 / wall:.3f} steps/s ({wall * 100:.3f} "
         f"ms/step; the DataLoader's 4 threads making the batches)")
     for k in ("kernel", "twin"):
         train_stages(lambda marks, k=k: make_train_step(
             linf, prior, vgg, opt, kernels=k == "kernel", marks=marks),
-            batches[0], f"train B={TRAIN_BATCH} {k} path")
+            batches[0], f"{tag} B={TRAIN_BATCH} {k} path")
     profile_predict(lambda: steps["kernel"](batches[0]), medians["kernel"],
-                    f"train B={TRAIN_BATCH} step", top=16, what="step")
-    return checks, launches
+                    f"{tag} B={TRAIN_BATCH} step", top=16, what="step")
+    return medians
+
+
+# ---------------------------------------------------------------------------
+# the LINF-LP patch trainer and training under the bf16 modes
+# ---------------------------------------------------------------------------
+
+
+def run_patch_trainer(dev):
+    """Phase 11, first part: the LINF-LP patch trainer (``--patch 3``) at
+    its full configuration.  Returns (checks, launches, models, batches)."""
+    from bfsr_tpu_torch.entry import (build_patch_trainer,
+                                      example_patch_train_batch)
+
+    t0 = time.perf_counter()
+    linf, prior, vgg = build_patch_trainer(dev, seed=0)
+    batches = [example_patch_train_batch(dev, seed, TRAIN_BATCH, TRAIN_INP,
+                                         TRAIN_SCALE_MAX)
+               for seed in range(4)]
+    n_lr = batches[0]["inp"].shape[1]
+    log(f"patch train: models and 4 synthetic batches of {TRAIN_BATCH} x "
+        f"{n_lr}^2 LR crops ({TRAIN_INP}^2 patch centres, scales U(1, "
+        f"{TRAIN_SCALE_MAX})) built in {time.perf_counter() - t0:.2f} s; "
+        f"prior {sum(p.numel() for p in prior.parameters())} parameters")
+    checks = check_train_kernels(linf, batches[0], bf16=True)
+    want = dict(PATCH_TRAIN_LAUNCHES)
+    launches = train_step_check(linf, prior, vgg, batches[0], 0.0, want,
+                                "patch train step")[0]
+    want["linf_flow_nd_forward"] = 2
+    train_step_check(linf, prior, vgg, batches[1], 1.0, want,
+                     "patch train step")
+    exercise_trainer(linf, prior, vgg, batches, "patch train",
+                     f"B={TRAIN_BATCH} {n_lr}^2", patch=True)
+    return checks, launches, (linf, prior, vgg), batches
+
+
+def mode_launches(want, mode):
+    """A step's launches under ``mode``: the encoder's K3 on the bf16
+    kernel under default; the prior trains on plain convs in every
+    mode."""
+    if mode != "default":
+        return dict(want)
+    out = {k: v for k, v in want.items() if k != "conv3x3_cat"}
+    out["conv3x3_cat_bf16"] = want["conv3x3_cat"]
+    return out
+
+
+def run_train_modes(trainers):
+    """Phase 11, second part: both trainers under mixed and default.  Per
+    trainer and mode one step's loss and gradients on the kernel and twin
+    paths in that mode (``train_step_check``), its loss against the kernel
+    path's in high on the same batch and state (MODE_TRAIN_TOL; high's own
+    check against the twin path is phase 10's and the first part's), then
+    high, mixed and default timed interleaved.  ``trainers``: {name:
+    (models, batches, launches in high)}.  Returns {path: launches}."""
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    out = {}
+    for name, ((linf, prior, vgg), batches, want) in trainers.items():
+        shape = f"B={TRAIN_BATCH} {batches[0]['inp'].shape[1]}^2"
+        opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                             prior.parameters())
+        step = make_train_step(linf, prior, vgg, opt)
+        with precision("high"):
+            mets, high_grads, _ = step.loss_and_grads(batches[0])
+        high = float(mets["loss"])
+        for mode in ("mixed", "default"):
+            launches, loss, grads = train_step_check(
+                linf, prior, vgg, batches[0], 0.0, mode_launches(want, mode),
+                f"{name} step {mode}", mode=mode)
+            out[f"{name.replace(' ', '_')}_{mode}"] = launches
+            rel = abs(loss - high) / abs(high)
+            if not rel <= MODE_TRAIN_TOL["vs_high_rel"]:
+                raise RuntimeError(f"{name} step {mode}: loss {loss!r} vs "
+                                   f"high's {high!r}: {rel:.3e} relative "
+                                   f"(at most "
+                                   f"{MODE_TRAIN_TOL['vs_high_rel']:g})")
+            log(f"{name} step {mode} vs high on the same batch: loss {loss!r} "
+                f"vs {high!r}, {rel:.3e} relative (at most "
+                f"{MODE_TRAIN_TOL['vs_high_rel']:g}); all gradients "
+                f"{global_rel_l2(grads, high_grads):.3e} relative L2 (not "
+                f"gated)")
+        it = iter(range(10 ** 9))
+        time_steps({m: in_mode(m, lambda: step(batches[next(it) % 4]))
+                    for m in ("high", "mixed", "default")},
+                   f"{name} {shape} mode")
+    return out
 
 
 def main():
@@ -1715,7 +1996,19 @@ def main():
     torch.cuda.empty_cache()
 
     # --- the LINF-LP trainer ---
-    train_checks, launches["linf_train"] = run_trainer(dev)
+    train_checks, launches["linf_train"], pixel, pixel_batches = \
+        run_trainer(dev)
+
+    # --- the LINF-LP patch trainer, and both trainers under mixed / default
+    patch_checks, launches["linf_patch_train"], patch, patch_batches = \
+        run_patch_trainer(dev)
+    for name, rs in patch_checks.items():
+        train_checks.setdefault(name, []).extend(rs)
+    launches.update(run_train_modes({
+        "train": (pixel, pixel_batches, dict(TRAIN_LAUNCHES)),
+        "patch train": (patch, patch_batches, dict(PATCH_TRAIN_LAUNCHES))}))
+    log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
+        "build included")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1740,8 +2033,9 @@ def main():
                            if timed[0]["library_ms"] is not None else None),
         })
         if name in train_checks:
-            # the trainer's shapes (K3 at B = 16, K2's batched crops) and,
-            # for K1's inverse, FlowInverse's gradient, each check as it ran
+            # the trainers' shapes (both K3s at B = 16, K2's batched crops
+            # at out 60 and 540, K4 at N = 36,864) and, for K1's and K4's
+            # inverse, FlowInverse's gradient, each check as it ran
             kernels[-1]["train_checks"] = [
                 {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}

@@ -659,9 +659,10 @@ def test_bf16_wrappers_raise_on_what_kernels_do_not_take(dev):
     x = torch.zeros((1, 4, 4, 8), device=dev)
     with pytest.raises(ValueError):   # Cout 48: neither <= 64 in 16s nor 64s
         conv3x3.conv3x3_cat_bf16([x], torch.zeros((48, 8, 3, 3), device=dev))
-    with pytest.raises(ValueError):   # batch 1 only
-        conv3x3.conv3x3_cat_bf16([torch.zeros((2, 4, 4, 8), device=dev)],
-                                 torch.zeros((8, 8, 3, 3), device=dev))
+    with pytest.raises(ValueError):   # past the grid: B x 2 Cout blocks
+        conv3x3.conv3x3_cat_bf16(
+            [torch.zeros((40000, 1, 1, 8), device=dev)],
+            torch.zeros((128, 8, 3, 3), device=dev))
     w = torch.zeros((16, 8, 3, 3), device=dev)
     with pytest.raises(ValueError):   # an f32 layout where bf16 is due
         conv3x3.conv3x3_cat_bf16([x], w,
@@ -991,6 +992,118 @@ def test_small_train_step_kernel_path_matches_twin_path(dev):
     assert kcuda.LAUNCHES["linf_info"] == 1, kcuda.LAUNCHES
     assert kcuda.LAUNCHES["linf_flow_forward"] == 2, kcuda.LAUNCHES
     assert kcuda.LAUNCHES["linf_flow_inverse"] == 1, kcuda.LAUNCHES
+    ref_mets, ref_grads, _ = make_train_step(
+        model, prior, vgg, opt, latent_weight=1.0,
+        kernels=False).loss_and_grads(batch)
+    for k in mets:
+        torch.testing.assert_close(mets[k], ref_mets[k], rtol=1e-4, atol=0)
+    for name, g in grads.items():
+        scale = float(ref_grads[name].abs().max())
+        torch.testing.assert_close(g, ref_grads[name], rtol=0,
+                                   atol=1e-3 * scale)
+
+
+# --- the patch trainer and the bf16 modes: the bf16 K3 at B > 1, K2 at
+# out 540 over 16 crops, K4 and FlowInverse at d = 27 ---------------------
+
+
+@pytest.mark.parametrize("cins,cout,act,hw,batch", [
+    ([64], 64, "relu", (48, 48), 16),     # the pixel trainer's encoder
+    ([3], 64, None, (48, 48), 16),        # its head conv
+    ([64], 64, "relu", (144, 144), 16),   # the patch trainer's encoder
+    ([3], 64, None, (144, 144), 16),
+    ([16, 8], 192, "lrelu", (13, 21), 3),  # three Cout blocks, ragged
+    ([8], 32, None, (19, 70), 2),
+])
+def test_batched_k3_bf16_matches_twin_and_batch_1(dev, cins, cout, act, hw,
+                                                  batch):
+    g = _gen(sum(cins) + cout + batch)
+    xs = [_t(g.standard_normal((batch, *hw, c)), dev) for c in cins]
+    w = _t(0.2 * g.standard_normal((cout, sum(cins), 3, 3)), dev)
+    b = _t(g.standard_normal(cout), dev)
+    before = kcuda.LAUNCHES["conv3x3_cat_bf16"]
+    got = conv3x3.conv3x3_cat_bf16(xs, w, None, b, act)
+    assert kcuda.LAUNCHES["conv3x3_cat_bf16"] == before + 1
+    assert got.shape == (batch, *hw, cout)
+    twin = conv3x3.conv3x3_cat_bf16_plain(xs, w, None, b, act)
+    torch.testing.assert_close(got, twin, rtol=1e-4, atol=1e-4)
+    n_blocks = max(1, cout // 64)
+    if batch * n_blocks * ((hw[1] + 31) // 32) * ((hw[0] + 7) // 8) \
+            < 4 * 132:
+        # the same tile at B = 1: each image's bits are its own launch's
+        for i in range(batch):
+            one = conv3x3.conv3x3_cat_bf16([x[i:i + 1] for x in xs], w, None,
+                                           b, act)
+            assert torch.equal(got[i:i + 1], one), i
+
+
+def test_k2_at_out_540_over_16_crops(dev):
+    """The patch trainer's info: 16 crops' 48^2 centre grids (each a window
+    of its own scale's grid) over 144^2 LR features, out 540."""
+    crops = [(48, 48)] + [(48 + 9 * i, 48 + 7 * i) for i in range(1, 16)]
+    coef, freq, cy, cx, phase, mlp = _k2_batch(256, 2, 540, (144, 144),
+                                               crops, dev)
+    got = linf_info.affine_info(coef, freq, cy, cx, phase, mlp)
+    assert got.shape == (540, 16 * 48 * 48)
+    twin = linf_info.affine_info_plain(coef, freq, cy, cx, phase, mlp)
+    torch.testing.assert_close(got, twin, atol=2e-4, rtol=1e-4)
+
+
+def test_k4_and_flow_inverse_at_the_patch_trainers_n(dev):
+    """K4 forward and inverse at d = 27, L = 10, N = 16 x 48^2 = 36,864,
+    and FlowInverse's gradient against autograd through the twin."""
+    w, b, x, info, w_inv = _k4_case(27, 10, 36864)
+    wt, bt, xt, it = (_t(a, dev) for a in (w, b, x, info))
+    wit = _t(w_inv, dev)
+    z = linf_flow.flow_forward(wt, bt, xt, it)
+    torch.testing.assert_close(
+        z, linf_flow.flow_forward_plain(wt, bt, xt, it), rtol=0, atol=2e-5)
+    zr = z.detach().requires_grad_(True)
+    before = kcuda.LAUNCHES["linf_flow_nd_inverse"]
+    xr = linf_flow.flow_inverse_diff(wit, bt, zr, it)
+    assert kcuda.LAUNCHES["linf_flow_nd_inverse"] == before + 1
+    torch.testing.assert_close(
+        xr, linf_flow.flow_inverse_plain(wit, bt, z, it), rtol=0, atol=2e-4)
+    up = _t(_gen(5).standard_normal((36864, 27)), dev)
+    (gz,) = torch.autograd.grad(xr, zr, up)
+    zt = z.detach().requires_grad_(True)
+    (gt,) = torch.autograd.grad(linf_flow.flow_inverse_plain(wit, bt, zt, it),
+                                zt, up)
+    torch.testing.assert_close(gz, gt, rtol=0, atol=1e-5 * float(
+        gt.abs().max()))
+
+
+def test_small_patch_train_step_kernel_path_matches_twin_path(dev):
+    """One patch train step (ps = 3) at the tiny size (hidden 128 for K2)
+    on the kernel path and on the twin path from the same state: K3 on
+    the encoder's 6 convs, K2 once, K4 twice forward (with the latent
+    loss) and once inverse, no K1; the losses and gradients agree."""
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.entry import (example_patch_train_batch,
+                                      he_normal_vgg, patch_specs)
+    from bfsr_tpu_torch.models.base import seeded
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    linf_spec, unet_spec = patch_specs(tiny=True)
+    linf_spec["args"]["hidden_dim"] = 128
+    model = registry.make(linf_spec)
+    model.reset_parameters(seeded(3))
+    with torch.no_grad():
+        for lin in [*model.imnet.linears, model.imnet.last]:
+            lin._weight.mul_(0.05).add_(torch.eye(27))
+    model = model.to(dev).freeze()
+    prior = registry.make(unet_spec).to(dev).train()
+    vgg = he_normal_vgg(dev, tiny=True)
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    batch = example_patch_train_batch(dev, 0, batch=3, inp_size=8)
+    kcuda.reset_launch_counts()
+    mets, grads, _ = make_train_step(model, prior, vgg, opt,
+                                     latent_weight=1.0).loss_and_grads(batch)
+    assert {k: v for k, v in kcuda.LAUNCHES.items() if v} == {
+        "conv3x3_cat": 6, "linf_info": 1, "linf_flow_nd_forward": 2,
+        "linf_flow_nd_inverse": 1}, kcuda.LAUNCHES
     ref_mets, ref_grads, _ = make_train_step(
         model, prior, vgg, opt, latent_weight=1.0,
         kernels=False).loss_and_grads(batch)

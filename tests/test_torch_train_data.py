@@ -184,13 +184,25 @@ def test_cli_trains_an_epoch_and_resumes(tmp_path, monkeypatch):
     assert "epoch 2/2" in log
 
 
-@pytest.mark.parametrize("argv,msg", [
-    (["--patch", "3"], "patch trainer"),
-    (["--precision", "mixed"], "bf16 K3 at batch B"),
+@pytest.mark.parametrize("argv,loader,msg", [
+    (["--patch", "2"], None, "odd integer > 1"),
+    ([], "grain", "grain loader is not ported"),
 ])
-def test_cli_refuses_the_later_slices(tmp_path, capsys, argv, msg):
+def test_cli_refuses_the_later_slices(tmp_path, capsys, monkeypatch, argv,
+                                      loader, msg):
+    """An even patch size is refused, as ``train.py`` refuses it; the grain
+    loader waits for the multi-GPU slice."""
     from bfsr_tpu_torch.cli import train as cli
 
-    with pytest.raises(SystemExit):
-        cli.cli(["--config", str(tmp_path / "none.yaml"), *argv])
-    assert msg in capsys.readouterr().err
+    cfg = tmp_path / "none.yaml"
+    if loader:
+        pytest.importorskip("PIL")
+        yaml = pytest.importorskip("yaml")
+        _write_pngs(str(tmp_path / "imgs"))
+        conf = _config(str(tmp_path / "imgs"), 1)
+        conf["train_dataset"]["loader"] = loader
+        cfg.write_text(yaml.safe_dump(conf))
+        monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as e:
+        cli.cli(["--config", str(cfg), "--device", "cpu", *argv])
+    assert msg in capsys.readouterr().err + str(e.value.code)
