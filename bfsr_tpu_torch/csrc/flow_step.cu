@@ -1,6 +1,9 @@
 // K5: one fused conditional SRFlow FlowStep (eval, no log-det), forward and
-// reverse, float32.  Batch 1, NHWC state (H, W, C) with C in {12, 24, 96}
-// (the three flow levels) and coupling hidden width 64.
+// reverse, float32.  NHWC state (B, H, W, C) with C in {12, 24, 96} (the
+// three flow levels) and coupling hidden width 64, any batch: the image is
+// blockIdx.z, the state, its records and the output are offset by whole
+// images and the packed weights are shared, so a batch-1 launch is the
+// launch it was before the batch.
 //
 // Replaces bfsr_tpu/ops/pallas/flow_step.py:_fwd_kernel / _rev_kernel
 // (step_apply).  What it computes is kept: the folded actnorm+invconv 1x1,
@@ -243,6 +246,11 @@ flow_step_kernel(const float* __restrict__ x, const float* __restrict__ cond,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  // pixels before this block's image, in the state, records and output
+  const size_t img_px = static_cast<size_t>(blockIdx.z) * H * W;
+  x += img_px * C;
+  cond += img_px * R;
+  out += img_px * C;
 
   // the weights of stages A and B, in flight while stage A starts
   if constexpr (!REV) {
@@ -592,7 +600,7 @@ flow_step_kernel(const float* __restrict__ x, const float* __restrict__ cond,
 
 template <int C, bool REV>
 int launch(const float* x, const float* cond, const float* wp, float* out,
-           int H, int W, cudaStream_t stream) {
+           int B, int H, int W, cudaStream_t stream) {
   using G = Geo<C>;
   constexpr int smem = G::SMEM_FLOATS * static_cast<int>(sizeof(float));
   static bool configured = false;
@@ -603,7 +611,7 @@ int launch(const float* x, const float* cond, const float* wp, float* out,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((W + G::TX - 1) / G::TX, (H + G::TY - 1) / G::TY);
+  const dim3 grid((W + G::TX - 1) / G::TX, (H + G::TY - 1) / G::TY, B);
   flow_step_kernel<C, REV><<<grid, kThreads, smem, stream>>>(x, cond, wp, out,
                                                              H, W);
   return static_cast<int>(cudaGetLastError());
@@ -611,35 +619,36 @@ int launch(const float* x, const float* cond, const float* wp, float* out,
 
 template <bool REV>
 int dispatch(const void* x, const void* cond, const void* packed, void* out,
-             int H, int W, int C, int hid, void* stream) {
-  if (hid != kHid) return static_cast<int>(cudaErrorInvalidValue);
-  if (H <= 0 || W <= 0) return 0;
+             int B, int H, int W, int C, int hid, void* stream) {
+  if (hid != kHid || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
   const float* xp = static_cast<const float*>(x);
   const float* cp = static_cast<const float*>(cond);
   const float* wp = static_cast<const float*>(packed);
   float* op = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 12: return launch<12, REV>(xp, cp, wp, op, H, W, st);
-    case 24: return launch<24, REV>(xp, cp, wp, op, H, W, st);
-    case 96: return launch<96, REV>(xp, cp, wp, op, H, W, st);
+    case 12: return launch<12, REV>(xp, cp, wp, op, B, H, W, st);
+    case 24: return launch<24, REV>(xp, cp, wp, op, B, H, W, st);
+    case 96: return launch<96, REV>(xp, cp, wp, op, B, H, W, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// x, out: (H, W, C) NHWC; cond: (H, W, 2C + hid) records [scale_ft |
-// shift_ft | aff1_ft]; packed: the step's weights (flow_step.py:pack_step).
-// C must be 12, 24 or 96 and hid 64; every pointer 16-byte aligned.
+// x, out: (B, H, W, C) NHWC; cond: (B, H, W, 2C + hid) records [scale_ft |
+// shift_ft | aff1_ft]; packed: the step's weights (flow_step.py:pack_step),
+// shared by the batch.  C must be 12, 24 or 96, hid 64 and B <= 65535;
+// every pointer 16-byte aligned.
 extern "C" int flow_step_forward(const void* x, const void* cond,
-                                 const void* packed, void* out, int H, int W,
-                                 int C, int hid, void* stream) {
-  return dispatch<false>(x, cond, packed, out, H, W, C, hid, stream);
+                                 const void* packed, void* out, int B, int H,
+                                 int W, int C, int hid, void* stream) {
+  return dispatch<false>(x, cond, packed, out, B, H, W, C, hid, stream);
 }
 
 extern "C" int flow_step_reverse(const void* x, const void* cond,
-                                 const void* packed, void* out, int H, int W,
-                                 int C, int hid, void* stream) {
-  return dispatch<true>(x, cond, packed, out, H, W, C, hid, stream);
+                                 const void* packed, void* out, int B, int H,
+                                 int W, int C, int hid, void* stream) {
+  return dispatch<true>(x, cond, packed, out, B, H, W, C, hid, stream);
 }

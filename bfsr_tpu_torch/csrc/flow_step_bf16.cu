@@ -1,8 +1,11 @@
 // K5 at passes=1 (BFSR_PRECISION=default): one fused conditional SRFlow
 // FlowStep (eval, no log-det), forward and reverse, with bf16-rounded
 // operands (round to nearest even) in some of its five products and every
-// sum in f32.  Batch 1, NHWC state (H, W, C) with C in {12, 24, 96},
-// coupling hidden width 64, any H and W.  Two forms, a template flag:
+// sum in f32.  NHWC state (B, H, W, C) with C in {12, 24, 96}, coupling
+// hidden width 64, any H and W, any batch: the image is blockIdx.z, the
+// state, its records and the output are offset by whole images and the
+// weights are shared, so a batch-1 launch is the launch it was before the
+// batch.  Two forms, a template flag:
 //
 // XLA form (PALLAS = false; entries flow_step_bf16_forward / _reverse), the
 // form SRFlowLPPredictor serves under default.  It follows the JAX
@@ -385,6 +388,11 @@ flow_step_bf16_kernel(const float* __restrict__ x,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  // pixels before this block's image, in the state, records and output
+  const size_t img_px = static_cast<size_t>(blockIdx.z) * H * W;
+  x += img_px * C;
+  cond += img_px * R;
+  out += img_px * C;
 
   // ---- the weights, in flight while stage A runs ----
   copy_f32(s_f, wf + (REV ? G::WI : G::WF), C * C);
@@ -825,7 +833,7 @@ flow_step_bf16_kernel(const float* __restrict__ x,
 
 template <int C, bool REV, bool PALLAS>
 int launch(const float* x, const float* cond, const __nv_bfloat16* wb,
-           float* out, int H, int W, cudaStream_t stream) {
+           float* out, int B, int H, int W, cudaStream_t stream) {
   using G = Geo<C, PALLAS>;
   static bool configured = false;
   if (!configured) {
@@ -835,7 +843,7 @@ int launch(const float* x, const float* cond, const __nv_bfloat16* wb,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((W + G::TX - 1) / G::TX, (H + G::TY - 1) / G::TY);
+  const dim3 grid((W + G::TX - 1) / G::TX, (H + G::TY - 1) / G::TY, B);
   flow_step_bf16_kernel<C, REV, PALLAS><<<grid, kThreads, G::SMEM, stream>>>(
       x, cond, wb, out, H, W);
   return static_cast<int>(cudaGetLastError());
@@ -843,50 +851,57 @@ int launch(const float* x, const float* cond, const __nv_bfloat16* wb,
 
 template <bool REV, bool PALLAS>
 int dispatch(const void* x, const void* cond, const void* packed, void* out,
-             int H, int W, int C, int hid, void* stream) {
-  if (hid != kHid) return static_cast<int>(cudaErrorInvalidValue);
-  if (H <= 0 || W <= 0) return 0;
+             int B, int H, int W, int C, int hid, void* stream) {
+  if (hid != kHid || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
   const float* xp = static_cast<const float*>(x);
   const float* cp = static_cast<const float*>(cond);
   const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(packed);
   float* op = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 12: return launch<12, REV, PALLAS>(xp, cp, wp, op, H, W, st);
-    case 24: return launch<24, REV, PALLAS>(xp, cp, wp, op, H, W, st);
-    case 96: return launch<96, REV, PALLAS>(xp, cp, wp, op, H, W, st);
+    case 12: return launch<12, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
+    case 24: return launch<24, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
+    case 96: return launch<96, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// x, out: (H, W, C) NHWC f32; cond: (H, W, 2C + hid) records [scale_ft |
-// shift_ft | aff1_ft]; packed: the step's one-pass buffer in the entry's
-// form (flow_step.py:pack_step_bf16), 32-byte aligned.  C must be 12, 24 or
-// 96 and hid 64; x and cond 16-byte aligned.
+// x, out: (B, H, W, C) NHWC f32; cond: (B, H, W, 2C + hid) records
+// [scale_ft | shift_ft | aff1_ft]; packed: the step's one-pass buffer in the
+// entry's form (flow_step.py:pack_step_bf16), shared by the batch, 32-byte
+// aligned.  C must be 12, 24 or 96, hid 64 and B <= 65535; x and cond
+// 16-byte aligned.
 extern "C" int flow_step_bf16_forward(const void* x, const void* cond,
-                                      const void* packed, void* out, int H,
-                                      int W, int C, int hid, void* stream) {
-  return dispatch<false, false>(x, cond, packed, out, H, W, C, hid, stream);
+                                      const void* packed, void* out, int B,
+                                      int H, int W, int C, int hid,
+                                      void* stream) {
+  return dispatch<false, false>(x, cond, packed, out, B, H, W, C, hid,
+                                stream);
 }
 
 extern "C" int flow_step_bf16_reverse(const void* x, const void* cond,
-                                      const void* packed, void* out, int H,
-                                      int W, int C, int hid, void* stream) {
-  return dispatch<true, false>(x, cond, packed, out, H, W, C, hid, stream);
+                                      const void* packed, void* out, int B,
+                                      int H, int W, int C, int hid,
+                                      void* stream) {
+  return dispatch<true, false>(x, cond, packed, out, B, H, W, C, hid,
+                               stream);
 }
 
 extern "C" int flow_step_bf16_pallas_forward(const void* x, const void* cond,
                                              const void* packed, void* out,
-                                             int H, int W, int C, int hid,
-                                             void* stream) {
-  return dispatch<false, true>(x, cond, packed, out, H, W, C, hid, stream);
+                                             int B, int H, int W, int C,
+                                             int hid, void* stream) {
+  return dispatch<false, true>(x, cond, packed, out, B, H, W, C, hid,
+                               stream);
 }
 
 extern "C" int flow_step_bf16_pallas_reverse(const void* x, const void* cond,
                                              const void* packed, void* out,
-                                             int H, int W, int C, int hid,
-                                             void* stream) {
-  return dispatch<true, true>(x, cond, packed, out, H, W, C, hid, stream);
+                                             int B, int H, int W, int C,
+                                             int hid, void* stream) {
+  return dispatch<true, true>(x, cond, packed, out, B, H, W, C, hid,
+                              stream);
 }

@@ -43,7 +43,11 @@ fea_up0; prior UNet depth 3, dim 64, bilinear), with the flow made live
 (``SRFlowNet.reset_parameters``); ``tiny=True`` gives
 ``tests/test_srflow.py``'s size (nf 8, nb 2, gc 4, K 2, hidden 8) with a
 depth-2, dim-8 prior, which K3 (Cout 4) and K5 (hidden 8) do not take: it
-runs on the CPU only.
+runs on the CPU only.  ``build_srflow_prior_trainer`` is its prior trainer
+(``srflow_train.py --prior`` on the same conf): the frozen flow, made
+live as above, and its prior in train mode; ``example_srflow_train_batch``
+a synthetic batch in the ``lrhr-pkl`` layout (``synthetic_lrhr_sample``:
+smooth random 160^2 HR crops and their LQ by a 4x4 area mean, no PIL).
 """
 
 import numpy as np
@@ -296,3 +300,34 @@ def build_srflow_lp(device="cuda", seed=0, tiny=False):
     return (model.to(device).eval().freeze(),
             prior.to(device).eval().freeze())
 
+
+
+@torch.no_grad()
+def build_srflow_prior_trainer(device="cuda", seed=0, tiny=False):
+    """(frozen SRFlowNet, its SRFlowUNet prior in train mode) on
+    ``device``, from ``seed``: the SRFlow-LP prior trainer."""
+    model, prior = build_srflow_lp(device, seed, tiny)
+    return model, prior.train()
+
+
+def synthetic_lrhr_sample(rng, gt_size=160, scale=4):
+    """One ``lrhr-pkl`` sample from the numpy generator ``rng``: a smooth
+    random HR crop of ``gt_size``^2 in [0, 1] (a coarse random field,
+    bilinear up, plus noise) and its LQ, the mean of each ``scale`` x
+    ``scale`` block (float32 HWC)."""
+    n = gt_size // scale
+    coarse = rng.random((max(2, gt_size // 8), max(2, gt_size // 8), 3))
+    hr = np.clip(resize_bilinear_np(coarse, (gt_size, gt_size))
+                 + 0.05 * rng.standard_normal((gt_size, gt_size, 3)), 0, 1)
+    hr = hr.astype(np.float32)
+    lq = hr.reshape(n, scale, n, scale, 3).mean((1, 3)).astype(np.float32)
+    return {"GT": hr, "LQ": lq}
+
+
+def example_srflow_train_batch(device, seed=0, batch=12, gt_size=160):
+    """A batch of ``synthetic_lrhr_sample`` s from
+    ``np.random.default_rng(seed)``, as float32 tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    samples = [synthetic_lrhr_sample(rng, gt_size) for _ in range(batch)]
+    return {k: torch.as_tensor(np.stack([s[k] for s in samples]),
+                               device=device) for k in samples[0]}

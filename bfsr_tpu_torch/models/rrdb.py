@@ -14,7 +14,10 @@ are not ported: they compute the same sums.
 ``conv3x3_cat`` (the K3 kernel for a CUDA tensor) over the block's
 implicit concat, as ``rrdb._dense_block_s2d`` runs them on the TPU
 kernel, with the LeakyReLU of conv1-4 in the kernel's epilogue;
-``kernels=False`` runs the reference order with explicit concats.  The
+``kernels=TWINS`` (``ops/cuda``) the same on K3's plain twin, on any
+device; ``conv(blocks, module, act)``, if given, in place of either (a
+harness that holds each launch against its twin); ``kernels=False`` runs
+the reference order with explicit concats.  The
 other convs (conv_first, trunk_conv, upconv1) stay ``F.conv2d``.  ``freeze()`` keeps the dense-block weights in K3's layout.
 
 ``state_dict`` keys are the reference's: ``conv_first``,
@@ -26,8 +29,9 @@ import torch
 from torch import nn
 
 from bfsr_tpu_torch.models.base import Model, seeded
-from bfsr_tpu_torch.models.unet import DenseBlock5C
+from bfsr_tpu_torch.models.unet import DenseBlock5C, k3, k3_twin
 from bfsr_tpu_torch.ops import nn as fnn
+from bfsr_tpu_torch.ops.cuda import TWINS
 from bfsr_tpu_torch.ops.interp import resize_bilinear, resize_nearest
 
 
@@ -38,10 +42,11 @@ class RRDB(nn.Module):
         self.RDB2 = DenseBlock5C(nf, gc, nf)
         self.RDB3 = DenseBlock5C(nf, gc, nf)
 
-    def forward(self, x, kernels=True):
+    def forward(self, x, kernels=True, conv=None):
         out = x
+        conv = conv or (k3_twin if kernels == TWINS else k3)
         for rdb in (self.RDB1, self.RDB2, self.RDB3):
-            y = rdb.forward_cat([out]) if kernels else rdb(out)
+            y = rdb.forward_cat([out], conv) if kernels else rdb(out)
             out = y * 0.2 + out
         return out * 0.2 + x
 
@@ -86,9 +91,9 @@ class RRDBNet(Model):
                 rdb.freeze()
         return self
 
-    def forward(self, x, block_idxs=(), kernels=True):
+    def forward(self, x, block_idxs=(), kernels=True, conv=None):
         """``rrdb_apply_steps`` for the maps SRFlow's conditioning reads:
-        x (1, h, w, 3) -> dict of ``block_{i}`` taps, ``fea_up1`` (the trunk
+        x (B, h, w, 3) -> dict of ``block_{i}`` taps, ``fea_up1`` (the trunk
         output), ``fea_up2`` (upconv1 of its nearest-up x2) and ``fea_up0``
         (its bilinear down-resize to h/2).  The x4 head (``fea_up4``,
         HRconv, conv_last) is not computed: the flow does not read it."""
@@ -96,7 +101,7 @@ class RRDBNet(Model):
         res = {}
         t = fea
         for idx, blk in enumerate(self.RRDB_trunk):
-            t = blk(t, kernels)
+            t = blk(t, kernels, conv)
             if idx in block_idxs:
                 res[f"block_{idx}"] = t
         last = fea + _conv(t, self.trunk_conv)

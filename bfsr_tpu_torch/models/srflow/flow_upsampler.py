@@ -26,7 +26,18 @@ predictor's numerics, or ``"pallas"``, the JAX FlowStep kernel's; see
 precision: the kernel for a CUDA tensor, its twin for a CPU one) with
 ``kernels=True``, and through the unfused ``an_invconv_fused`` (f32 in
 every mode, as the JAX package's XLA step) + ``cond_affine`` (its convs
-through ``fnn.conv2d``) with ``kernels=False``.
+through ``fnn.conv2d``) with ``kernels=False``; ``kernels=TWINS``
+(``ops/cuda``) runs K5's plain twins, on any device.  All take a batch.
+``decode(..., differentiable=True)`` is the decode that autograd
+differentiates with respect to its epses (the prior trainer's image
+loss): on the kernel path every conditional step through
+``FlowStepReverse`` (K5's reverse, its twin's gradient); the unfused path
+is differentiable as it is.
+
+``actnorms_unprimed`` / ``prime_actnorms`` are the data-dependent actnorm
+init of a random flow from its first training batch, as
+``bfsr_tpu/models/srflow/flow_upsampler.py`` does it (the reference's
+``FlowActNorms.py:45-59``).
 """
 
 import math
@@ -35,9 +46,13 @@ import torch
 from torch import nn
 
 from bfsr_tpu_torch.ops import flows
+from bfsr_tpu_torch.ops.cuda import TWINS
 from bfsr_tpu_torch.ops.cuda.flow_step import (flow_step_forward,
-                                               flow_step_reverse, pack_step,
-                                               pack_step_bf16)
+                                               flow_step_forward_twin,
+                                               flow_step_reverse,
+                                               flow_step_reverse_diff,
+                                               flow_step_reverse_twin,
+                                               pack_step, pack_step_bf16)
 
 LEVEL_NAMES = {4: {0: "fea_up4", 1: "fea_up2", 2: "fea_up1", 3: "fea_up0",
                    4: "fea_up-1"}}
@@ -93,17 +108,24 @@ class FlowStep(nn.Module):
 
     def forward_step(self, x, rec=None, kernels=True):
         if self.affine is not None and kernels:
-            return flow_step_forward(x, rec, self.kpacked, self.hidden,
-                                     self.kpacked_bf16, self.step_form)
+            fwd = flow_step_forward_twin if kernels == TWINS else \
+                flow_step_forward
+            return fwd(x, rec, self.kpacked, self.hidden, self.kpacked_bf16,
+                       self.step_form)
         x = flows.an_invconv_fused(x, self.fold)
         if self.affine is not None:
             x = flows.cond_affine(x, rec, self.affine)
         return x
 
-    def reverse_step(self, x, rec=None, kernels=True):
+    def reverse_step(self, x, rec=None, kernels=True, differentiable=False):
         if self.affine is not None and kernels:
-            return flow_step_reverse(x, rec, self.kpacked, self.hidden,
-                                     self.kpacked_bf16, self.step_form)
+            if kernels == TWINS:
+                rev = flow_step_reverse_twin
+            else:
+                rev = (flow_step_reverse_diff if differentiable
+                       else flow_step_reverse)
+            return rev(x, rec, self.kpacked, self.hidden, self.kpacked_bf16,
+                       self.step_form)
         if self.affine is not None:
             x = flows.cond_affine(x, rec, self.affine, reverse=True)
         return flows.an_invconv_fused(x, self.fold, reverse=True)
@@ -137,11 +159,42 @@ class FlowUpsamplerNet(nn.Module):
     def frozen(self):
         return all(m.fold is not None for m in self.steps())
 
+    def actnorms_unprimed(self):
+        """True if every step's actnorm still holds its all-zero init (no
+        priming, no training, no loaded checkpoint)."""
+        return all(not (m.actnorm.bias.any() or m.actnorm.logs.any())
+                   for m in self.steps())
+
+    @torch.no_grad()
+    def prime_actnorms(self, gt, conds):
+        """Set each step's actnorm to whiten the activation that reaches
+        it, in one unfused encode of ``gt`` (B, H, W, 3) whose steps apply
+        each actnorm as soon as it is set.  conds: as for
+        ``precompute_ft``.  The folds and K5 buffers are stale after
+        it: call ``freeze()``."""
+        cache = self.precompute_ft(conds)
+        x = gt
+        for e, m, rec in zip(self.plan, self.layers, cache):
+            kind = e["kind"]
+            if kind == "squeeze":
+                x = flows.squeeze2d(x)
+            elif kind == "split":
+                x, _ = flows.split2d(x, m)
+            else:
+                mean = x.mean((0, 1, 2))
+                std = ((x - mean) ** 2).mean((0, 1, 2)).sqrt()
+                m.actnorm.bias.copy_(-mean.reshape(m.actnorm.bias.shape))
+                m.actnorm.logs.copy_(-torch.log(std + 1e-6)
+                                     .reshape(m.actnorm.logs.shape))
+                x = flows.actnorm(x, m.actnorm) @ m.invconv.weight.T
+                if m.affine is not None:
+                    x = flows.cond_affine(x, rec, m.affine)
+
     @torch.no_grad()
     def precompute_ft(self, conds):
         """Per-step conditioning records (``flows.cond_affine_cache_batched``),
         one batched pass per level; a list aligned with the plan (None for
-        entries without one).  conds: {level: (1, h, w, C_cond)}."""
+        entries without one).  conds: {level: (B, h, w, C_cond)}."""
         by_level = {}
         for i, e in enumerate(self.plan):
             if e["kind"] == "step_cond":
@@ -155,7 +208,7 @@ class FlowUpsamplerNet(nn.Module):
         return out
 
     def encode(self, gt, cache, kernels=True):
-        """gt (1, H, W, 3) -> [eps of each split..., z_final]."""
+        """gt (B, H, W, 3) -> [eps of each split..., z_final]."""
         x, epses = gt, []
         for e, m, rec in zip(self.plan, self.layers, cache):
             kind = e["kind"]
@@ -168,7 +221,7 @@ class FlowUpsamplerNet(nn.Module):
                 x = m.forward_step(x, rec, kernels)
         return epses + [x]
 
-    def decode(self, epses, cache, kernels=True):
+    def decode(self, epses, cache, kernels=True, differentiable=False):
         """The inverse: epses back to front, z_final first."""
         epses = list(epses)
         x = epses.pop()
@@ -180,5 +233,5 @@ class FlowUpsamplerNet(nn.Module):
             elif kind == "split":
                 x = flows.split2d(x, m, reverse=True, eps=epses.pop())
             else:
-                x = m.reverse_step(x, rec, kernels)
+                x = m.reverse_step(x, rec, kernels, differentiable)
         return x

@@ -6,9 +6,12 @@ as ``'srflow'``:
 * ``rrdb_preprocess`` runs the RRDB trunk with taps and appends the
   nearest-resized stack of blocks ``stack_blocks`` to every conditioning
   map (64 + 4 * 64 = 320 channels at the flagship);
-* ``precompute_ft`` builds every conditional step's record once per image;
-* ``normal_flow`` encodes an HR image to its epses (no quantisation
-  noise, no log-det) and ``reverse_flow`` decodes epses to the SR image;
+* ``precompute_ft`` builds every conditional step's record once per batch;
+* ``normal_flow`` encodes a batch of HR images to their epses (no
+  quantisation noise, no log-det) and ``reverse_flow`` decodes epses to
+  the SR images (``differentiable=True``: autograd differentiates it with
+  respect to the epses);
+* ``prime_actnorms`` primes a random flow's actnorms from a batch;
 * ``sample_z`` gives the final latent's shape; ``standardize_epses`` the
   per-pixel channel standardisation of the learned-prior path.
 
@@ -31,10 +34,11 @@ from bfsr_tpu_torch.ops.interp import resize_nearest
 from bfsr_tpu_torch.registry import register
 
 
-def rrdb_preprocess(rrdb, lr, block_idxs, keys, kernels=True):
+def rrdb_preprocess(rrdb, lr, block_idxs, keys, kernels=True, conv=None):
     """RRDB taps + pyramid, with the nearest-resized stack of the blocks
-    ``block_idxs`` appended to each map in ``keys``."""
-    res = rrdb(lr, block_idxs=block_idxs, kernels=kernels)
+    ``block_idxs`` appended to each map in ``keys`` (``conv``: as
+    ``RRDBNet.forward``)."""
+    res = rrdb(lr, block_idxs=block_idxs, kernels=kernels, conv=conv)
     stack = torch.cat([res[f"block_{i}"] for i in block_idxs], -1)
     for k in keys:
         h, w = res[k].shape[1], res[k].shape[2]
@@ -43,7 +47,8 @@ def rrdb_preprocess(rrdb, lr, block_idxs, keys, kernels=True):
 
 
 def standardize_epses(epses, eps=1e-8):
-    """Per-pixel channel standardisation (torch.std, ddof=1)."""
+    """Per-pixel channel standardisation (torch.std, ddof=1), each pixel
+    of each image on its own."""
     out = []
     for e in epses:
         mean = e.mean(-1, keepdim=True)
@@ -166,10 +171,10 @@ class SRFlowNet(Model):
         names = LEVEL_NAMES[self.scale]
         return [names[lvl] for lvl in range(1, self.L + 1)]
 
-    def rrdb_preprocess(self, lr, kernels=True):
+    def rrdb_preprocess(self, lr, kernels=True, conv=None):
         """The conditioning maps the flow reads (and the block taps)."""
         return rrdb_preprocess(self.RRDB, lr, self.stack_blocks,
-                               self.cond_keys(), kernels)
+                               self.cond_keys(), kernels, conv)
 
     def _conds(self, lr_enc):
         names = LEVEL_NAMES[self.scale]
@@ -178,13 +183,26 @@ class SRFlowNet(Model):
     def precompute_ft(self, lr_enc):
         return self.flowUpsamplerNet.precompute_ft(self._conds(lr_enc))
 
+    @torch.no_grad()
+    def prime_actnorms(self, gt, lr):
+        """Data-dependent actnorm init from one (gt (B, H, W, 3), lr (B,
+        H/4, W/4, 3)) batch, as ``bfsr_tpu/models/srflow/srflow_net.py:
+        prime_actnorms`` (the reference's ``FlowActNorms.py:45-59``), then
+        ``freeze()`` again, the same ``step_form``.  Only meaningful on a
+        random flow (``flowUpsamplerNet.actnorms_unprimed()``)."""
+        conds = self._conds(self.rrdb_preprocess(lr))
+        self.flowUpsamplerNet.prime_actnorms(gt, conds)
+        steps = self.flowUpsamplerNet.steps()
+        return self.freeze(steps[0].step_form if steps else "xla")
+
     def normal_flow(self, gt, cache, kernels=True):
-        """Encode gt (1, H, W, 3) -> [eps0, z_final], no noise, no log-det."""
+        """Encode gt (B, H, W, 3) -> [eps0, z_final], no noise, no log-det."""
         return self.flowUpsamplerNet.encode(gt, cache, kernels)
 
-    def reverse_flow(self, epses, cache, kernels=True):
-        """Decode [eps0, z_final] -> the SR image (1, H, W, 3)."""
-        return self.flowUpsamplerNet.decode(epses, cache, kernels)
+    def reverse_flow(self, epses, cache, kernels=True, differentiable=False):
+        """Decode [eps0, z_final] -> the SR images (B, H, W, 3)."""
+        return self.flowUpsamplerNet.decode(epses, cache, kernels,
+                                            differentiable)
 
     def sample_z(self, heat, lr_hw, generator=None, device=None):
         """The final latent (1, s*h/2^L, s*w/2^L, final_c): zeros at heat

@@ -13,6 +13,13 @@ and the last ``up``) run on ``conv3x3_cat`` (K3 for a CUDA tensor) with
 BatchNorm folded at ``freeze()``; the mid-resolution stages stay
 ``F.conv2d``.
 
+``forward(epses, training=True)`` is the trainer's form,
+``srflow_unet_apply(..., training=True)``: plain convs (cuDNN on the card,
+as XLA convs in JAX), every BatchNorm normalising with its batch's
+statistics, which it returns beside the output, keyed by the BatchNorm's
+``state_dict`` name; ``apply_bn_updates`` folds them into the running
+stats (``models/unet.py``).
+
 ``state_dict`` keys are the reference's: ``input_proj{b}``, ``inc{b}``,
 ``down_layers{b}.{i}.maxpool_conv.1``, ``up_layers{b}.{i}.conv``,
 ``outc{b}.conv``.
@@ -23,7 +30,7 @@ from torch import nn
 
 from bfsr_tpu_torch.models.base import Model, seeded
 from bfsr_tpu_torch.models.unet import (DenseBlock5C, DoubleConv, Down,
-                                        OutConv, Up, _upsample_to)
+                                        OutConv, UNet, Up, _upsample_to)
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.registry import register
 
@@ -89,15 +96,15 @@ class SRFlowUNet(Model):
             ups[-1].conv.freeze()
         return self
 
-    def _branch(self, b, z, kernels):
+    def _branch(self, b, z, kernels, bn_stats=None):
         proj, inc, downs, ups, outc = self.branch(b)
         if kernels:
             x = inc.forward_cat([proj.forward_cat([z])])
         else:
-            x = inc(proj(z))
+            x = inc(proj(z), bn_stats)
         feats = [x]
         for down in downs:
-            x = down(x)
+            x = down(x, bn_stats)
             feats.append(x)
         last = len(ups) - 1
         for i, up in enumerate(ups):
@@ -105,10 +112,20 @@ class SRFlowUNet(Model):
             if kernels and i == last:
                 x = up.conv.forward_cat([skip, _upsample_to(x, skip.shape[1:3])])
             else:
-                x = up(x, skip)
+                x = up(x, skip, bn_stats)
         return fnn.conv2d(x, outc.conv.weight, outc.conv.bias)
 
-    def forward(self, epses, kernels=True):
-        """[eps0 (1, h0, w0, ch0), z (1, h1, w1, ch1)] -> the learned pair."""
+    def forward(self, epses, kernels=True, training=False):
+        """[eps0 (B, h0, w0, ch0), z (B, h1, w1, ch1)] -> the learned pair;
+        with ``training=True`` (plain convs, batch statistics) ``(pair,
+        bn_stats)``, bn_stats mapping each BatchNorm's ``state_dict`` name
+        to its batch's (mean, unbiased var)."""
+        if training:
+            stats = {}
+            out = [self._branch(b, epses[b], False, stats) for b in (0, 1)]
+            names = {m: n for n, m in self.named_modules()}
+            return out, {names[m]: v for m, v in stats.items()}
         return [self._branch(0, epses[0], kernels),
                 self._branch(1, epses[1], kernels)]
+
+    apply_bn_updates = UNet.apply_bn_updates

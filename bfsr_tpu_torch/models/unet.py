@@ -39,9 +39,23 @@ from torch import nn
 from bfsr_tpu_torch.models.base import Model, seeded
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.cuda.conv3x3 import (cache_kernel_weight, conv3x3_cat,
-                                             k3_conv)
+                                             conv3x3_cat_twin, k3_conv)
 from bfsr_tpu_torch.ops.interp import resize_bilinear
 from bfsr_tpu_torch.registry import register
+
+
+def k3(blocks, conv, act):
+    """``conv3x3_cat`` (K3) of the conv module ``conv`` over the implicit
+    concat ``blocks``: its bias, the activation ``act`` in the epilogue,
+    its frozen weight layouts."""
+    return conv3x3_cat(blocks, conv.weight, bias=conv.bias, act=act,
+                       kweight=conv.kweight, kweight_bf16=conv.kweight_bf16)
+
+
+def k3_twin(blocks, conv, act):
+    """``k3`` on K3's plain twin of the stage's precision, on any
+    device."""
+    return conv3x3_cat_twin(blocks, conv.weight, bias=conv.bias, act=act)
 
 
 class DenseBlock5C(nn.Module):
@@ -63,14 +77,12 @@ class DenseBlock5C(nn.Module):
             feats.append(fnn.leaky_relu(y) if i < 4 else y)
         return feats[-1]
 
-    def forward_cat(self, blocks):
-        """Over an implicit concat of ``blocks`` through ``conv3x3_cat``."""
+    def forward_cat(self, blocks, conv=k3):
+        """Over an implicit concat of ``blocks``, each conv through
+        ``conv(blocks, module, act)`` (``k3``: K3)."""
         blocks = list(blocks)
         for i, c in enumerate(self.convs()):
-            blocks.append(conv3x3_cat(blocks, c.weight, bias=c.bias,
-                                      act="lrelu" if i < 4 else None,
-                                      kweight=c.kweight,
-                                      kweight_bf16=c.kweight_bf16))
+            blocks.append(conv(blocks, c, "lrelu" if i < 4 else None))
         return blocks[-1]
 
     def freeze(self):

@@ -36,6 +36,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# as a ``kernels`` argument (the SRFlow-LP prior trainer's twin path):
+# every kernel's plain twin, on any device
+TWINS = "twins"
+
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"linf_flow_forward": 0, "linf_flow_inverse": 0,
             "linf_flow_nd_forward": 0, "linf_flow_nd_inverse": 0,
@@ -63,12 +67,12 @@ _SIGNATURES = {
     "conv3x3_cat_bf16": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                          ctypes.POINTER(_I), _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _P],
-    "flow_step_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "flow_step_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "flow_step_bf16_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "flow_step_bf16_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "flow_step_bf16_pallas_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "flow_step_bf16_pallas_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flow_step_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flow_step_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flow_step_bf16_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flow_step_bf16_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flow_step_bf16_pallas_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flow_step_bf16_pallas_reverse": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

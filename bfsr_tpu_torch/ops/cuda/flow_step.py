@@ -55,7 +55,12 @@ at each call (``ops/nn.py``): the one-pass form named by ``step_form`` in
 a bf16 stage, f32 elsewhere.  A CPU tensor runs the plain twin of that
 form; a CUDA tensor launches that kernel or raises.  The twins read the
 same buffers (``unpack_step``, ``unpack_step_bf16``), so the CPU tests hold
-the layouts against the JAX package.
+the layouts against the JAX package.  Every form takes a batch (B, H, W,
+C) of states with their own records and one shared buffer: the kernels
+launch the image as the grid's z, and a batch-1 launch is the launch it
+was before.  ``FlowStepReverse`` is the reverse that autograd
+differentiates with respect to the state (the SRFlow-LP prior trainer's
+image loss): the kernel forward, the matching twin's gradient.
 """
 
 import torch
@@ -68,6 +73,8 @@ from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 
 KERNEL_CHANNELS = (12, 24, 96)
 KERNEL_HIDDEN = 64
+# the image is the grid's z
+GRID_Z = 65535
 
 
 def _layout(c, hid):
@@ -285,43 +292,87 @@ def _conv3x3(x, w, b=None):
     return nchw_to_nhwc(F.conv2d(nhwc_to_nchw(x), w, b, padding=1))
 
 
+def _mm(a, w, b=None):
+    return a @ w
+
+
+def _mm_t(a, w, b=None):
+    return a @ w.T
+
+
 def _keep(t):
     return t
 
 
+def _diff_bf16(t):
+    """As ``rnd``: round to bf16, and differentiate each product as a bf16
+    stage's (``fnn._bf16_product``: the roundings pass the gradient
+    straight through, the gradient into the product is rounded)."""
+    return fnn.round_bf16(t)
+
+
+def _prod(op, a, w, b=None, rnd=_keep):
+    """``op(rnd(a), w, b)``: a product of the activation ``a`` and a
+    weight (bf16 values in a one-pass buffer), the bias ``b`` added."""
+    if rnd is _diff_bf16:
+        return fnn._bf16_product(op, a, w, b, (0, 1, 2))
+    return op(rnd(a), w, b)
+
+
+def _per_image(fn):
+    """``fn(x, cond, ...)`` one image at a time, as the kernels take them:
+    an image's bits then do not depend on the batch around it, which
+    batched library convs and vectorised elementwise ops (their tails) do
+    not promise."""
+    def run(x, cond, *args):
+        if x.shape[0] == 1:
+            return fn(x, cond, *args)
+        return torch.cat([fn(x[i:i + 1], cond[i:i + 1], *args)
+                          for i in range(x.shape[0])])
+    return run
+
+
 def _tower(z1, aff1, p, rnd=_keep):
-    """(scale, shift) of the coupling tower on z1 (1, H, W, cn); ``rnd``
+    """(scale, shift) of the coupling tower on z1 (B, H, W, cn); ``rnd``
     rounds the activation operand of each of its three products.  With a
     gain ``g3`` in ``p`` it multiplies conv3's output after the bias."""
     hid = p["an1_b"].shape[0]
     w1 = p["w1"].reshape(3, 3, -1, hid).permute(3, 2, 0, 1)
-    h = torch.relu((_conv3x3(rnd(z1), w1) + aff1 + p["an1_b"]) * p["an1_e"])
-    h = torch.relu((rnd(h) @ p["w2"] + p["an2_b"]) * p["an2_e"])
+    h = torch.relu((_prod(_conv3x3, z1, w1, rnd=rnd) + aff1 + p["an1_b"])
+                   * p["an1_e"])
+    h = torch.relu((_prod(_mm, h, p["w2"], rnd=rnd) + p["an2_b"])
+                   * p["an2_e"])
     w3 = p["w3"].reshape(3, 3, hid, -1).permute(3, 2, 0, 1)
-    o = _conv3x3(rnd(h), w3, p["b3"])
+    o = _prod(_conv3x3, h, w3, p["b3"], rnd)
     if "g3" in p:
         o = o * p["g3"]
     co = o.shape[-1] // 2
     return torch.sigmoid(o[..., :co] + 2.0) + AFFINE_EPS, o[..., co:]
 
 
-def _forward(x, cond, p, rnd=_keep, fold_rnd=_keep):
+def _forward_batch(x, cond, p, rnd=_keep, fold_rnd=_keep):
     c = x.shape[-1]
     cn = c // 2
-    za = ((fold_rnd(x) @ p["w_fold"].T + p["b_fold"] + cond[..., c:2 * c])
-          * cond[..., :c])
+    za = ((_prod(_mm_t, x, p["w_fold"], rnd=fold_rnd) + p["b_fold"]
+           + cond[..., c:2 * c]) * cond[..., :c])
     z1 = za[..., :cn]
     scale, shift = _tower(z1, cond[..., 2 * c:], p, rnd)
     return torch.cat([z1, (za[..., cn:] + shift) * scale], -1)
 
 
-def _reverse(x, cond, p, rnd=_keep, fold_rnd=_keep):
+def _reverse_batch(x, cond, p, rnd=_keep, fold_rnd=_keep):
     c = x.shape[-1]
     cn = c // 2
     scale, shift = _tower(x[..., :cn], cond[..., 2 * c:], p, rnd)
     t = torch.cat([x[..., :cn], x[..., cn:] / scale - shift], -1)
     t = t / cond[..., :c] - cond[..., c:2 * c]
-    return fold_rnd(t) @ p["w_inv_fold"].T - p["an_bias"]
+    return _prod(_mm_t, t, p["w_inv_fold"], rnd=fold_rnd) - p["an_bias"]
+
+
+# the plain twins compute image by image (``_per_image``); FlowStepReverse's
+# backward differentiates the batch at once
+_forward = _per_image(_forward_batch)
+_reverse = _per_image(_reverse_batch)
 
 
 def flow_step_forward_plain(x, cond, packed, hid):
@@ -366,13 +417,13 @@ def flow_step_reverse_bf16_pallas_plain(x, cond, packed_bf16, hid):
 
 
 def _check(x, cond, packed, hid, form):
-    if x.ndim != 4 or x.shape[0] != 1:
-        raise ValueError(f"flow step: x must be (1, H, W, C), got "
+    if x.ndim != 4:
+        raise ValueError(f"flow step: x must be (B, H, W, C), got "
                          f"{tuple(x.shape)}")
-    _, H, W, c = x.shape
-    if cond.shape != (1, H, W, 2 * c + hid):
+    B, H, W, c = x.shape
+    if cond.shape != (B, H, W, 2 * c + hid):
         raise ValueError(f"flow step: cond {tuple(cond.shape)} is not "
-                         f"(1, {H}, {W}, 2C + hidden = {2 * c + hid})")
+                         f"({B}, {H}, {W}, 2C + hidden = {2 * c + hid})")
     if form is not None:
         _check_bf16(packed)
     want = _packed_numel(c, hid, form)
@@ -389,10 +440,12 @@ def _run(name, x, cond, packed, hid, plain, form=None):
         return plain(x, cond, packed, hid)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _, H, W, c = x.shape
+    B, H, W, c = x.shape
     if c not in KERNEL_CHANNELS or hid != KERNEL_HIDDEN:
         raise ValueError(f"K5 takes C in {KERNEL_CHANNELS} and hidden "
                          f"{KERNEL_HIDDEN}; got C={c}, hidden={hid}")
+    if B > GRID_Z:
+        raise ValueError(f"K5 takes a batch of at most {GRID_Z}, got {B}")
     # the kernels read float4s (and the bf16 forms 32-byte tensor-core
     # tiles of their buffer): every base pointer aligned
     x, cond = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -410,7 +463,7 @@ def _run(name, x, cond, packed, hid, plain, form=None):
     out = torch.empty_like(x)
     cuda.check_cuda(name, x, cond, out)
     cuda.launch(name, cuda.ptr(x), cuda.ptr(cond), cuda.ptr(packed),
-                cuda.ptr(out), H, W, c, hid)
+                cuda.ptr(out), B, H, W, c, hid)
     return out
 
 
@@ -430,11 +483,11 @@ def flow_step_forward(x, cond, packed, hid, packed_bf16=None,
     a bf16 stage, the one-pass kernel of ``step_form`` (C in 12/24/96,
     hidden 64); on CPU the twin of that form.
 
-    x: (1, H, W, C) state; cond: (1, H, W, 2C + hid) record; packed /
+    x: (B, H, W, C) state; cond: (B, H, W, 2C + hid) records; packed /
     packed_bf16: the step's ``pack_step`` / ``pack_step_bf16`` buffers (a
     frozen step's ``kpacked`` / ``kpacked_bf16``; the bf16 one, in
-    ``step_form``, is needed in a bf16 stage only).  Returns the next
-    state (1, H, W, C)."""
+    ``step_form``, is needed in a bf16 stage only; the batch shares
+    them).  Returns the next state (B, H, W, C)."""
     if fnn.bf16_stage():
         _check_form(step_form)
         name, plain = BF16_FORMS[step_form, False]
@@ -452,3 +505,89 @@ def flow_step_reverse(x, cond, packed, hid, packed_bf16=None,
         return _run(name, x, cond, packed_bf16, hid, plain, step_form)
     return _run("flow_step_reverse", x, cond, packed, hid,
                 flow_step_reverse_plain)
+
+
+def _stage_form(step_form):
+    """The form of the stage's precision: ``step_form`` in a bf16 stage,
+    else None (f32)."""
+    if fnn.bf16_stage():
+        _check_form(step_form)
+        return step_form
+    return None
+
+
+def _reverse_diff(x, cond, packed, hid, form):
+    """The reverse's twin in ``form`` (None: f32) on its buffer, the whole
+    batch at once, which autograd differentiates with respect to x as a
+    bf16 stage's products (``_diff_bf16``): ``FlowStepReverse``'s
+    backward."""
+    c = x.shape[-1]
+    if form is None:
+        return _reverse_batch(x, cond, unpack_step(packed, c, hid))
+    p = unpack_step_bf16(packed, c, hid, x.dtype, form)
+    return _reverse_batch(x, cond, p, _diff_bf16,
+                          _diff_bf16 if form == "pallas" else _keep)
+
+
+def _reverse_plain(x, cond, packed, hid, form):
+    """The reverse's plain twin in ``form`` (None: f32), image by image."""
+    if form is None:
+        return flow_step_reverse_plain(x, cond, packed, hid)
+    return BF16_FORMS[form, True][1](x, cond, packed, hid)
+
+
+def flow_step_forward_twin(x, cond, packed, hid, packed_bf16=None,
+                           step_form="xla"):
+    """The plain twin of ``flow_step_forward`` at the stage's precision,
+    on any device (no launch)."""
+    form = _stage_form(step_form)
+    if form is None:
+        return flow_step_forward_plain(x, cond, packed, hid)
+    return BF16_FORMS[form, False][1](x, cond, packed_bf16, hid)
+
+
+class FlowStepReverse(torch.autograd.Function):
+    """``flow_step_reverse`` (K5's reverse on CUDA, in the form of the
+    stage's precision at the call; with ``twin`` its plain twin, on any
+    device) with the gradient with respect to x of the matching twin: the
+    backward recomputes that twin of the saved x, records and buffer under
+    autograd, the batch at once (``_reverse_diff``: the one-pass forms'
+    products differentiated as a bf16 stage's), and returns its
+    vector-Jacobian product for x only."""
+
+    @staticmethod
+    def forward(ctx, x, cond, packed, hid, packed_bf16, step_form, twin):
+        form = _stage_form(step_form)
+        buf = packed if form is None else packed_bf16
+        ctx.hid, ctx.form = hid, form
+        ctx.save_for_backward(x, cond, buf)
+        if twin:
+            _check(x, cond, buf, hid, form)
+            return _reverse_plain(x, cond, buf, hid, form)
+        return flow_step_reverse(x, cond, packed, hid, packed_bf16, step_form)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, cond, packed = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            y = _reverse_diff(xr, cond, packed, ctx.hid, ctx.form)
+            (grad_x,) = torch.autograd.grad(y, xr, grad_out)
+        return grad_x, None, None, None, None, None, None
+
+
+def flow_step_reverse_twin(x, cond, packed, hid, packed_bf16=None,
+                           step_form="xla"):
+    """The plain twin of ``flow_step_reverse`` at the stage's precision, on
+    any device (no launch), differentiable with respect to x as
+    ``FlowStepReverse`` differentiates the kernel."""
+    return FlowStepReverse.apply(x, cond, packed, hid, packed_bf16,
+                                 step_form, True)
+
+
+def flow_step_reverse_diff(x, cond, packed, hid, packed_bf16=None,
+                           step_form="xla"):
+    """``flow_step_reverse`` that autograd differentiates with respect to
+    x (``FlowStepReverse``)."""
+    return FlowStepReverse.apply(x, cond, packed, hid, packed_bf16,
+                                 step_form, False)

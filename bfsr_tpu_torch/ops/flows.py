@@ -14,9 +14,9 @@ functions take those modules and NHWC tensors.
   actnorm and its 1x1 conv into one affine per direction, in float64 on
   the host, with the inverse taken in float64.
 * The conditioning caches of one flow level (``cond_affine_cache_batched``)
-  are per-step records ``(1, h, w, 2C + hidden)``, laid out per pixel as
+  are per-step records ``(B, h, w, 2C + hidden)``, laid out per pixel as
   ``[scale_ft | shift_ft | aff1_ft]``: what the coupling reads that
-  depends on the RRDB conditioning only, computed once per image and read
+  depends on the RRDB conditioning only, computed once per batch and read
   by every encode and decode step (and by the K5 kernel as it is).
 """
 
@@ -209,12 +209,12 @@ def _scale_shift(h):
 def cond_affine_cache_batched(ft, affines):
     """The conditioning records of ALL K steps of a level in one pass.
 
-    ft: (1, h, w, C_cond) NHWC; affines: the level's ``CondAffine`` s.
+    ft: (B, h, w, C_cond) NHWC; affines: the level's ``CondAffine`` s.
     One 3x3 conv of ft against every step's fFeatures conv1 and the ft
     slice of its fAffine conv1 (2 * K * hidden outputs); the fFeatures
     tails batch over a step axis (the 1x1 as a step-batched matmul, the
     out convs as one grouped conv).  Returns a list of contiguous
-    ``(1, h, w, 2C + hidden)`` records ``[scale_ft | shift_ft | aff1_ft]``.
+    ``(B, h, w, 2C + hidden)`` records ``[scale_ft | shift_ft | aff1_ft]``.
 
     In a bf16 stage the three products take bf16-rounded operands, as the
     JAX package's reads the stage's precision at each of them (the convs

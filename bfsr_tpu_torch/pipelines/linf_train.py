@@ -61,12 +61,12 @@ BATCH_KEYS = ("inp", "coord", "cell", "gt", "gt_lr_up", "gt_pixel",
               "gt_patch", "interpolate_coord")
 
 
-def to_device(batch, device):
-    """A batch of numpy arrays (or tensors) as float32 tensors on
+def to_device(batch, device, keys=BATCH_KEYS):
+    """A batch's ``keys`` (numpy arrays or tensors) as float32 tensors on
     ``device``."""
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                dtype=torch.float32, device=device)
-            for k, v in batch.items() if k in BATCH_KEYS}
+            for k, v in batch.items() if k in keys}
 
 
 def patch_grid_axes(coord, window_hw, ps):

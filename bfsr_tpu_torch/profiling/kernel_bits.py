@@ -1,5 +1,6 @@
-"""Fingerprints of K3 (f32 and bf16) and K2 at batch 1 on fixed inputs,
-to show that two checkouts compute the same bits.
+"""Fingerprints of K3 (f32 and bf16), K2 and K5 (f32 and both one-pass
+forms) at batch 1 on fixed inputs, to show that two checkouts compute the
+same bits.
 
     PYTHONPATH=<checkout> python bfsr_tpu_torch/profiling/kernel_bits.py \\
         --label <name> [--out chiprun_out/kernel_bits.jsonl]
@@ -12,9 +13,13 @@ The cases are the main paths' batch-1 shapes: the encoder's conv at LR
 16-channel conv; the bf16 K3 at those five and at the RRDB's conv4 (160
 -> 32) and conv5 (192 -> 64) at 128^2 and the conv probe's 64 -> 192 at
 128^2 (three Cout blocks); K2 at 128^2 -> 512^2 and 96x80 -> 300x250 (out
-60) and the patch model's 172^2 grid (out 540).  It uses only
-``conv3x3_cat``, ``conv3x3_cat_bf16`` and ``affine_info`` with 1-D grid
-axes, so it runs against any checkout of the port that has the bf16 K3.
+60) and the patch model's 172^2 grid (out 540); K5 forward and reverse,
+f32 and in the ``xla`` and ``pallas`` one-pass forms, at the three flow
+levels of a 512^2 image (256^2 x 12, 128^2 x 24, 64^2 x 96) and level 1 of
+the ragged 404x340 one (204 x 172 x 12), on a random step's buffers.  It
+uses only ``conv3x3_cat``, ``conv3x3_cat_bf16``, ``affine_info`` with 1-D
+grid axes, ``FlowStep`` and the K5 wrappers, so it runs against any
+checkout of the port that has the bf16 K3 and both one-pass K5 forms.
 """
 
 import argparse
@@ -24,7 +29,8 @@ import json
 import numpy as np
 import torch
 
-from bfsr_tpu_torch.ops.cuda import conv3x3, linf_info
+from bfsr_tpu_torch.ops import nn as fnn
+from bfsr_tpu_torch.ops.cuda import conv3x3, flow_step, linf_info
 
 K3_CASES = [([64], 64, (128, 128)), ([3], 64, (96, 80)),
             ([3, 32, 32, 32, 32], 32, (512, 512)), ([64, 64], 64, (512, 512)),
@@ -35,6 +41,28 @@ K3_BF16_CASES = K3_CASES + [([64, 32, 32, 32], 32, (128, 128)),
 K2_CASES = [(256, 2, 60, (128, 128), (512, 512)),
             (256, 2, 540, (128, 128), (172, 172)),
             (256, 2, 60, (96, 80), (300, 250))]
+K5_CASES = [(12, (256, 256)), (24, (128, 128)), (96, (64, 64)),
+            (12, (204, 172))]
+
+
+def random_step(g, c, dev, hid=64):
+    """A frozen conditional FlowStep with live random weights from the
+    numpy generator ``g``, on ``dev``."""
+    from bfsr_tpu_torch.models.srflow.flow_upsampler import FlowStep
+
+    step = FlowStep(c, 16, hid)
+    with torch.no_grad():
+        for name, p in step.named_parameters():
+            if name == "invconv.weight":
+                q, _ = np.linalg.qr(g.standard_normal((c, c)))
+                p.copy_(torch.from_numpy(q))
+            elif name.endswith("weight"):
+                p.copy_(torch.from_numpy(
+                    g.standard_normal(p.shape) / np.sqrt(p[0].numel())))
+            else:
+                p.copy_(torch.from_numpy(0.1 * g.standard_normal(p.shape)))
+    step.to(dev).freeze()
+    return step
 
 
 def fingerprints(dev):
@@ -72,6 +100,27 @@ def fingerprints(dev):
         b, s = t(g.standard_normal(cout)), t(g.random(cout) + 0.5)
         out[f"k3 bf16 {cins}->{cout} @{hw}"] = digest(
             conv3x3.conv3x3_cat_bf16(xs, w, s, b, "lrelu"))
+    # after the bf16 K3, so the earlier cases draw what they drew before
+    saved = fnn.precision_mode()
+    try:
+        for c, hw in K5_CASES:
+            step = random_step(g, c, dev)
+            x = t(g.standard_normal((1, *hw, c)))
+            rec = t(np.concatenate([g.uniform(0.6, 1.0, (1, *hw, c)),
+                                    0.5 * g.standard_normal((1, *hw, c)),
+                                    g.standard_normal((1, *hw, 64))], -1))
+            for form in ("f32", "xla", "pallas"):
+                pb = None if form == "f32" else flow_step.pack_step_bf16(
+                    step.actnorm, step.invconv, step.affine, form)
+                fnn.set_default_precision("high" if form == "f32"
+                                          else "default")
+                for way, fn in (("forward", flow_step.flow_step_forward),
+                                ("reverse", flow_step.flow_step_reverse)):
+                    y = fn(x, rec, step.kpacked, 64, pb,
+                           "xla" if form == "f32" else form)
+                    out[f"k5 {form} {way} C={c} @{hw}"] = digest(y)
+    finally:
+        fnn.set_default_precision(saved)
     return out
 
 

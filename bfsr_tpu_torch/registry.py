@@ -8,8 +8,9 @@ components register under a string name and are built from
 ``edsr-baseline``, ``flow``, ``unet``, ``VGGFeatureExtractor``, ``srflow``
 and ``srflow-unet``; importing ``bfsr_tpu_torch.data.wrappers`` registers
 ``sr-implicit-paired-fast``, ``sr-implicit-paired-fast-patch`` and
-``sr-implicit-downsampled-fast-crop``, and ``bfsr_tpu_torch.data.
-image_folder`` registers ``image-folder``.
+``sr-implicit-downsampled-fast-crop``, ``bfsr_tpu_torch.data.
+image_folder`` registers ``image-folder`` and ``bfsr_tpu_torch.data.
+pkl_dataset`` ``lrhr-pkl``.
 """
 
 import copy

@@ -5,7 +5,7 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's three main paths and its two trainers at their full
+It drives the port's three main paths and its three trainers at their full
 configurations, random weights from seed 0 — LINF-LP learned-prior inference
 (EDSR-baseline 16x64 encoder, 10-layer pointwise flow, 256-wide info MLP,
 UNet depth 3 / dim 64), its patch model (``bench.py``'s patch workload:
@@ -118,8 +118,30 @@ fails (non-zero exit, no result line) if any phase fails:
    kernel's own tolerance), its trainable part on both paths from those
    values (``MODE_TRAIN_TOL``), its loss against ``high``'s on the same
    batch; and ``high``, ``mixed`` and ``default`` steps timed
-   interleaved.  It prints
-   the run's seconds in all.
+   interleaved;
+12. the SRFlow-LP prior trainer (``srflow_train.py --prior`` on
+   ``configs/srflow/SRFlow-LP_DF2K_4X.yml``: the flow and prior of phase
+   7, the flow frozen, Adam at 2.5e-4 with its MultiStepLR, batch 12 of
+   160^2 GT crops with 40^2 LQ, the eps loss) on synthetic batches in the
+   ``lrhr-pkl`` layout (smooth random HR, LQ by a 4x4 area mean): holds K5
+   at B = 12 at the three level shapes (80^2 x 12, 40^2 x 24, 20^2 x 96),
+   f32 and the served one-pass form, forward and reverse, and
+   ``FlowStepReverse``'s gradient against autograd through the twin, and
+   both K3s at the RRDB's conv4 and conv5 at B 12 @40^2 beside cuDNN; one
+   step's loss and gradients on both paths (K3 345, K5 96 forward; with
+   the image loss, a second check, K5 48 reverse too), held as phase 10
+   holds them, the spread the larger under LQ x (1 +- 1e-7); 20 steps
+   (finite, every parameter moved, peak memory); steps/s resident (twin,
+   kernel, kernel with the image loss, interleaved) and fed by the
+   port's ``DataLoader`` over
+   ``lrhr-pkl`` pickles written to a temporary directory; the stage split
+   (RRDB, conditioning records, LR encode, prior, GT encode, decode,
+   backward, update) and profiles; then one step each under ``mixed`` and
+   ``default`` with the image loss (``default``: the bf16 K3 345, the
+   one-pass K5 96 + 48), held as phase 11 holds the LINF modes, the
+   three modes timed interleaved, ``mixed`` and ``default`` split into
+   stages and a ``default`` step profiled.  It prints the run's seconds
+   in all.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -129,9 +151,11 @@ call's that computes the same function, where there is one, and its
 bound: the least time the card could take for the same work, with the
 peak it is taken at in ``bound_rate``: K2's f32-grade products at
 3xTF32, three TF32 products each at the 495 TFLOP/s TF32 rate; K1, K2,
-K4 and both K3s also carry ``train_checks``, phases 10-11's checks at the
-trainers' shapes, K1's and K4's inverse with ``FlowInverse``'s gradient;
-``launches_by_path`` gives a step's launches on each trainer and mode);
+K4, both K3s and K5 (f32 and the served one-pass form) also carry
+``train_checks``, phases 10-12's checks at the trainers' shapes, K1's and
+K4's inverse with ``FlowInverse``'s gradient, K5's reverse with
+``FlowStepReverse``'s; ``launches_by_path`` gives a step's launches on
+each trainer and mode);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": N}}``.
 """
@@ -184,7 +208,14 @@ TOL = {"linf_flow_forward": 1e-5, "linf_flow_inverse": 1e-4,
        # the two differ only where sum order flips a bf16 rounding at a tie
        # (58.0-58.3 dB measured, PERF.md); 50 dB leaves 8 dB of margin and
        # still refuses the pallas form's 37.2
-       "srflow_default_twin_db": 50.0}
+       "srflow_default_twin_db": 50.0,
+       # FlowStepReverse's gradient against autograd through the twin: both
+       # differentiate the same twin at the same saved state, so only the
+       # order of the library's sums may differ; in the one-pass form that
+       # can flip the bf16 rounding of a gradient at a tie, as in the
+       # kernels above (3.1e-5 at level 3, PERF.md)
+       "flow_step_reverse_grad": (1e-5, 1e-5),
+       "flow_step_bf16_reverse_grad": {"max": 2e-2, "mean": 1e-4}}
 # agreement (PSNR of a mode's output against high's, [0, 1] scale, as
 # bench.py:run_precision_delta computes it, profiling/mode_agreement.py):
 # sanity floors, in dB
@@ -837,10 +868,12 @@ def k5_work(c, hid, hw, packed):
 
 def first_steps(model, lr):
     """(plan entry, step, record) of the first conditional step of each
-    level, its record for this LR image (computed in the current mode)."""
+    level, its record for this LR image or batch (computed in the current
+    mode; under no_grad, not inference_mode, so that FlowStepReverse can
+    save it for backward)."""
     import torch
 
-    with torch.inference_mode():
+    with torch.no_grad():
         cache = model.precompute_ft(model.rrdb_preprocess(lr, kernels=False))
     out, seen = [], set()
     for e, step, rec in zip(model.plan, model.flowUpsamplerNet.layers, cache):
@@ -885,20 +918,21 @@ def check_srflow_kernels(model, lr):
 
 def rrdb_k3_cases(model, lr):
     """(label, inputs, conv, scale, bias, act) of two RRDB dense-block
-    convs at the LR extent: conv4 (4 inputs, Cout 32, LeakyReLU; conv1-4
-    are 276 of a predict's 363 K3 launches) and conv5 (5 inputs, Cout
-    64), on random inputs from a seeded generator."""
+    convs at the LR extent and batch: conv4 (4 inputs, Cout 32, LeakyReLU;
+    conv1-4 are 276 of a predict's 363 K3 launches) and conv5 (5 inputs,
+    Cout 64), on random inputs from a seeded generator."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     rdb = model.RRDB.RRDB_trunk[0].RDB1
     nf, gc = rdb.conv1.weight.shape[1], rdb.conv1.weight.shape[0]
-    xs = [torch.randn((1, *lr.shape[1:3], ch), generator=gen, device="cuda")
-          for ch in [nf] + [gc] * 4]
-    hw = lr.shape[1]
-    return [(f"RRDB dense conv4 4 inputs {nf + 3 * gc}->{gc} @{hw}^2",
+    xs = [torch.randn((lr.shape[0], *lr.shape[1:3], ch), generator=gen,
+                      device="cuda") for ch in [nf] + [gc] * 4]
+    at = (f"@{lr.shape[1]}^2" if lr.shape[0] == 1
+          else f"B={lr.shape[0]} @{lr.shape[1]}^2")
+    return [(f"RRDB dense conv4 4 inputs {nf + 3 * gc}->{gc} {at}",
              xs[:4], rdb.conv4, None, rdb.conv4.bias, "lrelu"),
-            (f"RRDB dense conv5 5 inputs {nf + 4 * gc}->{nf} @{hw}^2",
+            (f"RRDB dense conv5 5 inputs {nf + 4 * gc}->{nf} {at}",
              xs, rdb.conv5, None, rdb.conv5.bias, None)]
 
 
@@ -1520,6 +1554,64 @@ def frozen_launch_checks(linf, batch, fz, label):
             f"{torch.equal(feat, fz['feat'])}")
 
 
+def _worst(e, i):
+    name = max(e, key=lambda k: e[k][i])
+    return f"{e[name][i]:.3e} ({name})"
+
+
+def hold_step(label, kmets, kgrads, ref, ref_grads, nudged_grads, nudged,
+              held=""):
+    """Hold one step's loss and gradients on the kernel path (``kmets``,
+    ``kgrads``) against the twin path's (``ref``, ``ref_grads``).  In high
+    (``nudged_grads``: a list of the twin path's gradients with its input
+    ``nudged`` scaled by 1 + GRAD_NUDGE or another factor of that size) to
+    TRAIN_TOL and the twin path's own spread, the largest over the list;
+    in a bf16 mode (``nudged_grads`` None) to MODE_TRAIN_TOL and GRAD_CAP.
+    Logs the result, raises past a limit."""
+    import torch
+
+    loss, ref_loss = float(kmets["loss"]), float(ref["loss"])
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    errs = grad_errors(kgrads, ref_grads)
+    err_all = global_rel_l2(kgrads, ref_grads)
+    if nudged_grads is None:
+        loss_tol, tol, tol_all = MODE_TRAIN_TOL["loss_rel"], GRAD_CAP, GRAD_CAP
+        part = " (the trainable part from the kernel path's frozen values)"
+    else:
+        def limit(s):
+            return min(GRAD_CAP, max(GRAD_FLOOR, GRAD_SPREAD_FACTOR * s))
+
+        spreads = [grad_errors(g, ref_grads) for g in nudged_grads]
+        spread = {k: tuple(max(sp[k][i] for sp in spreads) for i in (0, 1))
+                  for k in spreads[0]}
+        loss_tol = TRAIN_TOL["loss_rel"]
+        tol = limit(max(v[0] for v in spread.values()))
+        tol_all = limit(max(global_rel_l2(g, ref_grads)
+                            for g in nudged_grads))
+        part = ""
+        held = (f"; the twin path's own spread ({nudged}): worst relative L2 "
+                f"{_worst(spread, 0)}, median "
+                f"{statistics.median(v[0] for v in spread.values()):.3e}, "
+                f"worst of max |g| {_worst(spread, 1)}")
+    if not all(torch.isfinite(g).all() for g in kgrads.values()):
+        raise RuntimeError(f"{label}: a gradient is not finite")
+    bad = {k: v[0] for k, v in errs.items() if not v[0] <= tol}
+    if bad or not rel <= loss_tol or not err_all <= tol_all:
+        raise RuntimeError(f"{label}: loss {loss!r} vs twin path "
+                           f"{ref_loss!r} ({rel:.3e} relative, at most "
+                           f"{loss_tol:.3e}); gradients past {tol:.3e} "
+                           f"relative L2: {bad}; all gradients {err_all:.3e} "
+                           f"relative L2 (at most {tol_all:.3e})")
+    log(f"{label}: kernel path{part} loss {loss!r} vs twin path "
+        f"{ref_loss!r}: {rel:.3e} relative (at most {loss_tol:.3e}); "
+        f"{len(kgrads)} gradient tensors against the twin path: worst "
+        f"relative L2 {_worst(errs, 0)}, median "
+        f"{statistics.median(v[0] for v in errs.values()):.3e}, worst of max "
+        f"|g| {_worst(errs, 1)}; tolerance {tol:.3e} relative L2; all "
+        f"gradients as one vector {err_all:.3e} relative L2 (at most "
+        f"{tol_all:.3e}){held}")
+
+
 def train_step_check(linf, prior, vgg, batch, latent_weight, want=None,
                      label="train step", mode=None):
     """One step's loss and gradients on the kernel path, with the launch
@@ -1557,6 +1649,7 @@ def train_step_check(linf, prior, vgg, batch, latent_weight, want=None,
         if launches != want:
             raise RuntimeError(f"{label}: launches {launches}, expected "
                                f"{want}")
+        held = ""
         if mode:
             fz = step.frozen(batch)
             held = "; " + frozen_launch_checks(linf, batch, fz, label)
@@ -1568,49 +1661,11 @@ def train_step_check(linf, prior, vgg, batch, latent_weight, want=None,
             nudged = twin.loss_and_grads(dict(
                 batch, gt_lr_up=batch["gt_lr_up"] * (1 + GRAD_NUDGE)))
 
-    def worst(e, i):
-        name = max(e, key=lambda k: e[k][i])
-        return f"{e[name][i]:.3e} ({name})"
-
-    loss, ref_loss = float(kmets["loss"]), float(ref["loss"])
-    rel = abs(loss - ref_loss) / abs(ref_loss)
-    errs = grad_errors(kgrads, ref_grads)
-    err_all = global_rel_l2(kgrads, ref_grads)
-    if mode:
-        loss_tol, tol, tol_all = MODE_TRAIN_TOL["loss_rel"], GRAD_CAP, GRAD_CAP
-        part = " (the trainable part from the kernel path's frozen values)"
-    else:
-        def limit(s):
-            return min(GRAD_CAP, max(GRAD_FLOOR, GRAD_SPREAD_FACTOR * s))
-
-        spread = grad_errors(nudged[1], ref_grads)
-        loss_tol = TRAIN_TOL["loss_rel"]
-        tol = limit(max(v[0] for v in spread.values()))
-        tol_all = limit(global_rel_l2(nudged[1], ref_grads))
-        part = ""
-        held = (f"; the twin path's own spread (gt_lr_up x "
-                f"{1 + GRAD_NUDGE:.9g}): worst relative L2 "
-                f"{worst(spread, 0)}, median "
-                f"{statistics.median(v[0] for v in spread.values()):.3e}, "
-                f"worst of max |g| {worst(spread, 1)}")
-    if not all(torch.isfinite(g).all() for g in grads.values()):
-        raise RuntimeError(f"{label}: a gradient is not finite")
-    bad = {k: v[0] for k, v in errs.items() if not v[0] <= tol}
-    if bad or not rel <= loss_tol or not err_all <= tol_all:
-        raise RuntimeError(f"{label}: loss {loss!r} vs twin path "
-                           f"{ref_loss!r} ({rel:.3e} relative, at most "
-                           f"{loss_tol:.3e}); gradients past {tol:.3e} "
-                           f"relative L2: {bad}; all gradients {err_all:.3e} "
-                           f"relative L2 (at most {tol_all:.3e})")
+    hold_step(label, kmets, kgrads, ref, ref_grads,
+              None if mode else [nudged[1]],
+              f"gt_lr_up x {1 + GRAD_NUDGE:.9g}", held)
     log(f"{label}: launches {launches}; loss {float(mets['loss'])!r} (vgg_l "
-        f"{float(mets['vgg_l'])!r}, latent_l {float(mets['latent_l'])!r}); "
-        f"kernel path{part} {loss!r} vs twin path {ref_loss!r}: {rel:.3e} "
-        f"relative (at most {loss_tol:.3e}); {len(grads)} gradient tensors "
-        f"against the twin path: worst relative L2 {worst(errs, 0)}, median "
-        f"{statistics.median(v[0] for v in errs.values()):.3e}, worst of max "
-        f"|g| {worst(errs, 1)}; tolerance {tol:.3e} relative L2; all "
-        f"gradients as one vector {err_all:.3e} relative L2 (at most "
-        f"{tol_all:.3e}){held}")
+        f"{float(mets['vgg_l'])!r}, latent_l {float(mets['latent_l'])!r})")
     return launches, float(mets["loss"]), grads
 
 
@@ -1835,6 +1890,382 @@ def run_train_modes(trainers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the SRFlow-LP prior trainer
+# ---------------------------------------------------------------------------
+
+# configs/srflow/SRFlow-LP_DF2K_4X.yml's train section, as the prior
+# trainer reads it (srflow_train.py --prior): batch 12 of 160^2 GT crops
+# (40^2 LQ), Adam at lr_G 2.5e-4 with betas (0.9, 0.99), MultiStepLR at
+# lr_steps_rel over niter, weight_eps 1 and weight_img 0 (the CLI's
+# defaults)
+SRFLOW_TRAIN_BATCH, SRFLOW_TRAIN_GT = 12, 160
+SRFLOW_TRAIN_OPT = {"lr_G": 2.5e-4, "beta1": 0.9, "beta2": 0.99,
+                    "lr_scheme": "MultiStepLR", "warmup_iter": -1,
+                    "lr_steps_rel": [0.5, 0.75, 0.9, 0.95], "lr_gamma": 0.5,
+                    "niter": 70000}
+
+def srflow_train_launches(model, mode, image_weight):
+    """A prior-trainer step's launches in ``mode``: the RRDB's dense-block
+    convs on K3 (the bf16 K3 under default), the conditional steps' K5
+    forwards in both encodes and, with the image loss, their reverses in
+    the decode (the one-pass form under default)."""
+    n_k3 = 15 * len(model.RRDB.RRDB_trunk)
+    n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
+    bf16 = mode == "default"
+    k5 = "flow_step_bf16" if bf16 else "flow_step"
+    out = {"conv3x3_cat_bf16" if bf16 else "conv3x3_cat": n_k3,
+           f"{k5}_forward": 2 * n_cond}
+    if image_weight > 0:
+        out[f"{k5}_reverse"] = n_cond
+    return out
+
+
+def write_lrhr_pickles(root, n, seed=0):
+    """``lrhr-pkl`` pickles of ``n`` synthetic samples (sample i from
+    ``np.random.default_rng(seed + i)``, quantised to uint8 as the
+    reference's pickles hold them) under ``root``: {'GT', 'LQ'} paths."""
+    import pickle
+
+    import numpy as np
+
+    from bfsr_tpu_torch.entry import synthetic_lrhr_sample
+
+    samples = [synthetic_lrhr_sample(np.random.default_rng(seed + i),
+                                     SRFLOW_TRAIN_GT) for i in range(n)]
+    paths = {}
+    for k in ("GT", "LQ"):
+        paths[k] = str(Path(root) / f"{k}.pklv4")
+        with open(paths[k], "wb") as f:
+            pickle.dump([np.round(s[k] * 255).astype(np.uint8)
+                         for s in samples], f)
+    return paths
+
+
+def srflow_train_step(model, prior, image_weight=0.0, kernels=True,
+                      marks=None):
+    """The prior trainer's step at the flagship's optimizer and schedule
+    (a fresh Adam over the prior's parameters)."""
+    from bfsr_tpu_torch.cli.srflow_train import make_schedule
+    from bfsr_tpu_torch.pipelines.srflow_prior_train import (
+        make_srflow_prior_train_step)
+    from bfsr_tpu_torch.train.optim import lr_scheduler, make_optimizer
+
+    t = SRFLOW_TRAIN_OPT
+    opt = make_optimizer({"name": "adam", "args": {
+        "lr": t["lr_G"], "betas": (t["beta1"], t["beta2"])}},
+        prior.parameters())
+    sched = lr_scheduler(opt, make_schedule(t, t["niter"], t["lr_G"]),
+                         t["lr_G"])
+    return make_srflow_prior_train_step(model, prior, opt, 1.0, image_weight,
+                                        kernels, sched, marks)
+
+
+def check_srflow_train_kernels(model, batch):
+    """The prior trainer's kernel shapes: K5 at B = 12 at each level's
+    shape (the first conditional step of each level on its records for
+    the batch's LQ), forward and reverse, f32 and the served one-pass
+    form, against their twins (the bound from ``k5_work`` over the whole
+    batch; no library call computes a FlowStep); FlowStepReverse's
+    gradient against autograd through the twin in both forms; and both
+    K3s at the RRDB's conv4 and conv5 over the batch's LQ, beside cuDNN.
+    Returns {name: [results]}."""
+    import torch
+
+    from bfsr_tpu_torch.ops.cuda import flow_step as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lq = batch["LQ"]
+    B = lq.shape[0]
+    out = {}
+    for mode in ("high", "default"):
+        with precision(mode):
+            for e, step, rec in first_steps(model, lq):
+                c, hid = e["c"], step.hidden
+                hw = rec.shape[1:3]
+                if mode == "high":
+                    pk, peak = step.kpacked, PEAK_F32_FLOPS
+                    fwd = ("flow_step_forward", k5.flow_step_forward_plain)
+                    rev = ("flow_step_reverse", k5.flow_step_reverse_plain)
+                else:
+                    pk, peak = step.kpacked_bf16, PEAK_BF16_FLOPS
+                    fwd = k5.BF16_FORMS[step.step_form, False]
+                    rev = k5.BF16_FORMS[step.step_form, True]
+                x = torch.randn((B, *hw, c), generator=gen, device="cuda")
+                up = torch.randn((B, *hw, c), generator=gen, device="cuda")
+                flops, n_bytes = k5_work(c, hid, (B * hw[0], hw[1]), pk)
+                label = (f" train {mode} B={B} level {e['level']} ({hw[0]}, "
+                         f"{hw[1]}, {c})")
+                with torch.no_grad():
+                    y = fwd[1](x, rec, pk, hid)
+                    for (name, plain), fn, inp in (
+                            (fwd, k5.flow_step_forward, x),
+                            (rev, k5.flow_step_reverse, y)):
+                        out.setdefault(name, []).append(compare(
+                            name, lambda: fn(inp, rec, step.kpacked, hid,
+                                             step.kpacked_bf16,
+                                             step.step_form),
+                            lambda: plain(inp, rec, pk, hid), TOL[name],
+                            flops, label, n_bytes, peak=peak))
+
+                def grad(f):
+                    yr = y.clone().requires_grad_(True)
+                    return torch.autograd.grad(
+                        f(yr, rec, step.kpacked, hid, step.kpacked_bf16,
+                          step.step_form), yr, up)[0]
+
+                # the VJP about twice the forward; y, the records, the
+                # weights and the upstream gradient read, x and its
+                # gradient written
+                out[rev[0]].append(compare(
+                    rev[0], lambda: grad(k5.flow_step_reverse_diff),
+                    lambda: grad(k5.flow_step_reverse_twin),
+                    TOL[f"{rev[0]}_grad"], 3 * flops,
+                    f" gradient (FlowStepReverse){label}",
+                    n_bytes + 2 * nbytes(y), peak=peak))
+    cases = rrdb_k3_cases(model, lq)
+    out["conv3x3_cat"] = [check_k3(*case) for case in cases]
+    out["conv3x3_cat_bf16"] = [check_k3_bf16(*case) for case in cases]
+    return out
+
+
+def walk_encode(model, x, cache, hold):
+    """The flow encode of ``x`` on the kernel path, each conditional step
+    held (``hold(step, x, rec, y)``) as it launches; returns the epses."""
+    from bfsr_tpu_torch.ops import flows
+
+    epses = []
+    for e, m, rec in zip(model.plan, model.flowUpsamplerNet.layers, cache):
+        if e["kind"] == "squeeze":
+            x = flows.squeeze2d(x)
+        elif e["kind"] == "split":
+            x, eps = flows.split2d(x, m)
+            epses.append(eps)
+        else:
+            y = m.forward_step(x, rec, True)
+            if m.affine is not None:
+                hold(m, x, rec, y)
+            x = y
+    return epses + [x]
+
+
+def srflow_frozen_launch_checks(model, batch, fz, label):
+    """A prior-trainer step's frozen part in the current mode, launch by
+    launch: each of the RRDB's dense-block K3 launches against its twin
+    on that launch's input, then each K5 forward of both encodes against
+    its twin on that launch's input and record (the step's own records,
+    ``fz['cache']``), each within its kernel's own tolerance (TOL).
+    Returns a line for the log."""
+    import torch
+
+    from bfsr_tpu_torch.models.srflow.srflow_net import standardize_epses
+    from bfsr_tpu_torch.models.unet import k3, k3_twin
+    from bfsr_tpu_torch.ops import nn as fnn
+    from bfsr_tpu_torch.ops.cuda import TWINS
+    from bfsr_tpu_torch.ops.interp import resize_bilinear
+
+    worst = {}
+
+    def hold(name, got, ref):
+        ok, err, tol_s = within(got, ref, TOL[name])
+        if not ok:
+            raise RuntimeError(f"{label}: {name} on the step's own values "
+                               f"disagrees with its twin: max abs err "
+                               f"{err:.3e} ({tol_s}), max |ref| "
+                               f"{float(ref.abs().max()):.3e}")
+        n, e, _ = worst.get(name, (0, 0.0, tol_s))
+        worst[name] = (n + 1, max(e, err), tol_s)
+
+    bf16 = fnn.bf16_stage()
+
+    def conv(blocks, m, act):
+        y = k3(blocks, m, act)
+        hold("conv3x3_cat_bf16" if bf16 else "conv3x3_cat", y,
+             k3_twin(blocks, m, act))
+        return y
+
+    def step(m, x, rec, y):
+        hold("flow_step_bf16_forward" if bf16 else "flow_step_forward", y,
+             m.forward_step(x, rec, TWINS))
+
+    with torch.no_grad():
+        lq, s = batch["LQ"], model.scale
+        cache = model.precompute_ft(model.rrdb_preprocess(lq, conv=conv))
+        same = all(torch.equal(a, b) for a, b in zip(cache, fz["cache"])
+                   if a is not None)
+        lr_up = resize_bilinear(lq, (lq.shape[1] * s, lq.shape[2] * s))
+        eps_in = standardize_epses(walk_encode(model, lr_up, fz["cache"],
+                                               step))
+        eps_gt = walk_encode(model, batch["GT"], fz["cache"], step)
+    same_eps = all(torch.equal(a, b) for a, b in
+                   zip(eps_in + eps_gt, fz["eps_in"] + fz["eps_gt"]))
+    return (f"frozen part launch by launch: "
+            + ", ".join(f"{k} x {n} max abs err {e:.3e} ({t})"
+                        for k, (n, e, t) in worst.items())
+            + f"; the checked records equal the step's: {same}; the checked "
+            f"epses equal the step's: {same_eps}")
+
+
+def srflow_train_step_check(model, prior, batch, image_weight, mode=None):
+    """One prior-trainer step's loss and gradients on the kernel path,
+    with the launch counters reset first (``srflow_train_launches``),
+    against the twin path from the same state, held as
+    ``train_step_check`` holds the LINF trainers': in high the whole step
+    on both paths, to the twin path's spread under LQ scaled by 1 + 1e-7
+    and by 1 - 1e-7, the larger (TRAIN_TOL);
+    in a bf16 mode the frozen part launch by launch and the trainable part
+    on both paths from the kernel path's frozen values (MODE_TRAIN_TOL).
+    Returns (the kernel path's launches, its loss, its gradients)."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+
+    label = (f"srflow train step{' ' + mode if mode else ''} eps_weight=1 "
+             f"image_weight={image_weight:g}")
+    want = srflow_train_launches(model, mode or "high", image_weight)
+    with precision(mode or "high"):
+        step = srflow_train_step(model, prior, image_weight)
+        twin = srflow_train_step(model, prior, image_weight, kernels=False)
+        cuda.reset_launch_counts()
+        mets, grads, _ = step.loss_and_grads(batch)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        if launches != want:
+            raise RuntimeError(f"{label}: launches {launches}, expected "
+                               f"{want}")
+        held, nudged = "", None
+        if mode:
+            fz = step.frozen(batch)
+            held = "; " + srflow_frozen_launch_checks(model, batch, fz, label)
+            kmets, kgrads, _ = step.loss_and_grads(batch, frozen=fz)
+            ref, ref_grads, _ = twin.loss_and_grads(batch, frozen=fz)
+        else:
+            kmets, kgrads = mets, grads
+            ref, ref_grads, _ = twin.loss_and_grads(batch)
+            nudged = [twin.loss_and_grads(dict(
+                batch, LQ=batch["LQ"] * (1 + sign * GRAD_NUDGE)))[1]
+                for sign in (1, -1)]
+    hold_step(label, kmets, kgrads, ref, ref_grads, nudged,
+              f"the larger of LQ x (1 +- {GRAD_NUDGE:g})", held)
+    log(f"{label}: launches {launches}; "
+        + ", ".join(f"{k} {float(v)!r}" for k, v in mets.items()))
+    return launches, float(mets["loss"]), grads
+
+
+def run_srflow_trainer(dev):
+    """Phase 12: the SRFlow-LP prior trainer at its full configuration.
+    Returns (checks, {path: launches})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch.data.loader import DataLoader
+    from bfsr_tpu_torch.data.pkl_dataset import LRHRPkl
+    from bfsr_tpu_torch.entry import (build_srflow_prior_trainer,
+                                      example_srflow_train_batch)
+
+    t0 = time.perf_counter()
+    model, prior = build_srflow_prior_trainer(dev, seed=0)
+    batches = [example_srflow_train_batch(dev, seed, SRFLOW_TRAIN_BATCH,
+                                          SRFLOW_TRAIN_GT)
+               for seed in range(4)]
+    log(f"srflow train: models and 4 synthetic batches of "
+        f"{SRFLOW_TRAIN_BATCH} x {SRFLOW_TRAIN_GT}^2 GT (LQ "
+        f"{SRFLOW_TRAIN_GT // 4}^2) built in {time.perf_counter() - t0:.2f} "
+        f"s; prior {sum(p.numel() for p in prior.parameters())} parameters; "
+        f"flow actnorms unprimed: "
+        f"{model.flowUpsamplerNet.actnorms_unprimed()} (the live init)")
+    checks = check_srflow_train_kernels(model, batches[0])
+    launches = {}
+    launches["srflow_train"] = srflow_train_step_check(
+        model, prior, batches[0], 0.0)[0]
+    launches["srflow_train_image"] = srflow_train_step_check(
+        model, prior, batches[1], 1.0)[0]
+
+    # 20 steps on the kernel path (the flagship's losses: eps only)
+    step = srflow_train_step(model, prior)
+    before = {k: v.detach().clone() for k, v in prior.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses = [step(batches[i % 4])["loss"] for i in range(20)]
+    peak = torch.cuda.max_memory_allocated()
+    still = [k for k, v in prior.named_parameters()
+             if torch.equal(v, before[k])]
+    if not np.isfinite(losses).all() or still:
+        raise RuntimeError(f"srflow train: 20 steps: losses {losses}, "
+                           f"parameters that did not move: {still}")
+    log(f"srflow train: 20 kernel-path steps: eps_l {losses[0]!r} at step 1, "
+        f"{losses[-1]!r} at step 20; every one of {len(before)} parameter "
+        f"tensors moved; peak memory {peak / 2**20:.1f} MiB "
+        f"({(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB "
+        "resident)")
+
+    shape = f"B={SRFLOW_TRAIN_BATCH} {SRFLOW_TRAIN_GT}^2"
+    steps = {"twin": srflow_train_step(model, prior, kernels=False),
+             "kernel": step,
+             "kernel image loss": srflow_train_step(model, prior, 1.0)}
+    it = iter(range(10 ** 9))
+    medians = time_steps({k: (lambda s=s: s(batches[next(it) % 4]))
+                          for k, s in steps.items()},
+                         f"srflow train {shape} resident")
+    with tempfile.TemporaryDirectory() as root:
+        paths = write_lrhr_pickles(root, 10 * SRFLOW_TRAIN_BATCH)
+        dataset = LRHRPkl(paths["GT"], paths["LQ"], use_flip=True,
+                          gt_size=SRFLOW_TRAIN_GT)
+        loader = DataLoader(dataset, SRFLOW_TRAIN_BATCH, shuffle=True,
+                            drop_last=True, num_workers=3, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in loader:
+            step(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"time srflow train {shape} loader-fed kernel path: 10 steps in "
+        f"{wall * 1e3:.3f} ms, {10 / wall:.3f} steps/s ({wall * 100:.3f} "
+        f"ms/step; the DataLoader's 3 threads reading lrhr-pkl pickles, "
+        f"flips on)")
+    for k in ("kernel", "twin"):
+        train_stages(lambda marks, k=k: srflow_train_step(
+            model, prior, 1.0, kernels=k == "kernel", marks=marks),
+            batches[0], f"srflow train {shape} image loss {k} path")
+    profile_predict(lambda: step(batches[0]), medians["kernel"],
+                    f"srflow train {shape} step", top=16, what="step")
+    profile_predict(lambda: steps["kernel image loss"](batches[0]),
+                    medians["kernel image loss"],
+                    f"srflow train {shape} image loss step", top=16,
+                    what="step")
+
+    # the bf16 modes: both losses, so that the decode's reverses run too
+    with precision("high"):
+        high = float(srflow_train_step(model, prior, 1.0).loss_and_grads(
+            batches[0])[0]["loss"])
+    for mode in ("mixed", "default"):
+        launches[f"srflow_train_{mode}"], loss, _ = srflow_train_step_check(
+            model, prior, batches[0], 1.0, mode)
+        rel = abs(loss - high) / abs(high)
+        if not rel <= MODE_TRAIN_TOL["vs_high_rel"]:
+            raise RuntimeError(f"srflow train step {mode}: loss {loss!r} vs "
+                               f"high's {high!r}: {rel:.3e} relative (at "
+                               f"most {MODE_TRAIN_TOL['vs_high_rel']:g})")
+        log(f"srflow train step {mode} vs high on the same batch: loss "
+            f"{loss!r} vs {high!r}, {rel:.3e} relative (at most "
+            f"{MODE_TRAIN_TOL['vs_high_rel']:g})")
+    it = iter(range(10 ** 9))
+    mode_ms = time_steps({m: in_mode(m, lambda: step(batches[next(it) % 4]))
+                          for m in ("high", "mixed", "default")},
+                         f"srflow train {shape} mode")
+    for mode in ("mixed", "default"):
+        with precision(mode):
+            train_stages(lambda marks: srflow_train_step(
+                model, prior, marks=marks), batches[0],
+                f"srflow train {shape} {mode} kernel path")
+    profile_predict(in_mode("default", lambda: step(batches[0])),
+                    mode_ms["default"], f"srflow train {shape} default step",
+                    top=12, what="step")
+    return checks, launches
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -2007,6 +2438,14 @@ def main():
     launches.update(run_train_modes({
         "train": (pixel, pixel_batches, dict(TRAIN_LAUNCHES)),
         "patch train": (patch, patch_batches, dict(PATCH_TRAIN_LAUNCHES))}))
+    del pixel, pixel_batches, patch, patch_batches
+    torch.cuda.empty_cache()
+
+    # --- the SRFlow-LP prior trainer, in high, mixed and default ---
+    srflow_checks, srflow_launches = run_srflow_trainer(dev)
+    for name, rs in srflow_checks.items():
+        train_checks.setdefault(name, []).extend(rs)
+    launches.update(srflow_launches)
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
         "build included")
 
@@ -2033,9 +2472,10 @@ def main():
                            if timed[0]["library_ms"] is not None else None),
         })
         if name in train_checks:
-            # the trainers' shapes (both K3s at B = 16, K2's batched crops
-            # at out 60 and 540, K4 at N = 36,864) and, for K1's and K4's
-            # inverse, FlowInverse's gradient, each check as it ran
+            # the trainers' shapes (both K3s at B = 16 and 12, K2's
+            # batched crops at out 60 and 540, K4 at N = 36,864, K5 at
+            # B = 12) and, for K1's, K4's and K5's inverse, FlowInverse's
+            # and FlowStepReverse's gradient, each check as it ran
             kernels[-1]["train_checks"] = [
                 {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}

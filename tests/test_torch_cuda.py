@@ -1113,3 +1113,155 @@ def test_small_patch_train_step_kernel_path_matches_twin_path(dev):
         scale = float(ref_grads[name].abs().max())
         torch.testing.assert_close(g, ref_grads[name], rtol=0,
                                    atol=1e-3 * scale)
+
+
+# --- the SRFlow-LP prior trainer: K5 at a batch, FlowStepReverse ----------
+
+
+def _k5_batch(c, hw, batch, dev, seed=0):
+    """x (B, H, W, C) and records (B, H, W, 2C + 64), each image its own."""
+    x = _gen(c + seed).standard_normal((batch, *hw, c))
+    rec = np.concatenate([random_record(hw, c, seed=seed + i)
+                          for i in range(batch)])
+    return _t(x, dev), _t(rec, dev)
+
+
+@pytest.mark.parametrize("form", [None, "xla", "pallas"])
+@pytest.mark.parametrize("c,hw,batch", [(12, (37, 29), 3), (24, (20, 13), 4),
+                                        (96, (15, 9), 5), (96, (1, 3), 2),
+                                        (12, (80, 80), 12)])
+def test_batched_k5_matches_twin_and_batch_1(dev, restore_mode, form, c, hw,
+                                             batch):
+    """K5 at a batch (the image is the grid's z), f32 and both one-pass
+    forms, forward and reverse: against the twin (f32: 2e-4; one-pass: max
+    2e-2 and mean 1e-4, a tie flip) and each image bit for bit its own
+    batch-1 launch."""
+    step = random_flow_step(c, seed=c)
+    pt = step.kpacked.to(dev)
+    pb = None if form is None else flow_step.pack_step_bf16(
+        step.actnorm, step.invconv, step.affine, form).to(dev)
+    xt, rt = _k5_batch(c, hw, batch, dev)
+    restore_mode.set_default_precision("high" if form is None else "default")
+    name = ("flow_step" if form is None else "flow_step_bf16" if form == "xla"
+            else "flow_step_bf16_pallas")
+    kcuda.reset_launch_counts()
+    y = flow_step.flow_step_forward(xt, rt, pt, 64, pb, form or "xla")
+    back = flow_step.flow_step_reverse(y, rt, pt, 64, pb, form or "xla")
+    assert kcuda.LAUNCHES[f"{name}_forward"] == 1, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES[f"{name}_reverse"] == 1, kcuda.LAUNCHES
+    assert y.shape == back.shape == (batch, *hw, c)
+    if form is None:
+        torch.testing.assert_close(
+            y, flow_step.flow_step_forward_plain(xt, rt, pt, 64),
+            atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(
+            back, flow_step.flow_step_reverse_plain(y, rt, pt, 64),
+            atol=2e-4, rtol=2e-4)
+    else:
+        fwd = flow_step.BF16_FORMS[form, False][1]
+        rev = flow_step.BF16_FORMS[form, True][1]
+        for got, twin in ((y, fwd(xt, rt, pb, 64)), (back, rev(y, rt, pb, 64))):
+            err = (got - twin).abs()
+            assert torch.isfinite(got).all()
+            assert float(err.max()) <= 2e-2, float(err.max())
+            assert float(err.mean()) <= 1e-4, float(err.mean())
+    for i in range(batch):
+        xi, ri = xt[i:i + 1], rt[i:i + 1]
+        assert torch.equal(y[i:i + 1], flow_step.flow_step_forward(
+            xi, ri, pt, 64, pb, form or "xla")), i
+        assert torch.equal(back[i:i + 1], flow_step.flow_step_reverse(
+            y[i:i + 1], ri, pt, 64, pb, form or "xla")), i
+
+
+def test_k5_wrapper_raises_on_a_batch_it_does_not_take(dev):
+    step = random_flow_step(12)
+    x = torch.zeros((2, 4, 4, 12), device=dev)
+    with pytest.raises(ValueError):   # one record per image
+        flow_step.flow_step_forward(
+            x, torch.zeros((1, 4, 4, 2 * 12 + 64), device=dev),
+            step.kpacked.to(dev), 64)
+    with pytest.raises(ValueError):   # the batch is the grid's z
+        flow_step.flow_step_forward(
+            torch.zeros((65536, 1, 1, 12), device=dev),
+            torch.zeros((65536, 1, 1, 2 * 12 + 64), device=dev),
+            step.kpacked.to(dev), 64)
+
+
+@pytest.mark.parametrize("form", [None, "xla"])
+@pytest.mark.parametrize("c,hw", [(12, (40, 33)), (24, (20, 13)),
+                                  (96, (10, 10))])
+def test_flow_step_reverse_gradient_on_the_card(dev, restore_mode, form, c,
+                                                hw):
+    """FlowStepReverse: K5's reverse forward (one launch) and the gradient
+    of the twin in the same form, against autograd through that twin
+    (``flow_step_reverse_twin``) on the card.  Both differentiate the same
+    twin at the same state; the library's sums may run in another order,
+    which in the one-pass form can flip a gradient's bf16 rounding at a
+    tie (max 2e-2, mean 1e-4, as the one-pass kernels)."""
+    step = random_flow_step(c, seed=c)
+    pt, pb = step.kpacked.to(dev), step.kpacked_bf16.to(dev)
+    xt, rt = _k5_batch(c, hw, 3, dev, seed=2)
+    up = _t(_gen(c).standard_normal((3, *hw, c)), dev)
+    restore_mode.set_default_precision("high" if form is None else "default")
+    name = "flow_step_reverse" if form is None else "flow_step_bf16_reverse"
+    before = kcuda.LAUNCHES[name]
+    x = xt.clone().requires_grad_(True)
+    y = flow_step.flow_step_reverse_diff(x, rt, pt, 64, pb)
+    assert kcuda.LAUNCHES[name] == before + 1
+    (gx,) = torch.autograd.grad(y, x, up)
+    xr = xt.clone().requires_grad_(True)
+    yr = flow_step.flow_step_reverse_twin(xr, rt, pt, 64, pb)
+    (gr,) = torch.autograd.grad(yr, xr, up)
+    tol = 2e-4 if form is None else 2e-2
+    assert float((y.detach() - yr.detach()).abs().max()) <= tol
+    if form is None:
+        torch.testing.assert_close(gx, gr, rtol=0,
+                                   atol=1e-5 * float(gr.abs().max()))
+    else:
+        err = (gx - gr).abs()
+        assert float(err.max()) <= 2e-2, float(err.max())
+        assert float(err.mean()) <= 1e-4, float(err.mean())
+
+
+def test_small_srflow_prior_step_kernel_path_matches_twin_path(dev):
+    """One SRFlow-LP prior train step at the smallest size the kernels
+    take (RRDB nf 16 x 2 blocks, gc 16; K 2, hidden 64; prior depth 2 /
+    dim 16; B 3 of 64^2 GT) with both losses, on the kernel path and on
+    the twin path from the same state: K3 on the RRDB's 30 dense-block
+    convs, K5 12 forward (both encodes) and 6 reverse (the decode); the
+    losses within 1e-4 relative and the gradients, as one vector, within
+    1e-2 relative L2 (the step's gradients move by ~2e-5 in relative L2
+    under a 1e-6 relative change of its inputs at this size, on the CPU)."""
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.entry import example_srflow_train_batch
+    from bfsr_tpu_torch.models.base import seeded
+    from bfsr_tpu_torch.pipelines.srflow_prior_train import (
+        make_srflow_prior_train_step)
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    model = registry.make({"name": "srflow", "args": {
+        "nf": 16, "nb": 2, "gc": 16, "K": 2, "L": 3, "hidden_channels": 64,
+        "stack_blocks": (0, 1)}})
+    model.reset_parameters(seeded(3))
+    model = model.to(dev).eval().freeze()
+    prior = registry.make({"name": "srflow-unet",
+                           "args": {"depth": 2, "dim": 16}}).to(dev).train()
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    batch = example_srflow_train_batch(dev, 0, batch=3, gt_size=64)
+    kcuda.reset_launch_counts()
+    mets, grads, _ = make_srflow_prior_train_step(
+        model, prior, opt, 1.0, 1.0).loss_and_grads(batch)
+    assert {k: v for k, v in kcuda.LAUNCHES.items() if v} == {
+        "conv3x3_cat": 30, "flow_step_forward": 12,
+        "flow_step_reverse": 6}, kcuda.LAUNCHES
+    kcuda.reset_launch_counts()
+    ref_mets, ref_grads, _ = make_srflow_prior_train_step(
+        model, prior, opt, 1.0, 1.0, kernels=False).loss_and_grads(batch)
+    assert not any(kcuda.LAUNCHES.values()), kcuda.LAUNCHES
+    for k in mets:
+        torch.testing.assert_close(mets[k], ref_mets[k], rtol=1e-4, atol=0)
+    g = torch.cat([v.flatten() for v in grads.values()])
+    r = torch.cat([ref_grads[k].flatten() for k in grads])
+    assert torch.isfinite(g).all()
+    assert float((g - r).norm() / r.norm()) <= 1e-2
