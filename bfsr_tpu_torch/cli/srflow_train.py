@@ -114,44 +114,55 @@ def build_srflow(opt):
             "quant", 32)}})
 
 
-def _state_dict(path):
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+def _state_dict(sd):
     sd = sd.get("state_dict", sd)
     return {k[len("module."):] if k.startswith("module.") else k: v
             for k, v in sd.items()}
 
 
 def load_srflow(opt, device):
-    """The frozen flow: ``model_path``'s weights, else random."""
+    """The frozen flow: ``model_path``'s weights (a torch file of the
+    reference's ``state_dict``, or a JAX ``.ckpt`` with ``params``), else
+    random.  Shared by the trainer and ``cli/srflow_test.py``."""
+    from bfsr_tpu_torch.convert.from_jax import srflow_state_dict
+    from bfsr_tpu_torch.convert.load import read_checkpoint
+
     model = build_srflow(opt)
     path = opt.get("model_path")
     if path and os.path.exists(path):
-        model.load_state_dict(_state_dict(path))
+        kind, payload = read_checkpoint(path)
+        model.load_state_dict(_state_dict(payload) if kind == "torch" else
+                              srflow_state_dict(payload["params"],
+                                                model.plan))
     else:
         log(f"WARNING: model_path {path!r} missing; random init (smoke-test "
             "mode)")
     return model.to(device).eval().freeze()
 
 
-def load_prior(opt, device):
-    """The prior to train: ``prior_model_path`` (a checkpoint of this
-    trainer, or the reference's ``state_dict``), else random."""
+def load_prior(opt, device, train=True):
+    """The prior: ``prior_model_path`` (a checkpoint of this trainer, the
+    reference's ``state_dict`` or a JAX ``.ckpt``), else random; in train
+    mode for the trainer, else eval mode and frozen.  Shared by the
+    trainer and ``cli/srflow_test.py``."""
+    from bfsr_tpu_torch.convert.load import load_prior_model, read_checkpoint
+
     spec = dict(opt["prior_model"])
     if spec["name"] == "unet":
         spec = {"name": "srflow-unet", "args": spec.get("args") or {}}
     path = opt.get("prior_model_path")
     if path and os.path.exists(path):
-        sv = torch.load(path, map_location="cpu", weights_only=True)
-        if "prior_model" in sv:
-            spec, sd = sv["prior_model"], sv["prior_model"]["sd"]
+        kind, payload = read_checkpoint(path)
+        if kind == "torch" and "prior_model" not in payload:
+            prior = registry.make(spec)
+            prior.load_state_dict(_state_dict(payload))
         else:
-            sd = _state_dict(path)
-        prior = registry.make(spec)
-        prior.load_state_dict(sd)
+            prior = load_prior_model(path, device)
     else:
         log(f"WARNING: prior_model_path {path!r} missing; random init")
         prior = registry.make(spec)
-    return prior.to(device).train()
+    prior = prior.to(device)
+    return prior.train() if train else prior.eval().freeze()
 
 
 def _save(path, prior, optimizer, opt_spec, it):

@@ -11,7 +11,15 @@ wrapper specs, ``batch_size``; ``-crop`` is appended to the wrapper's
 name), ``model`` and its ``resume`` checkpoint, ``prior_model`` and
 ``resume_prior_model``, ``optimizer``, ``epoch_max``, ``multi_step_lr``
 (milestones in epochs, stepped per iteration), ``loss_weight`` {vgg,
-latent}, ``data_norm``, ``epoch_save`` and ``vgg_weights``.  ``resume``
+latent}, ``data_norm``, ``epoch_save``, ``vgg_weights``, and
+``val_dataset`` (dataset and wrapper specs, ``batch_size``) with
+``epoch_val``, ``eval_type`` and ``eval_bsize``: every ``epoch_val``
+epochs it logs ``val: psnr=`` and writes the scalar ``psnr``, the mean
+PSNR of ``pipelines.linf_eval.eval_psnr`` over the val loader.  The
+config's val wrapper (``sr-implicit-downsampled-fast`` with
+``inp_size``) draws a random subset of HR queries, not a grid:
+``eval_psnr`` predicts each query at its own coordinate
+(``LINFPredictor.predict``), the reference's semantics.  ``resume``
 and ``vgg_weights`` are torch files: the reference's LINF checkpoint
 (``{'model': {'name', 'args', 'sd'}}``) and torchvision's VGG19
 ``state_dict``.  Each epoch writes ``prior_model-epoch-last.ckpt`` (and
@@ -25,9 +33,10 @@ prior's ``in_chans`` 3 PS^2.  ``--precision`` sets the mode
 (``ops/nn.py``): ``mixed`` trains the prior in bf16, ``default`` every
 conv that reads the mode.
 
-Not yet ported, and refused or skipped with a message: the ``grain``
-loader, and validation (``val_dataset``, ``epoch_val``: the batched eval
-of the ``sr-implicit-downsampled-fast`` wrapper).
+Not yet ported: the ``grain`` loader, refused with a message; and
+validation of the patch model, skipped with a warning (``--patch`` with
+a ``val_dataset`` trains without it): the val wrapper's random query
+subset has no patch-centre grid to fold into (``ROADMAP.md`` queue 3).
 """
 
 import argparse
@@ -43,6 +52,7 @@ import bfsr_tpu_torch.models  # noqa: F401  (registers)
 from bfsr_tpu_torch import registry
 from bfsr_tpu_torch.data.loader import DataLoader
 from bfsr_tpu_torch.ops import nn as fnn
+from bfsr_tpu_torch.pipelines.linf_eval import eval_psnr
 from bfsr_tpu_torch.pipelines.linf_train import make_train_step
 from bfsr_tpu_torch.train import checkpoints as ckpt
 from bfsr_tpu_torch.train.optim import (lr_scheduler, make_optimizer,
@@ -53,20 +63,26 @@ from bfsr_tpu_torch.utils.misc import (Averager, Timer, compute_num_params,
 LATER = {"grain": "the grain loader is not ported (multi-GPU sharding, a "
                   "later slice); drop 'loader: grain' to use the "
                   "thread-prefetch DataLoader",
-         "validation": "val_dataset is not read: validation during "
-                       "training is not ported yet"}
+         "patch validation": "validation of the patch model (--patch with a "
+                             "val_dataset) is not ported: the val wrapper's "
+                             "random query subset has no patch-centre grid "
+                             "to fold into, in the JAX package either "
+                             "(ROADMAP.md queue 3); this run trains "
+                             "without validation"}
 
 
-def make_data_loader(spec, seed=0):
+def make_data_loader(spec, seed=0, tag="train"):
+    """The loader of a dataset spec: shuffled for ``tag`` 'train', in
+    order for 'val'."""
     dataset = registry.make(spec["dataset"])
     dataset = registry.make({"name": spec["wrapper"]["name"],
                              "args": {**(spec["wrapper"].get("args") or {}),
                                       "dataset": dataset}})
-    log(f"train dataset: size={len(dataset)}")
+    log(f"{tag} dataset: size={len(dataset)}")
     if spec.get("loader") == "grain":
         raise SystemExit(LATER["grain"])
-    return DataLoader(dataset, batch_size=spec["batch_size"], shuffle=True,
-                      num_workers=4, seed=seed)
+    return DataLoader(dataset, batch_size=spec["batch_size"],
+                      shuffle=tag == "train", num_workers=4, seed=seed)
 
 
 def load_linf(config, device):
@@ -111,8 +127,12 @@ def main(config, save_path, seed=0, device="cuda"):
         yaml.dump(config, f, sort_keys=False)
     device = torch.device(device)
     train_loader = make_data_loader(config["train_dataset"], seed)
+    val_loader = None
     if config.get("val_dataset"):
-        log(f"WARNING: {LATER['validation']}")
+        if config["model"]["name"].endswith("-patch"):
+            log(f"WARNING: {LATER['patch validation']}")
+        else:
+            val_loader = make_data_loader(config["val_dataset"], seed, "val")
     data_norm = config.get("data_norm") or {
         "inp": {"sub": [0], "div": [1]}, "gt": {"sub": [0], "div": [1]}}
 
@@ -154,6 +174,7 @@ def main(config, save_path, seed=0, device="cuda"):
                            data_norm=data_norm, scheduler=scheduler)
 
     epoch_max, epoch_save = config["epoch_max"], config.get("epoch_save")
+    epoch_val = config.get("epoch_val")
     timer = Timer()
     for epoch in range(epoch_start, epoch_max + 1):
         t_epoch = timer.t()
@@ -172,10 +193,20 @@ def main(config, save_path, seed=0, device="cuda"):
             ckpt.save_checkpoint(
                 os.path.join(save_path, f"prior_model-epoch-{epoch}.ckpt"),
                 sv)
+        val = ""
+        if epoch_val and epoch % epoch_val == 0 and val_loader is not None:
+            prior.eval()
+            psnr = eval_psnr(val_loader, linf, prior.freeze(),
+                             data_norm=data_norm,
+                             eval_type=config.get("eval_type"),
+                             eval_bsize=config.get("eval_bsize"))
+            prior.train()
+            val = f"val: psnr={psnr:.4f}, "
+            writer.add_scalar("psnr", psnr, epoch)
         t = timer.t()
         prog = (epoch - epoch_start + 1) / (epoch_max - epoch_start + 1)
         log(f"epoch {epoch}/{epoch_max}, train: vgg_l={vgg_avg.item():.4f}, "
-            f"latent_l: {lat_avg.item():.4f}, {time_text(t - t_epoch)} "
+            f"latent_l: {lat_avg.item():.4f}, {val}{time_text(t - t_epoch)} "
             f"{time_text(t)}/{time_text(t / prog)}")
         writer.flush()
     writer.close()

@@ -14,6 +14,8 @@ back to the same pytree.
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
   (the running stats too, so a trainer's BN state carries over);
 * VGG19 convs -> torchvision's ``features.{i}`` indices;
+* LPIPS's AlexNet convs -> the ``lpips`` package's ``net.slice{k}.{i}``,
+  its lin heads (C, 1) -> ``lin{k}.model.1.weight`` (1, C, 1, 1);
 * SRFlow actnorm bias/logs (C,) -> (1, C, 1, 1), Conv2dZeros logs (C,) ->
   (C, 1, 1), invconv ``w`` (C, C) as it is (``w_inv`` and the folds are
   recomputed in float64 by ``freeze()``).
@@ -214,3 +216,17 @@ def load_unet(prior, params):
     """Install JAX UNet params into a port ``UNet`` and freeze it."""
     prior.load_state_dict(unet_state_dict(params))
     return prior.freeze()
+
+
+def lpips_state_dict(params):
+    """The published ``lpips`` package's keys for JAX LPIPS params
+    (``{'convs': [{'w', 'b'}] x5, 'lins': [(C, 1)] x5}``)."""
+    from bfsr_tpu_torch.models.lpips import _FEATURES, _SLICES
+
+    sd = {}
+    for k, ((lo, hi), p) in enumerate(zip(_SLICES, params["convs"])):
+        i = next(i for i in range(lo, hi) if isinstance(_FEATURES[i], tuple))
+        _conv(sd, f"net.slice{k + 1}.{i}", p)
+    for i, w in enumerate(params["lins"]):
+        sd[f"lin{i}.model.1.weight"] = _t(np.asarray(w).T[:, :, None, None])
+    return sd

@@ -1,6 +1,7 @@
 """``image-folder``: the images of a directory as float32 HWC arrays in
-[0, 1], the counterpart of ``bfsr_tpu/data/image_folder.py``'s (the
-reference's ``LINF-LP/datasets/image_folder.py``).
+[0, 1], and ``paired-image-folders``, two of them item by item: the
+counterparts of ``bfsr_tpu/data/image_folder.py``'s (the reference's
+``LINF-LP/datasets/image_folder.py``).
 
 Cache modes: 'none' (decode at each access), 'bin' (a one-time pickle of
 each decoded uint8 array in ``bin_<folder>`` beside the folder) and
@@ -67,3 +68,19 @@ class ImageFolder:
             with open(x, "rb") as f:
                 return np.asarray(pickle.load(f), np.float32) / 255.0
         return x
+
+
+@register("paired-image-folders")
+class PairedImageFolders:
+    """Two ``image-folder`` s item by item (LR, HR), with the same
+    arguments and cache mode."""
+
+    def __init__(self, root_path_1, root_path_2, **kwargs):
+        self.dataset_1 = ImageFolder(root_path_1, **kwargs)
+        self.dataset_2 = ImageFolder(root_path_2, **kwargs)
+
+    def __len__(self):
+        return len(self.dataset_1)
+
+    def __getitem__(self, idx):
+        return self.dataset_1[idx], self.dataset_2[idx]

@@ -1,8 +1,12 @@
 """Dataset wrappers, host-side numpy: the counterpart of
 ``bfsr_tpu/data/wrappers.py``'s ``sr-implicit-paired-fast`` and
-``sr-implicit-paired-fast-patch`` (the wrappers of the LINF-LP eval
-configs), ``sr-implicit-downsampled-fast-crop`` (the trainer's) and
-``sr-implicit-downsampled-fast-crop-patch`` (the patch trainer's).
+``sr-implicit-paired-fast-patch`` (the wrappers of the paired eval
+configs), ``sr-implicit-downsampled-fast`` (the downsampling eval configs'
+and the trainer's validation wrapper) and
+``sr-implicit-downsampled-fast-patch-test`` (its patch form under
+``test.py --patch``), ``sr-implicit-downsampled-fast-crop`` (the
+trainer's) and ``sr-implicit-downsampled-fast-crop-patch`` (the patch
+trainer's).
 
 The train wrapper takes a dataset of HR float32 HWC images in [0, 1]; per
 item it draws a scale from U(1, ``scale_max``), crops an HR window of
@@ -20,24 +24,33 @@ window's own coords for the LR add-back (``interpolate_coord``) and the HR
 window (``gt``); it pads the window only where ps does not divide it, as
 the JAX wrapper does (``pad_amount``).
 
-The eval wrappers take a dataset of (LR, HR) float32 HWC arrays in
+The downsampling wrappers take HR images too (``downsample_crop``): a
+scale from U(``scale_min``, ``scale_max``); without ``inp_size`` the whole
+image, cut to a multiple of the scale, and its PIL-bicubic LR; with it a
+random square HR crop of round(``inp_size`` x scale) and an
+``inp_size``^2 LR.  ``sr-implicit-downsampled-fast`` then queries the
+whole HR grid, or, with ``inp_size``, a random subset of ``inp_size``^2
+HR queries drawn by ``np.random.choice`` (not a grid: ``eval_psnr``
+predicts each at its own coordinate).  Its draws follow the JAX
+wrapper's, from ``random`` and ``np.random`` in the same order.
+
+The paired eval wrappers take a dataset of (LR, HR) float32 HWC arrays in
 [0, 1].  Each item is a dict of arrays:
 ``inp`` (h, w, 3), ``coord`` ((H, W, 2) grid centres in [-1, 1], axis 0
 the height), ``cell`` ((2,) = (2/H, 2/W)), ``gt`` (H, W, 3) and
 ``gt_lr_up``, the up-down-up residual of the normalised LR image.
 
-The patch wrapper unfolds the residual into ps x ps patches at stride ps
-in (c, ky, kx) channel order and queries the patch centres.  Like the
-reference, it always pads the HR grid, even where ps divides it: a centre
-that falls in the padding gets zero coords, and ``eval_psnr`` crops the
-folded image back to ``gt``.
+The patch eval wrappers unfold the residual into ps x ps patches at
+stride ps in (c, ky, kx) channel order and query the patch centres.  Like
+the reference, the paired one always pads the HR grid, even where ps
+divides it: a centre that falls in the padding gets zero coords, and
+``eval_psnr`` crops the folded image back to ``gt``.
 
 ``batches(dataset)`` adds the batch axis, as the JAX package's loader does
-at batch size 1.  The eval configs use these wrappers with no arguments;
-their train-time random crop and flips (``inp_size``, ``augment``) are not
-ported.
+at batch size 1.
 """
 
+import math
 import random
 
 import numpy as np
@@ -157,6 +170,111 @@ class SRImplicitPairedFastPatch:
                                                pad_w),
                 "coord": center_coords(base["coord"], ps, pad_h, pad_w),
                 "cell": base["cell"], "gt": base["gt"]}
+
+
+def downsample_crop(img, s, inp_size):
+    """(LR, HR, h_lr, w_lr, h_hr, w_hr) at scale ``s``: without
+    ``inp_size`` the image cut to round(floor(H / s) s) x round(floor(W /
+    s) s) and its PIL-bicubic LR; with it a random square HR crop of
+    round(``inp_size`` s) (two ``random.randint`` draws, both bounded by
+    the height, as the JAX wrapper draws them) and its ``inp_size``^2
+    LR."""
+    if inp_size is None:
+        h_lr = math.floor(img.shape[0] / s + 1e-9)
+        w_lr = math.floor(img.shape[1] / s + 1e-9)
+        h_hr, w_hr = round(h_lr * s), round(w_lr * s)
+        crop_hr = img[:h_hr, :w_hr]
+        return (resize_fn_pil(crop_hr, (h_lr, w_lr)), crop_hr, h_lr, w_lr,
+                h_hr, w_hr)
+    h_lr = w_lr = inp_size
+    h_hr = w_hr = round(inp_size * s)
+    x0 = random.randint(0, img.shape[0] - w_hr)
+    y0 = random.randint(0, img.shape[1] - w_hr)
+    crop_hr = img[x0:x0 + w_hr, y0:y0 + w_hr]
+    return resize_fn_pil(crop_hr, w_lr), crop_hr, h_lr, w_lr, h_hr, w_hr
+
+
+class _Downsampled:
+    """The downsampling wrappers' arguments and their per-item draws: a
+    scale, the crop and the flips."""
+
+    def __init__(self, dataset, inp_size=None, scale_min=1, scale_max=None,
+                 augment=False, patch_size=3):
+        self.dataset = dataset
+        self.inp_size = inp_size
+        self.scale_min = scale_min
+        self.scale_max = scale_max if scale_max is not None else scale_min
+        self.augment = augment
+        self.patch_size = patch_size
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def _crop(self, idx):
+        s = random.uniform(self.scale_min, self.scale_max)
+        crop_lr, crop_hr, h_lr, w_lr, h_hr, w_hr = downsample_crop(
+            self.dataset[idx], s, self.inp_size)
+        aug = augment_factory(self.augment)
+        return aug(crop_lr), aug(crop_hr), h_lr, w_lr, h_hr, w_hr
+
+
+@register("sr-implicit-downsampled-fast")
+class SRImplicitDownsampledFast(_Downsampled):
+    """HR images downsampled on the fly: the HR grid's coords, pixels,
+    the LR's up-down-up residual (``gt_lr_up``) and the HR residual
+    against the LR-up (``gt_pixel``); with ``inp_size`` a random subset of
+    ``inp_size``^2 of the crop's HR queries, laid out (inp_size, inp_size)
+    but not a grid."""
+
+    def __init__(self, dataset, inp_size=None, scale_min=1, scale_max=None,
+                 augment=False):
+        super().__init__(dataset, inp_size, scale_min, scale_max, augment)
+
+    def __getitem__(self, idx):
+        crop_lr, crop_hr, h_lr, w_lr, h_hr, w_hr = self._crop(idx)
+        coord = make_coord((h_hr, w_hr), flatten=False)
+        lr_up, lr_up_residual = residuals(crop_lr, crop_hr.shape[:2])
+        hr_residual = (((crop_hr - 0.5) / 0.5) - lr_up).astype(np.float32)
+        gt = crop_hr
+        if self.inp_size is not None:
+            sel = np.random.choice(h_hr * w_hr, h_lr * w_lr, replace=False)
+
+            def pick(a):
+                return a.reshape(-1, a.shape[-1])[sel].reshape(h_lr, w_lr, -1)
+
+            coord, gt, lr_up_residual, hr_residual = (
+                pick(a) for a in (coord, gt, lr_up_residual, hr_residual))
+        return {"inp": crop_lr, "coord": coord,
+                "cell": make_cell(crop_hr.shape[:2]), "gt": gt,
+                "gt_pixel": hr_residual, "gt_lr_up": lr_up_residual}
+
+
+@register("sr-implicit-downsampled-fast-patch-test")
+class SRImplicitDownsampledFastPatchTest(_Downsampled):
+    """``sr-implicit-downsampled-fast`` for a patch model at test time:
+    the residual unfolded into ps x ps patches at stride ps and the
+    patch-centre coords, the grid padded only where ps does not divide
+    it; with ``inp_size`` a random ``inp_size``^2 window of the HR
+    grid."""
+
+    def __getitem__(self, idx):
+        crop_lr, crop_hr, h_lr, w_lr, h_hr, w_hr = self._crop(idx)
+        ps = self.patch_size
+        coord = make_coord((h_hr, w_hr), flatten=False)
+        gt = crop_hr
+        lr_up_residual = residuals(crop_lr, crop_hr.shape[:2])[1]
+        if self.inp_size is not None:
+            x0 = random.randint(0, h_hr - h_lr)
+            y0 = random.randint(0, w_hr - w_lr)
+            coord = coord[x0:x0 + h_lr, y0:y0 + w_lr]
+            gt = crop_hr[x0:x0 + h_lr, y0:y0 + w_lr]
+        h, w = coord.shape[:2]
+        pad_h, pad_w = pad_amount(h, ps), pad_amount(w, ps)
+        return {"inp": crop_lr,
+                "gt_lr_up": patchify_stride_ps(lr_up_residual, ps, pad_h,
+                                               pad_w),
+                "coord": center_coords(coord, ps, pad_h, pad_w),
+                "cell": make_cell(crop_hr.shape[:2]), "gt": gt}
 
 
 def train_crops(img, n_lr, scale_max, augment, window):

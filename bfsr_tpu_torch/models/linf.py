@@ -49,7 +49,8 @@ from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.cuda import linf_flow
 from bfsr_tpu_torch.ops.cuda.linf_info import (affine_info, affine_info_plain,
                                                nearest_index, pack_mlp)
-from bfsr_tpu_torch.ops.interp import grid_sample_bilinear_separable
+from bfsr_tpu_torch.ops.interp import (grid_sample_bilinear,
+                                       grid_sample_bilinear_separable)
 from bfsr_tpu_torch.registry import register
 
 # nearest_index: the closed-form nearest-LR-pixel lookup (round half to
@@ -221,18 +222,22 @@ class _LINFBase(Model):
         return log_p, z.reshape(*lead, self.dim)
 
     def query_rgb(self, inp, feat, coord, cell, temperature=0.0, zmap=None,
-                  generator=None, info=None, kernels=True):
+                  generator=None, info=None, kernels=True, grid=True):
         """Flow inverse of ``zmap`` (B, H, W, d) — or of zeros, or of
         N(0, temperature^2) noise drawn from ``generator`` — then, for the
         pixel model, the bilinear LR add-back (B, H, W, 3); for the patch
         model, the folded residual (B, H*ps, W*ps, 3) with no add-back.
-        ``info``: the grids' channel-major affine info if the caller has
-        it, else it is computed from ``feat``.  The result carries a
-        gradient with respect to ``zmap``."""
+        ``info``: the queries' channel-major affine info if the caller has
+        it, else it is computed from ``feat`` on the grids.  ``grid``:
+        whether ``coord`` is each sample's regular grid; if not, ``info``
+        is the caller's and the add-back samples the LR at each query's
+        own coordinate.  The result carries a gradient with respect to
+        ``zmap``."""
         B, H, W, _ = coord.shape
-        cy, cx = grid_axes(coord)
-        if info is None:
-            info = self.affine_info_grid(feat, cy, cx, cell, kernels)
+        if grid:
+            cy, cx = grid_axes(coord)
+            if info is None:
+                info = self.affine_info_grid(feat, cy, cx, cell, kernels)
         n = B * H * W
         if zmap is not None:
             z = zmap.reshape(n, self.dim).contiguous()
@@ -247,7 +252,9 @@ class _LINFBase(Model):
         pred = pred.reshape(B, H, W, self.dim)
         if self.patch_size != 1:
             return self.fold(pred)
-        return pred + grid_sample_bilinear_separable(inp, cy, cx)
+        if grid:
+            return pred + grid_sample_bilinear_separable(inp, cy, cx)
+        return pred + grid_sample_bilinear(inp, coord, "border")
 
     def fold(self, pred):
         """(B, Hq, Wq, 3 ps^2) -> (B, Hq ps, Wq ps, 3), each query's vector

@@ -3,7 +3,9 @@
 The counterpart of ``bfsr_tpu/pipelines/srflow_eval.py``'s
 ``SRFlowLPPredictor``.  Per LR image (batch 1):
 
-1. reflect-pad to even H and W;
+1. pad H and W to a multiple of ``pad_multiple`` (the protocol's 2 at
+   least): reflect-pad to even, or for a larger multiple, as the JAX
+   predictor does, pad with the image's mirror (numpy's 'symmetric');
 2. bilinear up x4 (the image the flow encodes);
 3. the RRDB conditioning (K3 on CUDA for the dense blocks) with the
    nearest-up block stack appended (320 channels at the flagship);
@@ -13,13 +15,14 @@ The counterpart of ``bfsr_tpu/pipelines/srflow_eval.py``'s
 6. standardise each eps per pixel over channels (ddof=1);
 7. the two-branch UNet prior (K3 at full resolution);
 8. decode the learned epses (48 K5 launches);
-9. clip to [0, 1] and crop.
+9. clip to [0, 1] and crop back to the unpadded image's SR.
 
 ``kernels=True`` runs each stage's kernel wrapper (the CUDA kernel for a
 CUDA tensor, the plain twin for a CPU tensor); ``kernels=False`` runs the
 plain twins and the unfused flow steps on any device, the reference the
-kernel path is held to.  The kernels take any extent, so the pad is the
-protocol's %2 only.
+kernel path is held to.  The kernels take any extent: a larger
+``pad_multiple`` buckets shapes for the JAX compiler and here only
+changes the border, as there.
 
 Precision modes (``ops/nn.py``): step 7 is the ``prior`` stage, so under
 ``mixed`` the prior's convs take bf16 operands (its 18 full-resolution
@@ -47,29 +50,38 @@ from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 STAGES = ("rrdb", "precompute_ft", "encode", "prior", "decode")
 
 
-def pad_to_even(lr_img01):
-    """(h, w, 3) -> (1, h + h % 2, w + w % 2, 3), reflect-padded at the
-    bottom and right (the protocol's %2 pad)."""
+def pad_to_multiple(lr_img01, multiple=2):
+    """(h, w, 3) -> (1, h', w', 3), h' and w' the next multiples of
+    ``multiple`` (at least 2), padded at the bottom and right: reflected
+    for the protocol's %2 pad, mirrored with the edge (numpy's
+    'symmetric', up to the image's size) for a larger multiple."""
+    m = max(2, int(multiple or 2))
     h, w = lr_img01.shape[:2]
-    x = nhwc_to_nchw(lr_img01[None].float())
-    if h % 2 or w % 2:
-        x = F.pad(x, (0, w % 2, 0, h % 2), mode="reflect")
-    return nchw_to_nhwc(x)
+    x = lr_img01[None].float()
+    if m == 2:
+        if h % 2 or w % 2:
+            x = nchw_to_nhwc(F.pad(nhwc_to_nchw(x), (0, w % 2, 0, h % 2),
+                                   mode="reflect"))
+        return x
+    hp, wp = -(-h // m) * m, -(-w // m) * m
+    x = torch.cat([x, x.flip(1)], 1)[:, :hp]
+    return torch.cat([x, x.flip(2)], 2)[:, :, :wp].contiguous()
 
 
 class SRFlowLPPredictor:
     """Whole-image predictor for a frozen SRFlowNet and its prior."""
 
-    def __init__(self, model, prior_model, kernels=True):
+    def __init__(self, model, prior_model, kernels=True, pad_multiple=2):
         if not model.flowUpsamplerNet.frozen():
             raise ValueError("freeze() the SRFlow model before predicting")
         self.model = model
         self.prior = prior_model
         self.kernels = kernels
+        self.pad_multiple = max(2, int(pad_multiple or 2))
 
     @torch.inference_mode()
     def run(self, lr, mark=None):
-        """lr: (1, h, w, 3) with h, w even -> the SR image (1, 4h, 4w, 3),
+        """lr: (1, h, w, 3) with h, w even (``pad_to_multiple``) -> the SR image (1, 4h, 4w, 3),
         unclipped.  ``mark(stage)``, if given, is called after each of
         ``STAGES``."""
         model, k = self.model, self.kernels
@@ -100,6 +112,6 @@ class SRFlowLPPredictor:
             lr_img01 = torch.as_tensor(lr_img01, dtype=torch.float32,
                                        device=dev)
         h, w = lr_img01.shape[:2]
-        sr = self.run(pad_to_even(lr_img01))
+        sr = self.run(pad_to_multiple(lr_img01, self.pad_multiple))
         s = self.model.scale
         return torch.clamp(sr[0], 0.0, 1.0)[: h * s, : w * s]

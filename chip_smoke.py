@@ -140,8 +140,34 @@ fails (non-zero exit, no result line) if any phase fails:
    ``default`` with the image loss (``default``: the bf16 K3 345, the
    one-pass K5 96 + 48), held as phase 11 holds the LINF modes, the
    three modes timed interleaved, ``mixed`` and ``default`` split into
-   stages and a ``default`` step profiled.  It prints the run's seconds
-   in all.
+   stages and a ``default`` step profiled;
+13. the evaluation entry points, in-process, on data the phase writes to
+   a temporary directory (smooth random HR PNGs of 256x192 from
+   ``np.random.default_rng``, their x4 LR by PIL bicubic, a val folder)
+   and the flagship models saved as port checkpoints (random weights,
+   seed 0), each launch counted per image or batch (``EVAL_LAUNCHES``):
+   (a) the ``test.py`` twin (``bfsr_tpu_torch/cli/test.py``) on copies
+   of the three shipped ``configs/test/*.yaml`` with their paths
+   rewritten, 2 images each, kernel path against twin path (PSNR within
+   ``TOL['eval_psnr_db']``, the first pair's predict image by image
+   within ``TOL['image']``), then ``--detail`` with a random LPIPS file,
+   ``--randomness --temperature 0.8`` without a prior (diversity > 0),
+   ``--sample 1`` (the PNG written), ``--window 8`` and ``--patch`` on
+   the patch model through ``sr-implicit-downsampled-fast-patch-test``;
+   one DIV2K-size frame (HR 2040x1356, LR 510x339) on both paths (PSNR,
+   and the image within ``TOL['image']``), its ms per image, HR MP/s and
+   peak memory; (b) validation: ``eval_psnr`` over 2 batches of 16 val
+   crops (``sr-implicit-downsampled-fast`` at ``inp_size`` 48), each
+   query at its own coordinate, on both paths (PSNR, and the first
+   batch's images within ``TOL['image']``), the seconds a batch; one
+   ``cli/train.py`` epoch with ``epoch_val: 1``,
+   whose ``val: psnr=`` must be finite; (c) the ``srflow_test.py`` twin
+   (``bfsr_tpu_torch/cli/srflow_test.py``) on the LR / HR pairs with the
+   flagship SRFlow-LP conf, paths rewritten, on both paths (PSNR and LRC
+   PSNR within ``TOL['eval_psnr_db']``, SSIM within ``TOL['eval_ssim']``;
+   the CSV's 2 rows of 6 columns; the first LR's predict held as phase
+   7 holds SRFlow-LP's, within ``TOL['srflow_image']``).  It prints the phase's seconds, and
+   the run's seconds in all.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -155,7 +181,8 @@ K4, both K3s and K5 (f32 and the served one-pass form) also carry
 ``train_checks``, phases 10-12's checks at the trainers' shapes, K1's and
 K4's inverse with ``FlowInverse``'s gradient, K5's reverse with
 ``FlowStepReverse``'s; ``launches_by_path`` gives a step's launches on
-each trainer and mode);
+each trainer and mode, and an image's or a val batch's on the evaluation
+entry points);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": N}}``.
 """
@@ -167,6 +194,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 # the checkout this script belongs to: bfsr_tpu_torch is imported from here
 ROOT = Path(__file__).resolve().parent
@@ -215,7 +243,14 @@ TOL = {"linf_flow_forward": 1e-5, "linf_flow_inverse": 1e-4,
        # can flip the bf16 rounding of a gradient at a tie, as in the
        # kernels above (3.1e-5 at level 3, PERF.md)
        "flow_step_reverse_grad": (1e-5, 1e-5),
-       "flow_step_bf16_reverse_grad": {"max": 2e-2, "mean": 1e-4}}
+       "flow_step_bf16_reverse_grad": {"max": 2e-2, "mean": 1e-4},
+       # the evaluation entry points, kernel path against twin path: each
+       # predict's image is held to TOL['image'] (TOL['srflow_image']) on
+       # its own; the PSNRs at random weights lie near 6 dB, where 0.01
+       # dB would let the MSE move 0.23%: 1e-4 dB (at most 2.8e-5 read,
+       # PERF.md), and SSIM on uint8 images a rounding flip apart at most
+       # here and there
+       "eval_psnr_db": 1e-4, "eval_ssim": 1e-4}
 # agreement (PSNR of a mode's output against high's, [0, 1] scale, as
 # bench.py:run_precision_delta computes it, profiling/mode_agreement.py):
 # sanity floors, in dB
@@ -294,6 +329,23 @@ PATCH_TRAIN_LAUNCHES = {"conv3x3_cat": 34, "linf_info": 1,
 # vs_high_rel is five times that, a sanity floor as the serving modes'
 # agreement floors are.
 MODE_TRAIN_TOL = {"vs_high_rel": 1e-2, "loss_rel": 2.0 ** -10}
+# phase 13: the eval data (HR 256x192, x4), the DIV2K-size frame, the val
+# batches, and each entry point's launches an image or a val batch, under
+# high: the test.py twin's (the grid predict), its patch model's, a val
+# batch's (the encoder's 34 and the prior's 9 convs at B 16, K1 both ways
+# over 36,864 queries; the info at each query's own coords is plain torch,
+# no K2) and the srflow_test.py twin's
+EVAL_HR, EVAL_SCALE, EVAL_DIV2K_HR = (192, 256), 4, (1356, 2040)
+VAL_BATCH, VAL_BATCHES, VAL_INP = 16, 2, 48
+EVAL_LAUNCHES = {
+    "test": {"conv3x3_cat": 43, "linf_info": 1, "linf_flow_forward": 1,
+             "linf_flow_inverse": 1},
+    "test_patch": {"conv3x3_cat": 43, "linf_info": 1,
+                   "linf_flow_nd_forward": 1, "linf_flow_nd_inverse": 1},
+    "val": {"conv3x3_cat": 43, "linf_flow_forward": 1,
+            "linf_flow_inverse": 1},
+    "srflow_test": {"conv3x3_cat": 363, "flow_step_forward": 48,
+                    "flow_step_reverse": 48}}
 KERNELS = {
     "linf_flow_forward": ("bfsr_tpu_torch/csrc/linf_flow.cu",
                           "bfsr_tpu/ops/pallas/linf_flow.py:47"),
@@ -942,7 +994,7 @@ def check_srflow_predict(model, prior, lr_img, label):
 
     from bfsr_tpu_torch.ops import cuda
     from bfsr_tpu_torch.pipelines.srflow_eval import (SRFlowLPPredictor,
-                                                      pad_to_even)
+                                                      pad_to_multiple)
 
     n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
     kernel_path = SRFlowLPPredictor(model, prior, kernels=True)
@@ -963,7 +1015,7 @@ def check_srflow_predict(model, prior, lr_img, label):
         raise RuntimeError(f"srflow predict {label}: launches {launches}, "
                            f"expected K5 {n_cond} each way and K3 > 0")
     err = float((out - ref).abs().max())
-    x = pad_to_even(lr_img)
+    x = pad_to_multiple(lr_img)
     sr, sr_ref = kernel_path.run(x), twin_path.run(x)
     torch.cuda.synchronize()
     scale = float(sr_ref.abs().max())
@@ -989,7 +1041,7 @@ def check_srflow_mixed(model, prior, lr_img, label, launches_high):
 
     from bfsr_tpu_torch.ops import cuda
     from bfsr_tpu_torch.pipelines.srflow_eval import (SRFlowLPPredictor,
-                                                      pad_to_even)
+                                                      pad_to_multiple)
     from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
 
     n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
@@ -1003,7 +1055,7 @@ def check_srflow_mixed(model, prior, lr_img, label, launches_high):
         torch.cuda.synchronize()
         launches = dict(cuda.LAUNCHES)
         ref = twin_path.predict(lr_img)
-        x = pad_to_even(lr_img)
+        x = pad_to_multiple(lr_img)
         sr, sr_ref = kernel_path.run(x), twin_path.run(x)
     torch.cuda.synchronize()
     want = {"flow_step_forward": n_cond, "flow_step_reverse": n_cond,
@@ -1080,7 +1132,7 @@ def check_srflow_default(model, prior, lr_img, label, launches_high):
 
     from bfsr_tpu_torch.ops import cuda
     from bfsr_tpu_torch.pipelines.srflow_eval import (SRFlowLPPredictor,
-                                                      pad_to_even)
+                                                      pad_to_multiple)
     from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
 
     n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
@@ -1094,7 +1146,7 @@ def check_srflow_default(model, prior, lr_img, label, launches_high):
         torch.cuda.synchronize()
         launches = dict(cuda.LAUNCHES)
         ref = twin_path.predict(lr_img)
-        x = pad_to_even(lr_img)
+        x = pad_to_multiple(lr_img)
         sr, sr_ref = kernel_path.run(x), twin_path.run(x)
     torch.cuda.synchronize()
     want = {"flow_step_bf16_forward": n_cond, "flow_step_bf16_reverse": n_cond,
@@ -1179,10 +1231,10 @@ def profile_srflow_stages(model, prior, lr_img, label, reps=3):
 
     from bfsr_tpu_torch.pipelines.srflow_eval import (STAGES,
                                                       SRFlowLPPredictor,
-                                                      pad_to_even)
+                                                      pad_to_multiple)
 
     pred = SRFlowLPPredictor(model, prior)
-    x = pad_to_even(lr_img)
+    x = pad_to_multiple(lr_img)
     per = {s: [] for s in STAGES}
     for _ in range(reps):
         marks = []
@@ -2266,6 +2318,483 @@ def run_srflow_trainer(dev):
     return checks, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the evaluation entry points
+# ---------------------------------------------------------------------------
+
+
+def counted(batches, counts):
+    """``batches`` with the launch counters reset before each is handed on
+    and read once it is done (when the next is asked for): one dict of
+    the kernels launched a batch, appended to ``counts``."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+
+    for batch in batches:
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        yield batch
+        torch.cuda.synchronize()
+        counts.append({k: v for k, v in cuda.LAUNCHES.items() if v})
+
+
+def counting_loader(counts):
+    """The port's ``DataLoader`` with ``counted`` batches."""
+    from bfsr_tpu_torch.data.loader import DataLoader
+
+    class CountingLoader(DataLoader):
+        def __iter__(self):
+            return counted(super().__iter__(), counts)
+
+    return CountingLoader
+
+
+def hold_launches(label, counts, want, n):
+    """Each of the ``n`` images' or batches' launches must be ``want``."""
+    if len(counts) != n or any(c != want for c in counts):
+        raise RuntimeError(f"{label}: launches {counts}, expected {n} x "
+                           f"{want}")
+
+
+def write_smooth_pngs(root, n, hw, seed):
+    """``n`` smooth random RGB PNGs of (h, w) ``hw`` in ``root``: a few
+    low-frequency sinusoids a channel, from ``np.random.default_rng(seed)``.
+    Returns their paths."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:hw[0], :hw[1]].astype(np.float32) / max(hw)
+    paths = []
+    for i in range(n):
+        img = np.full((*hw, 3), 0.5, np.float32)
+        for _ in range(4):
+            fy, fx = rng.uniform(-8, 8, 2)
+            img += (rng.uniform(0.02, 0.1, 3)
+                    * np.sin(2 * np.pi * (fy * y + fx * x)[..., None]
+                             + rng.uniform(0, 2 * np.pi, 3)))
+        paths.append(os.path.join(root, f"{i:04d}.png"))
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            paths[-1])
+    return paths
+
+
+def downscale_pngs(src, dst, s):
+    """Each PNG of ``src`` downscaled by ``s`` with PIL bicubic into
+    ``dst``, under its own name."""
+    import os
+
+    from PIL import Image
+
+    os.makedirs(dst, exist_ok=True)
+    for name in sorted(os.listdir(src)):
+        im = Image.open(os.path.join(src, name))
+        im.resize((im.width // s, im.height // s), Image.BICUBIC).save(
+            os.path.join(dst, name))
+
+
+def run_test_cli(argv, kernels, counts=None):
+    """``cli/test.py``'s main in this process on the card, on the kernel
+    or the twin path, each image's launches appended to ``counts``."""
+    from functools import partial
+
+    from bfsr_tpu_torch.cli import test as test_cli
+    from bfsr_tpu_torch.pipelines.linf_eval import eval_psnr
+
+    with mock.patch.object(test_cli, "DataLoader", counting_loader(
+            [] if counts is None else counts)), \
+            mock.patch.object(test_cli, "eval_psnr", partial(eval_psnr,
+                                                   kernels=kernels)):
+        return test_cli.main([*argv, "--device", "cuda"])
+
+
+def eval_test_cli(tmp, dev, models, launches):
+    """Phase 13 (a): the ``test.py`` twin on the three shipped test
+    configs, its flags, and the DIV2K-size frame."""
+    import math
+    import os
+
+    import torch
+    import yaml
+
+    from bfsr_tpu_torch.models.lpips import LPIPS
+    from bfsr_tpu_torch.train import checkpoints as ckpt
+
+    paths = {}
+    for tag, (m, p) in models.items():
+        for kind, mod, key in (("model", m, "model"),
+                               ("prior", p, "prior_model")):
+            paths[f"{tag}{kind}"] = os.path.join(tmp, f"{tag}{kind}.ckpt")
+            ckpt.save_checkpoint(paths[f"{tag}{kind}"], {key: {
+                **mod.spec(), "sd": mod.state_dict()}})
+    paths["lpips"] = os.path.join(tmp, "lpips.pth")
+    torch.save(LPIPS(seed=0).state_dict(), paths["lpips"])
+    cfgs = {}
+    for name in ("test-benchmark-4", "test-fast-div2k-4", "test-ood-div2k-8"):
+        with open(ROOT / "configs" / "test" / f"{name}.yaml") as f:
+            cfg = yaml.safe_load(f)
+        args = cfg["test_dataset"]["dataset"]["args"]
+        if "root_path" in args:
+            args["root_path"] = os.path.join(tmp, "hr")
+        else:
+            args["root_path_1"] = os.path.join(tmp, "lr")
+            args["root_path_2"] = os.path.join(tmp, "hr")
+        cfgs[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(cfgs[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+
+    def argv(cfg, *flags, tag="", prior=True):
+        return ["--config", cfg, "--model", paths[f"{tag}model"], *flags,
+                *(("--prior_model", paths[f"{tag}prior"]) if prior else ())]
+
+    def both(label, args, want):
+        counts, psnr = [], {}
+        t0 = time.perf_counter()
+        psnr["kernel"] = run_test_cli(args, True, counts)
+        t1 = time.perf_counter()
+        psnr["twin"] = run_test_cli(args, False)
+        hold_launches(label, counts, want, 2)
+        diff = abs(psnr["kernel"] - psnr["twin"])
+        log(f"eval test.py {label}: psnr kernel path {psnr['kernel']!r}, twin "
+            f"path {psnr['twin']!r} dB (|diff| {diff:.2e}, at most "
+            f"{TOL['eval_psnr_db']:g}); kernel path {t1 - t0:.2f} s for 2 "
+            f"images; launches an image {json.dumps(counts[0])}")
+        if not (math.isfinite(psnr["kernel"]) and diff <= TOL["eval_psnr_db"]):
+            raise RuntimeError(f"eval test.py {label}: kernel path "
+                               f"{psnr['kernel']} vs twin path "
+                               f"{psnr['twin']} dB")
+        return counts[0]
+
+    for name, cfg in cfgs.items():
+        launches["eval_test"] = both(name, argv(cfg), EVAL_LAUNCHES["test"])
+    div2k = cfgs["test-fast-div2k-4"]
+    res = run_test_cli(argv(div2k, "--detail", "--lpips_weights",
+                            paths["lpips"]), True)
+    if set(res) != {"psnr", "ssim", "lpips", "LR recon"} or not all(
+            math.isfinite(v) for v in res.values()):
+        raise RuntimeError(f"eval test.py --detail: {res}")
+    res = run_test_cli(argv(div2k, "--detail", "--no_lpips", "--randomness",
+                            "--temperature", "0.8", prior=False), True)
+    if not res["diversity"] > 0:
+        raise RuntimeError(f"eval test.py --randomness: {res}")
+    with contextlib.chdir(tmp):
+        run_test_cli(argv(div2k, "--sample", "1", "--name", "smoke"), True)
+    png = os.path.join(tmp, "sample", "smoke", "801x4.png")
+    if not os.path.exists(png):
+        raise RuntimeError(f"eval test.py --sample 1: no {png}")
+    res = run_test_cli(argv(div2k, "--window", "8"), True)
+    if not math.isfinite(res):
+        raise RuntimeError(f"eval test.py --window 8: {res}")
+    log(f"eval test.py: --detail (random LPIPS), --randomness --temperature "
+        f"0.8 (no prior; diversity > 0), --sample 1 ({png}) and --window 8 "
+        "ran")
+    launches["eval_test_patch"] = both(
+        "test-benchmark-4 --patch", argv(cfgs["test-benchmark-4"], "--patch",
+                                         tag="patch_"),
+        EVAL_LAUNCHES["test_patch"])
+    time_eval_predict(models[""], os.path.join(tmp, "lr"),
+                      os.path.join(tmp, "hr"), dev)
+
+
+def hold_images(label, out, ref, tol):
+    """The kernel path's image ``out`` must be finite, of ``ref``'s shape,
+    and within ``tol`` of the twin path's ``ref`` everywhere."""
+    import torch
+
+    err = (float((out - ref).abs().max()) if out.shape == ref.shape
+           else float("inf"))
+    log(f"{label}: shape {tuple(out.shape)}, max |kernel - twin| {err:.3e} "
+        f"(tol {tol:g}), max |twin| {float(ref.abs().max()):.3f}")
+    if not (torch.isfinite(out).all() and err <= tol):
+        raise RuntimeError(f"{label}: kernel path disagrees with the twin "
+                           f"path: {err:.3e}")
+
+
+def time_eval_predict(models, lr_dir, hr_dir, dev, label="eval test.py"):
+    """The predict of the first LR / HR pair (the paired wrapper's) on
+    both paths, the images held to ``TOL['image']``, then timed; returns
+    the kernel path's predict and its median ms."""
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch.data.image_folder import PairedImageFolders
+    from bfsr_tpu_torch.data.wrappers import SRImplicitPairedFast, batches
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+
+    model, prior = models
+    batch = next(batches(SRImplicitPairedFast(PairedImageFolders(lr_dir,
+                                                                 hr_dir))))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+
+    args = (t((batch["inp"] - 0.5) / 0.5), t(batch["coord"]),
+            t(batch["cell"]), t(batch["gt_lr_up"]))
+    paths = {k: (lambda p=LINFPredictor(model, prior, kernels=k == "kernel"):
+                 p.predict(*args)) for k in ("twin", "kernel")}
+    H, W = batch["gt"].shape[1:3]
+    h, w = batch["inp"].shape[1:3]
+    ref = paths["twin"]()
+    hold_images(f"{label} {w}x{h}->{W}x{H} image", paths["kernel"](), ref,
+                TOL["image"])
+    del ref
+    fast = H * W < 1e6
+    medians = time_paths(paths, H * W / 1e6, f"{label} {w}x{h}->{W}x{H}",
+                         blocks=3 if fast else 2, per_block=5 if fast else 2)
+    return paths["kernel"], medians["kernel"]
+
+
+def eval_div2k_frame(tmp, dev, model, prior):
+    """Phase 13 (a): one DIV2K-size frame (HR 2040x1356 at x4) through
+    ``eval_psnr`` on both paths with its launches counted, then its
+    predicts timed and the kernel path's peak memory."""
+    import os
+
+    import torch
+
+    from bfsr_tpu_torch.data.image_folder import PairedImageFolders
+    from bfsr_tpu_torch.data.wrappers import SRImplicitPairedFast, batches
+    from bfsr_tpu_torch.pipelines.linf_eval import eval_psnr
+
+    hr_dir, lr_dir = os.path.join(tmp, "div2k_hr"), os.path.join(tmp,
+                                                                  "div2k_lr")
+    write_smooth_pngs(hr_dir, 1, EVAL_DIV2K_HR, 5)
+    downscale_pngs(hr_dir, lr_dir, EVAL_SCALE)
+    t0 = time.perf_counter()
+    batch = next(batches(SRImplicitPairedFast(PairedImageFolders(lr_dir,
+                                                                 hr_dir))))
+    log(f"eval div2k frame: LR {batch['inp'].shape[1:3]} -> HR "
+        f"{batch['gt'].shape[1:3]}, wrapper (PNG decode, residual) "
+        f"{time.perf_counter() - t0:.2f} s on the host")
+    norm = {"inp": {"sub": [0.5], "div": [0.5]},
+            "gt": {"sub": [0.5], "div": [0.5]}}
+    psnr, counts = {}, []
+    for path in ("kernel", "twin"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        psnr[path] = eval_psnr(counted([batch], counts) if path == "kernel"
+                               else [batch], model, prior, data_norm=norm,
+                               eval_type="div2k-4", kernels=path == "kernel")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        log(f"eval div2k frame {path} path: psnr {psnr[path]!r} dB, peak "
+            f"{peak:.1f} MiB above {base / 2 ** 20:.1f} resident")
+    hold_launches("eval div2k frame", counts, EVAL_LAUNCHES["test"], 1)
+    if not abs(psnr["kernel"] - psnr["twin"]) <= TOL["eval_psnr_db"]:
+        raise RuntimeError(f"eval div2k frame: kernel path {psnr['kernel']} "
+                           f"vs twin path {psnr['twin']} dB")
+    fn, ms = time_eval_predict((model, prior), lr_dir, hr_dir, dev,
+                               "eval div2k")
+    profile_predict(fn, ms, "eval div2k 2040x1356", top=8)
+
+
+def eval_validation(tmp, dev, model, prior, launches):
+    """Phase 13 (b): eval_psnr over VAL_BATCHES batches of VAL_BATCH val
+    crops at inp_size VAL_INP (random query subsets), both paths; then one
+    ``cli/train.py`` epoch with validation."""
+    import math
+    import os
+    import random
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from bfsr_tpu_torch.cli import train as train_cli
+    from bfsr_tpu_torch.data.image_folder import ImageFolder
+    from bfsr_tpu_torch.data.loader import stack
+    from bfsr_tpu_torch.data.wrappers import SRImplicitDownsampledFast
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor, eval_psnr
+
+    val_dir = os.path.join(tmp, "val")
+    data = SRImplicitDownsampledFast(
+        ImageFolder(val_dir, repeat=8, cache="in_memory"), inp_size=VAL_INP,
+        scale_max=4)
+    random.seed(0)
+    np.random.seed(0)
+    items = [data[i] for i in range(VAL_BATCH * VAL_BATCHES)]
+    batches = [stack(items[i:i + VAL_BATCH])
+               for i in range(0, len(items), VAL_BATCH)]
+    norm = {"inp": {"sub": [0.5], "div": [0.5]},
+            "gt": {"sub": [0.5], "div": [0.5]}}
+    psnr, counts, secs = {}, [], {}
+    for path in ("kernel", "twin", "kernel"):
+        t0 = time.perf_counter()
+        psnr[path] = eval_psnr(
+            counted(batches, counts) if not counts and path == "kernel"
+            else batches, model, prior, data_norm=norm,
+            kernels=path == "kernel")
+        secs[path] = (time.perf_counter() - t0) / VAL_BATCHES
+    hold_launches("eval validation", counts, EVAL_LAUNCHES["val"],
+                  VAL_BATCHES)
+    launches["eval_val"] = counts[0]
+    b = batches[0]
+    args = [torch.as_tensor(a, device=dev) for a in (
+        (b["inp"] - 0.5) / 0.5, b["coord"], b["cell"], b["gt_lr_up"])]
+    args = [a.float() for a in args]
+    hold_images(f"eval validation batch of {VAL_BATCH} image",
+                *(LINFPredictor(model, prior, kernels=k).predict(*args)
+                  for k in (True, False)), TOL["image"])
+    diff = abs(psnr["kernel"] - psnr["twin"])
+    log(f"eval validation ({VAL_BATCHES} batches of {VAL_BATCH} crops at "
+        f"inp_size {VAL_INP}, each query at its own coordinate): psnr kernel "
+        f"path {psnr['kernel']!r}, twin path {psnr['twin']!r} dB (|diff| "
+        f"{diff:.2e}, at most {TOL['eval_psnr_db']:g}); {secs['kernel']:.4f} "
+        f"s a batch on the kernel path (the second run; host included), "
+        f"{secs['twin']:.4f} on the twin path; launches a batch "
+        f"{json.dumps(counts[0])}")
+    if not (math.isfinite(psnr["kernel"]) and diff <= TOL["eval_psnr_db"]):
+        raise RuntimeError(f"eval validation: kernel path {psnr['kernel']} "
+                           f"vs twin path {psnr['twin']} dB")
+
+    with open(ROOT / "configs" / "train"
+              / "train_edsr-baseline-linf-LP.yaml") as f:
+        cfg = yaml.safe_load(f)
+    train_args = cfg["train_dataset"]["dataset"]["args"]
+    train_args.update(root_path=os.path.join(tmp, "hr"), repeat=8)
+    val_args = cfg["val_dataset"]["dataset"]["args"]
+    val_args.update(root_path=val_dir, repeat=VAL_BATCH // 4)
+    cfg.update(epoch_max=1, epoch_val=1, epoch_save=None,
+               resume=os.path.join(tmp, "no-such.pth"))
+    with open(os.path.join(tmp, "train.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    t0 = time.perf_counter()
+    with contextlib.chdir(tmp):
+        train_cli.cli(["--config", "train.yaml", "--name", "smoke",
+                       "--allow_random_vgg", "--device", "cuda"])
+    lines = [line for line in open(os.path.join(
+        tmp, "save", "smoke", "log.txt")).read().splitlines()
+        if "val: psnr=" in line]
+    val = (float(lines[0].split("val: psnr=")[1].split(",")[0]) if lines
+           else float("nan"))
+    log(f"eval cli/train.py: one epoch with epoch_val 1 in "
+        f"{time.perf_counter() - t0:.2f} s: {lines}")
+    if not math.isfinite(val):
+        raise RuntimeError(f"eval cli/train.py: no finite val: psnr= line "
+                           f"({lines})")
+
+
+def eval_srflow_test_cli(tmp, dev, launches):
+    """Phase 13 (c): the ``srflow_test.py`` twin on the LR / HR pairs with
+    the flagship SRFlow-LP conf, on both paths."""
+    import csv
+    import glob
+    import os
+
+    import torch
+    import yaml
+
+    from bfsr_tpu_torch.cli import srflow_test as srflow_cli
+    from bfsr_tpu_torch.entry import build_srflow_lp
+    from bfsr_tpu_torch.ops import cuda
+
+    smodel, sprior = build_srflow_lp(dev, seed=0)
+    with open(ROOT / "configs" / "srflow" / "SRFlow-LP_DF2K_4X.yml") as f:
+        conf = yaml.safe_load(f)
+    conf.update(dataroot_LR=os.path.join(tmp, "lr"),
+                dataroot_GT=os.path.join(tmp, "hr"),
+                model_path=os.path.join(tmp, "srflow.pth"),
+                prior_model_path=os.path.join(tmp, "srflow_prior.pth"))
+    torch.save(smodel.state_dict(), conf["model_path"])
+    torch.save(sprior.state_dict(), conf["prior_model_path"])
+    del smodel, sprior
+    with open(os.path.join(tmp, "srflow.yml"), "w") as f:
+        yaml.safe_dump(conf, f)
+    rows, counts = {}, []
+
+    class Counting(srflow_cli.SRFlowLPPredictor):
+        def predict(self, lr_img01):
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            out = super().predict(lr_img01)
+            torch.cuda.synchronize()
+            counts.append({k: v for k, v in cuda.LAUNCHES.items() if v})
+            return out
+
+    class Twin(srflow_cli.SRFlowLPPredictor):
+        def __init__(self, model, prior, pad_multiple=2):
+            super().__init__(model, prior, kernels=False,
+                             pad_multiple=pad_multiple)
+
+    for path, cls in (("kernel", Counting), ("twin", Twin)):
+        os.makedirs(os.path.join(tmp, path), exist_ok=True)
+        t0 = time.perf_counter()
+        with contextlib.chdir(os.path.join(tmp, path)), \
+                mock.patch.object(srflow_cli, "SRFlowLPPredictor", cls):
+            rows[path] = srflow_cli.main([os.path.join(tmp, "srflow.yml"),
+                                          "--no_lpips", "--device", "cuda"])
+        log(f"eval srflow_test.py {path} path: {time.perf_counter() - t0:.2f}"
+            " s (the flagship's load and freeze included)")
+        with open(os.path.join(tmp, path, "results", "SRFlow-LP",
+                               "measure_full.csv")) as f:
+            table = list(csv.reader(f))
+        if len(table) != 3 or any(len(r) != 6 for r in table):
+            raise RuntimeError(f"eval srflow_test.py: the CSV is {table}")
+    hold_launches("eval srflow_test.py", counts, EVAL_LAUNCHES["srflow_test"],
+                  2)
+    smodel = srflow_cli.load_srflow(conf, dev)
+    sprior = srflow_cli.load_prior(conf, dev, train=False)
+    lr = srflow_cli.read_rgb(sorted(glob.glob(os.path.join(
+        conf["dataroot_LR"], "*.png")))[0])
+    lr = torch.as_tensor(lr / 255.0, dtype=torch.float32, device=dev)
+    paths = {k: (lambda p=srflow_cli.SRFlowLPPredictor(
+        smodel, sprior, kernels=k == "kernel"): p.predict(lr))
+        for k in ("twin", "kernel")}
+    h, w = lr.shape[:2]
+    check_srflow_predict(smodel, sprior, lr,
+                         f"eval srflow_test.py {w}x{h}->{4 * w}x{4 * h}")
+    time_paths(paths, 16 * h * w / 1e6,
+               f"eval srflow_test.py {w}x{h}->{4 * w}x{4 * h}")
+    del smodel, sprior
+    launches["eval_srflow_test"] = counts[0]
+    for k, r in zip(rows["kernel"], rows["twin"]):
+        diffs = {m: abs(k[m] - r[m]) for m in ("PSNR", "SSIM", "LRC PSNR")}
+        log(f"eval srflow_test.py image {k['name']}: kernel path PSNR "
+            f"{k['PSNR']!r}, SSIM {k['SSIM']!r}, LRC PSNR {k['LRC PSNR']!r}; "
+            f"|diff| from the twin path {diffs}")
+        if not (diffs["PSNR"] <= TOL["eval_psnr_db"]
+                and diffs["LRC PSNR"] <= TOL["eval_psnr_db"]
+                and diffs["SSIM"] <= TOL["eval_ssim"]):
+            raise RuntimeError(f"eval srflow_test.py: kernel path {k} vs "
+                               f"twin path {r}")
+
+
+def run_eval(dev):
+    """Phase 13: the evaluation entry points.  Returns their launches an
+    image (a val batch)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from bfsr_tpu_torch.entry import build_flagship, build_linf_patch
+
+    t0 = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_smooth_pngs(os.path.join(tmp, "hr"), 2, EVAL_HR, 1)
+        downscale_pngs(os.path.join(tmp, "hr"), os.path.join(tmp, "lr"),
+                       EVAL_SCALE)
+        write_smooth_pngs(os.path.join(tmp, "val"), 4, EVAL_HR, 2)
+        model, prior = build_flagship(dev, seed=0)
+        eval_test_cli(tmp, dev, {"": (model, prior),
+                                 "patch_": build_linf_patch(dev, seed=0)},
+                      launches)
+        eval_div2k_frame(tmp, dev, model, prior)
+        torch.cuda.empty_cache()
+        eval_validation(tmp, dev, model, prior, launches)
+        del model, prior
+        torch.cuda.empty_cache()
+        eval_srflow_test_cli(tmp, dev, launches)
+    log(f"eval: phase 13 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -2446,6 +2975,10 @@ def main():
     for name, rs in srflow_checks.items():
         train_checks.setdefault(name, []).extend(rs)
     launches.update(srflow_launches)
+    torch.cuda.empty_cache()
+
+    # --- the evaluation entry points ---
+    launches.update(run_eval(dev))
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
         "build included")
 

@@ -1265,3 +1265,69 @@ def test_small_srflow_prior_step_kernel_path_matches_twin_path(dev):
     r = torch.cat([ref_grads[k].flatten() for k in grads])
     assert torch.isfinite(g).all()
     assert float((g - r).norm() / r.norm()) <= 1e-2
+
+
+# --- the evaluation slice: validation at each query's own coordinate and
+# the SRFlow-LP predictor's pad_multiple ---------------------------------
+
+
+def test_per_query_predict_kernel_path_matches_twin_path(dev):
+    """``LINFPredictor.predict`` on a val-like batch (4 crops of 16^2 LR, random
+    HR query subsets): K3 43 (the encoder's 34 and the prior's 9 convs at
+    B 4), K1 once each way over the 1,024 queries, no K2; the image within
+    1e-3 of the twin path."""
+    from bfsr_tpu_torch.entry import build_flagship
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor, is_grid
+
+    model, prior = build_flagship(dev, seed=0)
+    g = _gen(5)
+    B, n, H = 4, 16, 48
+    coord = np.empty((B, n, n, 2), np.float32)
+    for b in range(B):
+        yy, xx = np.divmod(g.choice(H * H, n * n, replace=False), H)
+        coord[b] = np.stack([-1 + (2 * yy + 1) / H, -1 + (2 * xx + 1) / H],
+                            -1).reshape(n, n, 2)
+    args = (_t(g.uniform(-1, 1, (B, n, n, 3)), dev), _t(coord, dev),
+            _t(np.full((B, 2), 2.0 / H), dev),
+            _t(0.1 * g.standard_normal((B, n, n, 3)), dev))
+    assert not is_grid(args[1])
+    kcuda.reset_launch_counts()
+    got = LINFPredictor(model, prior).predict(*args)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kcuda.LAUNCHES.items() if v} == {
+        "conv3x3_cat": 43, "linf_flow_forward": 1,
+        "linf_flow_inverse": 1}, kcuda.LAUNCHES
+    ref = LINFPredictor(model, prior, kernels=False).predict(*args)
+    assert got.shape == (B, n, n, 3) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+
+
+def test_srflow_predictor_pad_multiple_8_kernel_path_matches_twin_path(dev):
+    """``SRFlowLPPredictor(pad_multiple=8)`` on an LR of 13x10 (padded to
+    16x16 with the image's mirror, the SR cropped back to 52x40), at a
+    small flow (RRDB nf 16 x 2, K 2, hidden 64) and the flagship prior:
+    K5 on every conditional step both ways, the image within 5e-3 of the
+    twin path."""
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.entry import srflow_specs
+    from bfsr_tpu_torch.models.base import seeded
+    from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
+
+    model = registry.make({"name": "srflow", "args": {
+        "nf": 16, "nb": 2, "gc": 16, "K": 2, "L": 3, "hidden_channels": 64,
+        "stack_blocks": (0, 1)}})
+    model.reset_parameters(seeded(3))
+    model = model.to(dev).eval().freeze()
+    prior = registry.make(srflow_specs()[1])
+    prior.reset_parameters(seeded(4))
+    prior = prior.to(dev).eval().freeze()
+    lr = _t(_gen(6).random((13, 10, 3)), dev)
+    kcuda.reset_launch_counts()
+    got = SRFlowLPPredictor(model, prior, pad_multiple=8).predict(lr)
+    torch.cuda.synchronize()
+    assert kcuda.LAUNCHES["flow_step_forward"] == 6, kcuda.LAUNCHES
+    assert kcuda.LAUNCHES["flow_step_reverse"] == 6, kcuda.LAUNCHES
+    ref = SRFlowLPPredictor(model, prior, kernels=False,
+                            pad_multiple=8).predict(lr)
+    assert got.shape == (52, 40, 3) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0, atol=5e-3)

@@ -25,7 +25,7 @@ from bfsr_tpu.pipelines.linf_eval import LINFPredictor as JLINFPredictor
 from bfsr_tpu.pipelines.srflow_eval import SRFlowLPPredictor as JSRFlowPredictor
 from bfsr_tpu_torch.ops import nn as tnn
 from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
-from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor, pad_to_even
+from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor, pad_to_multiple
 from bfsr_tpu_torch.profiling import conv_probe, mode_agreement
 
 from test_torch_precision import restore_modes  # noqa: F401  (fixture)
@@ -114,7 +114,7 @@ def test_srflow_predictor_matches_jax_under_default(rng, restore_modes,
         torch.from_numpy(lr)).numpy()
     assert got.shape == (28, 36, 3) and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=5e-2)
-    x = pad_to_even(torch.from_numpy(lr))
+    x = pad_to_multiple(torch.from_numpy(lr))
     sr = SRFlowLPPredictor(tm, tp, kernels=kernels).run(x)
     other = SRFlowLPPredictor(tm, tp, kernels=not kernels).run(x)
     np.testing.assert_allclose(sr.numpy(), other.numpy(), atol=1e-4,

@@ -125,7 +125,8 @@ def test_port_imports_no_jax_with_jax_blocked():
         "assert 'bfsr_tpu_torch.pipelines.srflow_eval' in names\n"
         "assert 'bfsr_tpu_torch.ops.cuda.flow_step' in names\n"
         "for m in ('pipelines.srflow_prior_train', 'cli.srflow_train',\n"
-        "          'data.pkl_dataset'):\n"
+        "          'data.pkl_dataset', 'cli.test', 'cli.srflow_test',\n"
+        "          'models.lpips', 'utils.measure', 'convert.load'):\n"
         "    assert 'bfsr_tpu_torch.' + m in names, m\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.startswith('jax') or m.startswith('bfsr_tpu.'))]\n"
