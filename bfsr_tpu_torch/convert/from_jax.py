@@ -104,7 +104,8 @@ def unet_state_dict(params):
 
 
 def rrdb_state_dict(params, prefix=""):
-    """Reference-keyed state_dict of an RRDBNet with its x4 head."""
+    """Reference-keyed state_dict of an RRDBNet, with its x4 head where the
+    params have one."""
     sd = {}
     _conv(sd, prefix + "conv_first", params["conv_first"])
     for i, blk in enumerate(params["trunk"]):
@@ -113,7 +114,8 @@ def rrdb_state_dict(params, prefix=""):
     for name, key in (("trunk_conv", "trunk_conv"), ("upconv1", "upconv1"),
                       ("upconv2", "upconv2"), ("HRconv", "hr_conv"),
                       ("conv_last", "conv_last")):
-        _conv(sd, prefix + name, params[key])
+        if key in params:
+            _conv(sd, prefix + name, params[key])
     return sd
 
 

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from bfsr_tpu_torch.models.base import Model, seeded
+from bfsr_tpu_torch.ops import cuda
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.cuda.conv3x3 import (cache_kernel_weight, conv3x3_cat,
                                              conv3x3_cat_twin, k3_conv)
@@ -61,6 +62,7 @@ class EDSR(Model):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 cache_kernel_weight(m)
+        cuda.stamp_layouts(self)
         return self
 
     def forward(self, x, kernels=True, conv=None):
@@ -78,6 +80,8 @@ class EDSR(Model):
                                    kweight_bf16=m.kweight_bf16)
             return conv3x3_cat_twin([t], m.weight, bias=m.bias, act=act)
 
+        if kernels:
+            cuda.check_layouts(self)
         h0 = c(x, self.head[0])
         res = h0
         for blk in self.body[:-1]:

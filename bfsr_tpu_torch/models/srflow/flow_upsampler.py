@@ -34,6 +34,22 @@ loss): on the kernel path every conditional step through
 ``FlowStepReverse`` (K5's reverse, its twin's gradient); the unfused path
 is differentiable as it is.
 
+``decode(..., eps_std=, generator=)`` starts from the final latent alone
+(``epses=[z]``) and draws each split's eps (``flows.split2d_logdet``):
+heat sampling, whose steps still run on K5.
+
+``encode_logdet`` / ``decode_logdet`` are the trainers' and the NLL's
+passes (``bfsr_tpu``'s ``encode`` / ``decode`` with a log-det): every step
+unfused on the module's live ``actnorm`` / ``invconv`` / ``affine`` weights
+(``FlowStep.forward_logdet`` / ``reverse_logdet``), differentiable in
+them, threading a per-image log-det; no kernel (the JAX package's kernel
+drops the log-det and has no backward).  ``precompute_ft(conds,
+differentiable=True)`` gives records autograd differentiates.
+
+``freeze()`` stamps the steps' packs and folds (``ops/cuda``:
+``stamp_layouts``); ``encode`` / ``decode`` raise if the weights changed
+in place since (an optimizer's step), rather than read stale packs.
+
 ``actnorms_unprimed`` / ``prime_actnorms`` are the data-dependent actnorm
 init of a random flow from its first training batch, as
 ``bfsr_tpu/models/srflow/flow_upsampler.py`` does it (the reference's
@@ -46,7 +62,7 @@ import torch
 from torch import nn
 
 from bfsr_tpu_torch.ops import flows
-from bfsr_tpu_torch.ops.cuda import TWINS
+from bfsr_tpu_torch.ops.cuda import TWINS, check_layouts, stamp_layouts
 from bfsr_tpu_torch.ops.cuda.flow_step import (flow_step_forward,
                                                flow_step_forward_twin,
                                                flow_step_reverse,
@@ -130,6 +146,21 @@ class FlowStep(nn.Module):
             x = flows.cond_affine(x, rec, self.affine, reverse=True)
         return flows.an_invconv_fused(x, self.fold, reverse=True)
 
+    def forward_logdet(self, x, rec, logdet):
+        """The unfused step on the live weights, and its log-det."""
+        x, logdet = flows.actnorm_logdet(x, self.actnorm, logdet)
+        x, logdet = flows.invconv1x1(x, self.invconv, logdet)
+        if self.affine is not None:
+            x, logdet = flows.cond_affine_logdet(x, rec, self.affine, logdet)
+        return x, logdet
+
+    def reverse_logdet(self, x, rec, logdet):
+        if self.affine is not None:
+            x, logdet = flows.cond_affine_logdet(x, rec, self.affine, logdet,
+                                                 reverse=True)
+        x, logdet = flows.invconv1x1(x, self.invconv, logdet, reverse=True)
+        return flows.actnorm_logdet(x, self.actnorm, logdet, reverse=True)
+
 
 class FlowUpsamplerNet(nn.Module):
     def __init__(self, plan, cond_channels=320, hidden=64):
@@ -154,6 +185,7 @@ class FlowUpsamplerNet(nn.Module):
     def freeze(self, step_form="xla"):
         for m in self.steps():
             m.freeze(step_form)
+        stamp_layouts(self)
         return self
 
     def frozen(self):
@@ -181,20 +213,20 @@ class FlowUpsamplerNet(nn.Module):
             elif kind == "split":
                 x, _ = flows.split2d(x, m)
             else:
-                mean = x.mean((0, 1, 2))
-                std = ((x - mean) ** 2).mean((0, 1, 2)).sqrt()
-                m.actnorm.bias.copy_(-mean.reshape(m.actnorm.bias.shape))
-                m.actnorm.logs.copy_(-torch.log(std + 1e-6)
-                                     .reshape(m.actnorm.logs.shape))
-                x = flows.actnorm(x, m.actnorm) @ m.invconv.weight.T
+                bias, logs = flows.actnorm_init_stats(x)
+                m.actnorm.bias.copy_(bias.reshape(m.actnorm.bias.shape))
+                m.actnorm.logs.copy_(logs.reshape(m.actnorm.logs.shape))
+                x = flows.invconv1x1(flows.actnorm(x, m.actnorm), m.invconv,
+                                     None)[0]
                 if m.affine is not None:
                     x = flows.cond_affine(x, rec, m.affine)
 
-    @torch.no_grad()
-    def precompute_ft(self, conds):
+    def precompute_ft(self, conds, differentiable=False):
         """Per-step conditioning records (``flows.cond_affine_cache_batched``),
         one batched pass per level; a list aligned with the plan (None for
-        entries without one).  conds: {level: (B, h, w, C_cond)}."""
+        entries without one).  conds: {level: (B, h, w, C_cond)}.
+        ``differentiable``: records that autograd differentiates (the
+        trainers'); by default computed without a graph."""
         by_level = {}
         for i, e in enumerate(self.plan):
             if e["kind"] == "step_cond":
@@ -202,27 +234,27 @@ class FlowUpsamplerNet(nn.Module):
         out = [None] * len(self.plan)
         for lvl, idxs in by_level.items():
             recs = flows.cond_affine_cache_batched(
-                conds[lvl], [self.layers[i].affine for i in idxs])
+                conds[lvl], [self.layers[i].affine for i in idxs],
+                differentiable)
             for i, r in zip(idxs, recs):
                 out[i] = r
         return out
 
-    def encode(self, gt, cache, kernels=True):
-        """gt (B, H, W, 3) -> [eps of each split..., z_final]."""
-        x, epses = gt, []
+    def _encode(self, x, cache, step, logdet=None):
+        epses = []
         for e, m, rec in zip(self.plan, self.layers, cache):
             kind = e["kind"]
             if kind == "squeeze":
                 x = flows.squeeze2d(x)
             elif kind == "split":
-                x, eps = flows.split2d(x, m)
+                x, logdet, eps = flows.split2d_logdet(x, m, logdet)
                 epses.append(eps)
             else:
-                x = m.forward_step(x, rec, kernels)
-        return epses + [x]
+                x, logdet = step(m, x, rec, logdet)
+        return epses + [x], logdet
 
-    def decode(self, epses, cache, kernels=True, differentiable=False):
-        """The inverse: epses back to front, z_final first."""
+    def _decode(self, epses, cache, step, logdet=None, eps_std=None,
+                generator=None):
         epses = list(epses)
         x = epses.pop()
         for e, m, rec in zip(reversed(self.plan), reversed(self.layers),
@@ -231,7 +263,40 @@ class FlowUpsamplerNet(nn.Module):
             if kind == "squeeze":
                 x = flows.unsqueeze2d(x)
             elif kind == "split":
-                x = flows.split2d(x, m, reverse=True, eps=epses.pop())
+                x, logdet, _ = flows.split2d_logdet(
+                    x, m, logdet, reverse=True,
+                    eps=epses.pop() if epses else None, eps_std=eps_std,
+                    generator=generator)
             else:
-                x = m.reverse_step(x, rec, kernels, differentiable)
-        return x
+                x, logdet = step(m, x, rec, logdet)
+        return x, logdet
+
+    def encode(self, gt, cache, kernels=True):
+        """gt (B, H, W, 3) -> [eps of each split..., z_final]."""
+        check_layouts(self)
+        return self._encode(gt, cache, lambda m, x, rec, ld: (
+            m.forward_step(x, rec, kernels), ld))[0]
+
+    def decode(self, epses, cache, kernels=True, differentiable=False,
+               eps_std=None, generator=None):
+        """The inverse: epses back to front, z_final first.  Given
+        ``[z_final]`` alone, each split's eps is drawn from ``generator``
+        times ``eps_std`` (zeros with no generator: heat 0)."""
+        check_layouts(self)
+        return self._decode(epses, cache, lambda m, x, rec, ld: (
+            m.reverse_step(x, rec, kernels, differentiable), ld),
+            eps_std=eps_std, generator=generator)[0]
+
+    def encode_logdet(self, gt, cache, logdet):
+        """(epses, logdet): the encode unfused on the live weights, with
+        its log-det added to ``logdet`` ((B,) f32); ``cache`` from
+        ``precompute_ft``."""
+        return self._encode(gt, cache, lambda m, x, rec, ld:
+                            m.forward_logdet(x, rec, ld), logdet)
+
+    def decode_logdet(self, epses, cache, logdet):
+        """(x, logdet): ``decode`` unfused on the live weights, its
+        log-det added to ``logdet`` (None: not computed); given ``[z]``
+        alone, each split's eps is zero (heat 0)."""
+        return self._decode(epses, cache, lambda m, x, rec, ld:
+                            m.reverse_logdet(x, rec, ld), logdet)

@@ -1,4 +1,4 @@
-"""SRFlowNet: RRDB conditioning + FlowUpsamplerNet, eval (no NLL).
+"""SRFlowNet: RRDB conditioning + FlowUpsamplerNet, NLL in bits/dim.
 
 The counterpart of ``bfsr_tpu/models/srflow/srflow_net.py``, registered
 as ``'srflow'``:
@@ -6,21 +6,34 @@ as ``'srflow'``:
 * ``rrdb_preprocess`` runs the RRDB trunk with taps and appends the
   nearest-resized stack of blocks ``stack_blocks`` to every conditioning
   map (64 + 4 * 64 = 320 channels at the flagship);
-* ``precompute_ft`` builds every conditional step's record once per batch;
+* ``precompute_ft`` builds every conditional step's record once per batch
+  (``differentiable=True``: records autograd differentiates, the
+  trainer's);
 * ``normal_flow`` encodes a batch of HR images to their epses (no
-  quantisation noise, no log-det) and ``reverse_flow`` decodes epses to
-  the SR images (``differentiable=True``: autograd differentiates it with
-  respect to the epses);
+  quantisation noise, no log-det: the eval path, on K5) and
+  ``reverse_flow`` decodes epses to the SR images (``differentiable=True``:
+  autograd differentiates it with respect to the epses; ``eps_std`` and a
+  ``generator``: from the final latent alone, each split's eps drawn);
+* ``normal_flow_nll`` is the NLL path (``SRFlowNet_arch.py:83-116``): the
+  quantisation noise ``(U - 0.5) / quant`` (from a generator, or the
+  ``noise`` the caller passes) and ``-log(quant) * pixels``, the log-det
+  encode (unfused, on the live weights, differentiable), the NLL in
+  bits/dim; ``reverse_flow_logdet`` the decode with its log-det;
+  ``get_sr`` an SR sample at any heat, ``sample_z`` the final latent of a
+  batch;
 * ``prime_actnorms`` primes a random flow's actnorms from a batch;
-* ``sample_z`` gives the final latent's shape; ``standardize_epses`` the
-  per-pixel channel standardisation of the learned-prior path.
+  ``standardize_epses`` is the per-pixel channel standardisation of the
+  learned-prior path.
 
 ``freeze()`` caches what the kernels and the float64 folds need (RRDB
 dense blocks in K3's layout, the flow's folds and K5 buffers); call it
-after moving the model to its device and after changing weights.  The
-submodules are named ``RRDB`` and ``flowUpsamplerNet``, as the
-reference's ``state_dict`` names them.
+after moving the model to its device and after changing weights (the
+kernel paths raise on layouts older than the weights).  The submodules
+are named ``RRDB`` and ``flowUpsamplerNet``, as the reference's
+``state_dict`` names them.
 """
+
+import math
 
 import torch
 
@@ -38,7 +51,7 @@ def rrdb_preprocess(rrdb, lr, block_idxs, keys, kernels=True, conv=None):
     """RRDB taps + pyramid, with the nearest-resized stack of the blocks
     ``block_idxs`` appended to each map in ``keys`` (``conv``: as
     ``RRDBNet.forward``)."""
-    res = rrdb(lr, block_idxs=block_idxs, kernels=kernels, conv=conv)
+    res = rrdb.steps(lr, block_idxs, kernels, conv)
     stack = torch.cat([res[f"block_{i}"] for i in block_idxs], -1)
     for k in keys:
         h, w = res[k].shape[1], res[k].shape[2]
@@ -79,12 +92,12 @@ class SRFlowNet(Model):
                          stack_blocks=tuple(stack_blocks),
                          stack_concat=stack_concat, fea_up0=fea_up0,
                          fea_upm1=fea_upm1, quant=quant)
-        self.scale, self.L = scale, L
+        self.scale, self.L, self.quant = scale, L, quant
         self.stack_blocks = tuple(stack_blocks)
         self.plan, self.final_c = build_plan(scale, L, K, additional_steps,
                                              split_enable, base_c=in_nc)
         cond_channels = (len(stack_blocks) + 1) * nf
-        self.RRDB = RRDBNet(in_nc, out_nc, nf, nb, gc, scale)
+        self.RRDB = RRDBNet(in_nc, out_nc, nf, nb, gc, no_upsampling=False)
         self.flowUpsamplerNet = FlowUpsamplerNet(self.plan, cond_channels,
                                                  hidden_channels)
         self.reset_parameters(seeded(0), live=False)
@@ -180,8 +193,9 @@ class SRFlowNet(Model):
         names = LEVEL_NAMES[self.scale]
         return {lvl: lr_enc[names[lvl]] for lvl in range(1, self.L + 1)}
 
-    def precompute_ft(self, lr_enc):
-        return self.flowUpsamplerNet.precompute_ft(self._conds(lr_enc))
+    def precompute_ft(self, lr_enc, differentiable=False):
+        return self.flowUpsamplerNet.precompute_ft(self._conds(lr_enc),
+                                                   differentiable)
 
     @torch.no_grad()
     def prime_actnorms(self, gt, lr):
@@ -199,17 +213,63 @@ class SRFlowNet(Model):
         """Encode gt (B, H, W, 3) -> [eps0, z_final], no noise, no log-det."""
         return self.flowUpsamplerNet.encode(gt, cache, kernels)
 
-    def reverse_flow(self, epses, cache, kernels=True, differentiable=False):
-        """Decode [eps0, z_final] -> the SR images (B, H, W, 3)."""
+    def reverse_flow(self, epses, cache, kernels=True, differentiable=False,
+                     eps_std=None, generator=None):
+        """Decode [eps0, z_final] -> the SR images (B, H, W, 3); from
+        ``[z_final]`` alone the split's eps is drawn from ``generator``
+        times ``eps_std`` (zeros with no generator)."""
         return self.flowUpsamplerNet.decode(epses, cache, kernels,
-                                            differentiable)
+                                            differentiable, eps_std,
+                                            generator)
 
-    def sample_z(self, heat, lr_hw, generator=None, device=None):
-        """The final latent (1, s*h/2^L, s*w/2^L, final_c): zeros at heat
-        0, else N(0, heat^2) drawn from ``generator``."""
+    def normal_flow_nll(self, gt, cache, noise=None, generator=None):
+        """(epses, nll, logdet) of gt (B, H, W, 3) on the unfused log-det
+        encode.  gt gets the quantisation noise ``noise`` (B, H, W, 3) or,
+        if None, ``(U - 0.5) / quant`` with U drawn from ``generator``, and
+        the log-det ``-log(quant) * H W``; nll is ``-(logdet + log
+        N(z_final)) / (log 2 * H W)`` per image."""
+        pixels = gt.shape[1] * gt.shape[2]
+        if noise is None:
+            noise = (torch.rand(gt.shape, generator=generator,
+                                device=gt.device) - 0.5) / self.quant
+        logdet = torch.full((gt.shape[0],), -math.log(self.quant) * pixels,
+                            device=gt.device)
+        epses, logdet = self.flowUpsamplerNet.encode_logdet(gt + noise, cache,
+                                                            logdet)
+        objective = logdet + flows.gaussian_logp(epses[-1])
+        return epses, -objective / (math.log(2.0) * pixels), logdet
+
+    def reverse_flow_logdet(self, epses, cache):
+        """(SR images, logdet): ``reverse_flow`` unfused on the live
+        weights, with the log-det (from ``+log(quant) * H W``)."""
+        z = epses[-1]
+        pixels = z.shape[1] * z.shape[2] * 4 ** self.L
+        logdet = torch.full((z.shape[0],), math.log(self.quant) * pixels,
+                            device=z.device)
+        return self.flowUpsamplerNet.decode_logdet(epses, cache, logdet)
+
+    def sample_z(self, heat, lr_hw, batch_size=1, generator=None,
+                 device=None):
+        """The final latent (batch_size, s*h/2^L, s*w/2^L, final_c): zeros
+        at heat 0, else N(0, heat^2) drawn from ``generator``."""
         h = self.scale * lr_hw[0] // 2 ** self.L
         w = self.scale * lr_hw[1] // 2 ** self.L
-        shape = (1, h, w, self.final_c)
+        shape = (batch_size, h, w, self.final_c)
         if not heat:
             return torch.zeros(shape, device=device)
         return torch.randn(shape, generator=generator, device=device) * heat
+
+    def get_sr(self, lq, heat=None, z=None, epses=None, generator=None,
+               kernels=True):
+        """SR samples of lq (B, h, w, 3): decode ``epses``, or ``z``, or a
+        final latent from ``sample_z`` at ``heat``, each split's eps drawn
+        at ``heat`` from ``generator`` (``SRFlow_model.get_sr``).  The
+        steps run on K5 with ``kernels`` (a frozen model)."""
+        cache = self.precompute_ft(self.rrdb_preprocess(lq, kernels))
+        if epses is None:
+            if z is None:
+                z = self.sample_z(heat, lq.shape[1:3], lq.shape[0],
+                                  generator, lq.device)
+            epses = [z]
+        return self.reverse_flow(epses, cache, kernels, eps_std=heat,
+                                 generator=generator)

@@ -31,6 +31,7 @@ from torch import nn
 from bfsr_tpu_torch.models.base import Model, seeded
 from bfsr_tpu_torch.models.unet import (DenseBlock5C, DoubleConv, Down,
                                         OutConv, UNet, Up, _upsample_to)
+from bfsr_tpu_torch.ops import cuda
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.registry import register
 
@@ -94,6 +95,7 @@ class SRFlowUNet(Model):
             proj.freeze()
             inc.freeze()
             ups[-1].conv.freeze()
+        cuda.stamp_layouts(self)
         return self
 
     def _branch(self, b, z, kernels, bn_stats=None):
@@ -125,6 +127,8 @@ class SRFlowUNet(Model):
             out = [self._branch(b, epses[b], False, stats) for b in (0, 1)]
             names = {m: n for n, m in self.named_modules()}
             return out, {names[m]: v for m, v in stats.items()}
+        if kernels:
+            cuda.check_layouts(self)
         return [self._branch(0, epses[0], kernels),
                 self._branch(1, epses[1], kernels)]
 

@@ -38,6 +38,7 @@ from torch import nn
 
 from bfsr_tpu_torch.models.base import Model, seeded
 from bfsr_tpu_torch.ops import nn as fnn
+from bfsr_tpu_torch.ops import cuda
 from bfsr_tpu_torch.ops.cuda.conv3x3 import (cache_kernel_weight, conv3x3_cat,
                                              conv3x3_cat_twin, k3_conv)
 from bfsr_tpu_torch.ops.interp import resize_bilinear
@@ -227,6 +228,7 @@ class UNet(Model):
         self.input_proj.freeze()
         self.inc.freeze()
         self.up_layers[-1].conv.freeze()
+        cuda.stamp_layouts(self)
         return self
 
     def _lr_embed(self, lr, hw):
@@ -254,6 +256,7 @@ class UNet(Model):
             return out, {names[m]: v for m, v in stats.items()}
         if not kernels:
             return self._forward_plain(z, lr)
+        cuda.check_layouts(self)
         hw = z.shape[1:3]
         proj = self.input_proj.forward_cat([z])
         x = self.inc.forward_cat([proj, self._lr_embed(lr, hw)])

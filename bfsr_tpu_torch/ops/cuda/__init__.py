@@ -17,6 +17,15 @@ a CUDA tensor launches the kernel or raises.  There is no fallback between
 the two.  A wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else; K6 launches K3's f32 kernel and counts under
 its own name, ``conv3x3_fused``.
+
+A model's ``freeze()`` lays out the weights its kernels read (K3's
+``kweight``, K5's packs and folds) and ``stamp_layouts`` records the
+versions of the model's parameters they were made from; every in-place
+change (an optimizer's step, ``load_state_dict``) bumps a parameter's
+version, and ``check_layouts``, once at the start of each of the model's
+passes that read the layouts, raises if they are older than the
+weights.  The models that own a ``freeze()`` stamp and check themselves:
+``RRDBNet``, ``FlowUpsamplerNet``, ``EDSR`` and the two UNets.
 """
 
 import ctypes
@@ -78,6 +87,27 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = None
+
+
+def _weights_version(module):
+    return sum(p._version for p in module.parameters())
+
+
+def stamp_layouts(module):
+    """Record that ``module``'s kernel layouts are made from its weights
+    as they are now."""
+    module.layout_version = _weights_version(module)
+
+
+def check_layouts(module):
+    """Raise if ``module``'s weights changed in place since its layouts
+    were stamped (``stamp_layouts``)."""
+    if getattr(module, "layout_version", None) not in (
+            None, _weights_version(module)):
+        raise RuntimeError(
+            f"the kernel layouts of a {type(module).__name__} are older than "
+            "its weights (changed in place since freeze()): call freeze() "
+            "again before the kernel path reads them")
 
 
 def reset_launch_counts():

@@ -1,24 +1,35 @@
-"""Glow-style flow primitives of SRFlow, eval only, NHWC.
+"""Glow-style flow primitives of SRFlow, NHWC.
 
-The counterpart of ``bfsr_tpu/ops/flows.py`` for the learned-prior eval
-path, which threads ``want_logdet=False``: nothing here computes a
-log-det.  Modules hold the weights under the reference's ``state_dict``
-names and shapes (``ActNorm2d`` bias/logs ``(1, C, 1, 1)``, the invertible
-1x1 conv's ``(C, C)`` weight, ``Conv2dZeros`` logs ``(C, 1, 1)``); the
-functions take those modules and NHWC tensors.
+The counterpart of ``bfsr_tpu/ops/flows.py``.  Modules hold the weights
+under the reference's ``state_dict`` names and shapes (``ActNorm2d``
+bias/logs ``(1, C, 1, 1)``, the invertible 1x1 conv's ``(C, C)`` weight,
+``Conv2dZeros`` logs ``(C, 1, 1)``); the functions take those modules and
+NHWC tensors.
 
 * ``squeeze2d`` keeps torch's ``(C, fy, fx)`` channel nesting in NHWC.
 * ``split_feature(h, 'cross')`` is ``shift = h[..., 0::2]``,
   ``scale = h[..., 1::2]``.
-* Inverses are never solved at run time: ``fold_actnorm_invconv`` folds an
-  actnorm and its 1x1 conv into one affine per direction, in float64 on
-  the host, with the inverse taken in float64.
+* Frozen eval solves no inverse at run time: ``fold_actnorm_invconv``
+  folds an actnorm and its 1x1 conv into one affine per direction, in
+  float64 on the host, with the inverse taken in float64.
 * The conditioning caches of one flow level (``cond_affine_cache_batched``)
   are per-step records ``(B, h, w, 2C + hidden)``, laid out per pixel as
   ``[scale_ft | shift_ft | aff1_ft]``: what the coupling reads that
   depends on the RRDB conditioning only, computed once per batch and read
   by every encode and decode step (and by the K5 kernel as it is).
+
+Training and the NLL take the ``*_logdet`` forms, which run on the live
+weights under autograd and thread a per-image ``(B,)`` f32 log-det as the
+JAX functions do (``logdet=None`` skips it): ``actnorm_logdet``,
+``invconv1x1`` (forward ``x @ W^T``, reverse through ``torch.linalg.inv``,
+log-det ``slogdet(W)[1] * pixels``), ``cond_affine_logdet`` (with the
+record's conditioning-only ``sum log scale_ft``) and ``split2d_logdet``
+(the consumed half's Gaussian log-likelihood; in reverse its eps drawn
+from a ``torch.Generator`` times ``eps_std``, or zeros at heat 0 with no
+generator).  Every log-det sum is taken in f32.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +38,15 @@ from torch import nn
 from bfsr_tpu_torch.ops import nn as fnn
 
 AFFINE_EPS = 1e-4
+LOG2PI = math.log(2 * math.pi)
+
+
+def _pixels(x):
+    return x.shape[1] * x.shape[2]
+
+
+def _sum_log(scale):
+    return torch.log(scale).float().sum((1, 2, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +134,39 @@ def actnorm(x, an, reverse=False):
     return x * torch.exp(-logs) - bias
 
 
+def actnorm_logdet(x, an, logdet, reverse=False):
+    """``actnorm`` and its log-det, ``sum(logs) * pixels`` (negated in
+    reverse)."""
+    y = actnorm(x, an, reverse)
+    if logdet is not None:
+        d = an.logs.float().sum() * _pixels(x)
+        logdet = logdet - d if reverse else logdet + d
+    return y, logdet
+
+
+def actnorm_init_stats(x):
+    """(bias, logs) vectors that whiten ``x`` per channel (the reference's
+    data-dependent init)."""
+    mean = x.mean((0, 1, 2))
+    var = ((x - mean) ** 2).mean((0, 1, 2))
+    return -mean, -torch.log(torch.sqrt(var) + 1e-6)
+
+
+def invconv1x1(x, invconv, logdet, reverse=False):
+    """The invertible 1x1 conv on its live weight: forward ``x @ W^T``,
+    reverse ``x @ inv(W)^T``; log-det ``log|det W| * pixels`` (negated in
+    reverse).  Differentiable in W."""
+    w = invconv.weight
+    if not reverse:
+        y = x @ w.T
+    else:
+        y = x @ torch.linalg.inv_ex(w)[0].T
+    if logdet is not None:
+        d = torch.linalg.slogdet(w)[1] * _pixels(x)
+        logdet = logdet - d if reverse else logdet + d
+    return y, logdet
+
+
 @torch.no_grad()
 def fold_actnorm_invconv(an, invconv):
     """One affine per direction for an actnorm -> invconv pair, computed
@@ -162,6 +215,25 @@ def unsqueeze2d(x, factor=2):
     return x.reshape(B, H * factor, W * factor, C // f2)
 
 
+def gaussian_likelihood(x, mean=None, logs=None):
+    if mean is None and logs is None:
+        return -0.5 * (x ** 2 + LOG2PI)
+    return -0.5 * (logs * 2.0 + (x - mean) ** 2 * torch.exp(-2.0 * logs)
+                   + LOG2PI)
+
+
+def gaussian_logp(x, mean=None, logs=None):
+    """The log-likelihood summed over all but the batch axis, in f32."""
+    return gaussian_likelihood(x, mean, logs).float().sum(
+        tuple(range(1, x.ndim)))
+
+
+def gaussian_sample(mean, logs, eps_std=1.0, generator=None):
+    eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                      dtype=mean.dtype) * eps_std
+    return mean + torch.exp(logs) * eps
+
+
 def split_feature(h, kind="split"):
     c = h.shape[-1]
     if kind == "split":
@@ -205,8 +277,7 @@ def _scale_shift(h):
     return torch.sigmoid(scale + 2.0) + AFFINE_EPS, shift
 
 
-@torch.no_grad()
-def cond_affine_cache_batched(ft, affines):
+def cond_affine_cache_batched(ft, affines, differentiable=False):
     """The conditioning records of ALL K steps of a level in one pass.
 
     ft: (B, h, w, C_cond) NHWC; affines: the level's ``CondAffine`` s.
@@ -220,7 +291,14 @@ def cond_affine_cache_batched(ft, affines):
     JAX package's reads the stage's precision at each of them (the convs
     and the 1x1 stay f32 library calls on the rounded values); elsewhere
     nothing is rounded.
+
+    With ``differentiable=True`` autograd differentiates the records with
+    respect to ft and the towers' weights (the trainers' records); by
+    default they are computed under ``torch.no_grad()``.
     """
+    if not differentiable:
+        with torch.no_grad():
+            return cond_affine_cache_batched(ft, affines, True)
     rnd = fnn.round_bf16 if fnn.bf16_stage() else (lambda t: t)
     n = len(affines)
     B, h, w, c_ft = ft.shape
@@ -254,22 +332,67 @@ def cond_affine_cache_batched(ft, affines):
     return [rec[s].contiguous() for s in range(n)]
 
 
-def cond_affine(x, rec, affine, reverse=False):
+def cond_affine_logdet(x, rec, affine, logdet, reverse=False):
     """The two-part conditional affine coupling, given the step's
-    conditioning record ``rec`` (``cond_affine_cache_batched``)."""
+    conditioning record ``rec`` (``cond_affine_cache_batched``), and its
+    log-det: ``sum log scale_ft`` (the conditioning-only term, from the
+    record) plus ``sum log scale`` of the coupling, negated in reverse."""
     c = x.shape[-1]
     cn = c // 2
     scale_ft, shift_ft = rec[..., :c], rec[..., c:2 * c]
     aff1_ft = rec[..., 2 * c:]
+    sign = -1.0 if reverse else 1.0
+    if logdet is not None:
+        logdet = logdet + sign * _sum_log(scale_ft)
     if not reverse:
         z = (x + shift_ft) * scale_ft
         z1, z2 = z[..., :cn], z[..., cn:]
         scale, shift = _scale_shift(flow_f_split(z1, affine.fAffine, aff1_ft))
-        return torch.cat([z1, (z2 + shift) * scale], -1)
-    z1, z2 = x[..., :cn], x[..., cn:]
-    scale, shift = _scale_shift(flow_f_split(z1, affine.fAffine, aff1_ft))
-    z = torch.cat([z1, z2 / scale - shift], -1)
-    return z / scale_ft - shift_ft
+        z = torch.cat([z1, (z2 + shift) * scale], -1)
+    else:
+        z1, z2 = x[..., :cn], x[..., cn:]
+        scale, shift = _scale_shift(flow_f_split(z1, affine.fAffine, aff1_ft))
+        z = torch.cat([z1, z2 / scale - shift], -1) / scale_ft - shift_ft
+    if logdet is not None:
+        logdet = logdet + sign * _sum_log(scale)
+    return z, logdet
+
+
+def cond_affine(x, rec, affine, reverse=False):
+    """``cond_affine_logdet`` without the log-det."""
+    return cond_affine_logdet(x, rec, affine, None, reverse)[0]
+
+
+def split2d_logdet(x, split, logdet, reverse=False, eps=None, eps_std=None,
+                   generator=None):
+    """Forward: (z1, logdet, eps) — the passed half, the log-det plus the
+    consumed half's log-likelihood under the prior predicted from z1, and
+    that half's eps.  Reverse: (state, logdet, None), the state rebuilt
+    from z1 = x and ``eps``; without ``eps`` it is drawn from
+    ``generator`` times ``eps_std`` (1 if None), or, with no generator,
+    zeros (the heat-0 decode; ``eps_std`` must then be 0 or None)."""
+    if not reverse:
+        c = x.shape[-1]
+        n_pass = c - int(round(c * 0.5))
+        z1, z2 = x[..., :n_pass], x[..., n_pass:]
+        mean, logs = split_feature(flow_conv_zeros(z1, split.conv), "cross")
+        if logdet is not None:
+            logdet = logdet + gaussian_logp(z2, mean, logs)
+        return z1, logdet, (z2 - mean) / torch.exp(logs)
+    mean, logs = split_feature(flow_conv_zeros(x, split.conv), "cross")
+    if eps is None and generator is not None:
+        z2 = gaussian_sample(mean, logs,
+                             1.0 if eps_std is None else eps_std, generator)
+    else:
+        if eps is None:
+            if eps_std:
+                raise ValueError("split2d reverse with eps_std > 0 needs a "
+                                 "generator (or explicit eps)")
+            eps = torch.zeros_like(mean)
+        z2 = mean + torch.exp(logs) * eps
+    if logdet is not None:
+        logdet = logdet - gaussian_logp(z2, mean, logs)
+    return torch.cat([x, z2], -1), logdet, None
 
 
 def split2d(x, split, reverse=False, eps=None):
@@ -277,12 +400,6 @@ def split2d(x, split, reverse=False, eps=None):
     under the prior predicted from z1.  Reverse: the state rebuilt from
     z1 = x and ``eps`` (zeros when None: the heat-0 decode)."""
     if not reverse:
-        c = x.shape[-1]
-        n_pass = c - int(round(c * 0.5))
-        z1, z2 = x[..., :n_pass], x[..., n_pass:]
-        mean, logs = split_feature(flow_conv_zeros(z1, split.conv), "cross")
-        return z1, (z2 - mean) / torch.exp(logs)
-    mean, logs = split_feature(flow_conv_zeros(x, split.conv), "cross")
-    if eps is None:
-        eps = torch.zeros_like(mean)
-    return torch.cat([x, mean + torch.exp(logs) * eps], -1)
+        z1, _, eps = split2d_logdet(x, split, None)
+        return z1, eps
+    return split2d_logdet(x, split, None, reverse=True, eps=eps)[0]

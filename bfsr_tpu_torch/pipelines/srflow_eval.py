@@ -1,7 +1,18 @@
-"""SRFlow-LP learned-prior inference on one device.
+"""SRFlow-LP learned-prior inference, SRFlow validation and sampling, on
+one device.
 
 The counterpart of ``bfsr_tpu/pipelines/srflow_eval.py``'s
-``SRFlowLPPredictor``.  Per LR image (batch 1):
+``SRFlowLPPredictor``, ``validate`` and ``sample_sr``.  ``validate`` (the
+reference's ``SRFlowModel.test()``) and ``sample_sr`` first ``freeze()``
+the model on its current weights (a trainer's weights move: K5's packs
+and K3's layouts would be stale), then run the RRDB once a batch (K3) and
+decode each heat x sample on K5's reverse, each split's eps drawn from a
+``torch.Generator`` seeded per batch (``seed + batch index``) on the
+model's device; ``validate``'s NLL runs on the unfused log-det encode
+(``normal_flow_nll``: K5 drops the log-det).  ``kernels=False`` or
+``TWINS`` runs the same on the twins.
+
+The predictor, per LR image (batch 1):
 
 1. pad H and W to a multiple of ``pad_multiple`` (the protocol's 2 at
    least): reflect-pad to even, or for a larger multiple, as the JAX
@@ -44,7 +55,9 @@ import torch.nn.functional as F
 
 from bfsr_tpu_torch.models.srflow.srflow_net import standardize_epses
 from bfsr_tpu_torch.ops import nn as fnn
+from bfsr_tpu_torch.ops.cuda import TWINS
 from bfsr_tpu_torch.ops.interp import resize_bilinear
+from bfsr_tpu_torch.pipelines.linf_train import to_device
 from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 
 STAGES = ("rrdb", "precompute_ft", "encode", "prior", "decode")
@@ -115,3 +128,62 @@ class SRFlowLPPredictor:
         sr = self.run(pad_to_multiple(lr_img01, self.pad_multiple))
         s = self.model.scale
         return torch.clamp(sr[0], 0.0, 1.0)[: h * s, : w * s]
+
+
+def _refreeze(model):
+    """``freeze()`` on the current weights, in the one-pass form the flow
+    was frozen with."""
+    steps = model.flowUpsamplerNet.steps()
+    return model.freeze(steps[0].step_form if steps else "xla")
+
+
+@torch.no_grad()
+def validate(model, batches, heats=(0.0, 0.5, 0.75, 1.0), n_sample=3, seed=0,
+             kernels=True):
+    """SRFlow validation (``SRFlow_model.py:178-189``): SR samples at each
+    heat x ``n_sample`` and the mean NLL of GT (with its quantisation
+    noise), in bits/dim.
+
+    batches: an iterable of {'GT': (B, H, W, 3), 'LQ': (B, H/4, W/4, 3)}
+    (numpy arrays or tensors; H, W divisible by 2^L).  Returns (the mean
+    over batches of each batch's mean NLL, {(heat, i): the first image of
+    the last batch's sample i at heat, clipped to [0, 1]})."""
+    path = True if kernels is True else TWINS
+    _refreeze(model)
+    dev = next(model.parameters()).device
+    nlls, samples = [], {}
+    for bi, batch in enumerate(batches):
+        batch = to_device(batch, dev, ("GT", "LQ"))
+        lq, gt = batch["LQ"], batch["GT"]
+        gen = torch.Generator(device=dev).manual_seed(seed + bi)
+        # the conditioning once a batch, shared by every sample and the NLL
+        cache = model.precompute_ft(model.rrdb_preprocess(lq, path))
+        for heat in heats:
+            for i in range(n_sample):
+                z = model.sample_z(heat, lq.shape[1:3], lq.shape[0], gen, dev)
+                sr = model.reverse_flow([z], cache, path, eps_std=heat,
+                                        generator=gen)
+                samples[(heat, i)] = torch.clamp(sr[0], 0.0, 1.0)
+        _, nll, _ = model.normal_flow_nll(gt, cache, generator=gen)
+        nlls.append(float(nll.mean()))
+    return float(np.mean(nlls)), samples
+
+
+@torch.no_grad()
+def sample_sr(model, lr_img01, heat=0.0, seed=0, kernels=True):
+    """An SR sample of one LR image (h, w, 3) in [0, 1] at temperature
+    ``heat`` (``SRFlow_model.get_sr``): reflect-padded to even, decoded on
+    K5 from a final latent and split eps drawn from a generator seeded
+    with ``seed``, clipped and cropped to (4h, 4w, 3)."""
+    path = True if kernels is True else TWINS
+    _refreeze(model)
+    dev = next(model.parameters()).device
+    if isinstance(lr_img01, np.ndarray):
+        lr_img01 = torch.as_tensor(lr_img01, dtype=torch.float32, device=dev)
+    h, w = lr_img01.shape[:2]
+    lr = pad_to_multiple(lr_img01.to(dev), 2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = model.sample_z(heat, lr.shape[1:3], 1, gen, dev)
+    sr = model.get_sr(lr, heat, z=z, generator=gen, kernels=path)
+    s = model.scale
+    return torch.clamp(sr[0], 0.0, 1.0)[: h * s, : w * s]

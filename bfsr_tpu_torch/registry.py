@@ -5,8 +5,8 @@ components register under a string name and are built from
 ``{'name': ..., 'args': {...}}`` dicts, which compose recursively (an
 ``encoder_spec`` lives inside a model spec).  Importing
 ``bfsr_tpu_torch.models`` registers ``linf``, ``linf-patch``,
-``edsr-baseline``, ``flow``, ``unet``, ``VGGFeatureExtractor``, ``srflow``
-and ``srflow-unet``; importing ``bfsr_tpu_torch.data.wrappers`` registers
+``edsr-baseline``, ``flow``, ``unet``, ``VGGFeatureExtractor``, ``rrdb``,
+``srflow`` and ``srflow-unet``; importing ``bfsr_tpu_torch.data.wrappers`` registers
 ``sr-implicit-paired-fast``, ``sr-implicit-paired-fast-patch`` and
 ``sr-implicit-downsampled-fast-crop``, ``bfsr_tpu_torch.data.
 image_folder`` registers ``image-folder`` and ``bfsr_tpu_torch.data.

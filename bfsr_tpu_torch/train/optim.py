@@ -108,6 +108,27 @@ def make_optimizer(spec, params):
     raise ValueError(spec["name"])
 
 
+def share_step_count(optimizer):
+    """Before ``optimizer.step()``: each parameter that has a gradient but
+    no state yet gets zero moments and the step count of the others (the
+    largest), as if it had taken zero gradients at every step so far (the
+    JAX trainers' masked gradients under optax's shared count).  A no-op
+    before the first step."""
+    new = [p for group in optimizer.param_groups for p in group["params"]
+           if p.grad is not None and not optimizer.state.get(p)]
+    if not new:
+        return
+    states = [st for st in optimizer.state.values() if "step" in st]
+    if not states:
+        return
+    count = max(st["step"] for st in states)
+    for p in new:
+        optimizer.state[p] = {
+            k: count.clone() if k == "step" else torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            for k in states[0]}
+
+
 def lr_scheduler(optimizer, schedule, base_lr, count=0):
     """``schedule`` as a ``LambdaLR`` over ``optimizer``, stepped once per
     iteration; ``count``: the updates already taken (a resumed run), so

@@ -5,7 +5,7 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's three main paths and its three trainers at their full
+It drives the port's three main paths and its five trainers at their full
 configurations, random weights from seed 0 — LINF-LP learned-prior inference
 (EDSR-baseline 16x64 encoder, 10-layer pointwise flow, 256-wide info MLP,
 UNet depth 3 / dim 64), its patch model (``bench.py``'s patch workload:
@@ -167,7 +167,29 @@ fails (non-zero exit, no result line) if any phase fails:
    PSNR within ``TOL['eval_psnr_db']``, SSIM within ``TOL['eval_ssim']``;
    the CSV's 2 rows of 6 columns; the first LR's predict held as phase
    7 holds SRFlow-LP's, within ``TOL['srflow_image']``).  It prints the phase's seconds, and
-   the run's seconds in all.
+   the run's seconds in all;
+14. SRFlow base-model training (``srflow_train.py`` without ``--prior`` on
+   ``configs/srflow/SRFlow-LP_DF2K_4X.yml``: the SRFlow-LP flow at full
+   width and depth, random weights from seed 0, its actnorms primed on
+   the first of 4 synthetic batches of 12 x 160^2 GT, Adam at 2.5e-4 over
+   every parameter, the NLL): one frozen-phase step with the launch
+   counters reset (K3 345 on the frozen RRDB, no K5: the trained flow runs
+   unfused), its RRDB held launch by launch against the twins, its loss
+   and every gradient against the twin path's, held as phase 12 holds its
+   step; the live step at the same weights, batch and noise (no kernel;
+   its loss and the flow's gradients within the same spread of the frozen
+   twin step's; the RRDB's conditioning on K3 against cuDNN within
+   ``BASE_TOL['rrdb_cudnn_rel']``); a frozen step under ``default`` (the
+   bf16 K3 345, held launch by launch, loss finite); ms/step of both
+   phases (3 blocks x 5 steps), their stages, profiles and peak memory, a
+   loader-fed block over ``lrhr-pkl`` pickles, one live step that moves
+   every RRDB tensor but the unread x4 head; ``validate`` on 2 val pairs
+   at heats (0, 0.5, 0.75, 1) x 3 samples (K3 345, K5 576 reverse; the
+   heat-0 images within ``TOL['srflow_image']`` and the NLL within
+   ``BASE_TOL['nll_rel']`` of the twin path's); and the RRDB's plain-SR
+   trainer (the x4 RRDB at 64 x 23, B 16 of 32^2 LQ, Charbonnier: no
+   kernel, losses finite, ms/step, peak memory).  It prints the phase's
+   seconds.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -1994,21 +2016,27 @@ def write_lrhr_pickles(root, n, seed=0):
     return paths
 
 
-def srflow_train_step(model, prior, image_weight=0.0, kernels=True,
-                      marks=None):
-    """The prior trainer's step at the flagship's optimizer and schedule
-    (a fresh Adam over the prior's parameters)."""
+def srflow_adam(params):
+    """(a fresh Adam over ``params``, its LR scheduler) at the flagship
+    conf's optimizer and schedule."""
     from bfsr_tpu_torch.cli.srflow_train import make_schedule
-    from bfsr_tpu_torch.pipelines.srflow_prior_train import (
-        make_srflow_prior_train_step)
     from bfsr_tpu_torch.train.optim import lr_scheduler, make_optimizer
 
     t = SRFLOW_TRAIN_OPT
     opt = make_optimizer({"name": "adam", "args": {
-        "lr": t["lr_G"], "betas": (t["beta1"], t["beta2"])}},
-        prior.parameters())
-    sched = lr_scheduler(opt, make_schedule(t, t["niter"], t["lr_G"]),
-                         t["lr_G"])
+        "lr": t["lr_G"], "betas": (t["beta1"], t["beta2"])}}, params)
+    return opt, lr_scheduler(opt, make_schedule(t, t["niter"], t["lr_G"]),
+                             t["lr_G"])
+
+
+def srflow_train_step(model, prior, image_weight=0.0, kernels=True,
+                      marks=None):
+    """The prior trainer's step at the flagship's optimizer and schedule
+    (a fresh Adam over the prior's parameters)."""
+    from bfsr_tpu_torch.pipelines.srflow_prior_train import (
+        make_srflow_prior_train_step)
+
+    opt, sched = srflow_adam(prior.parameters())
     return make_srflow_prior_train_step(model, prior, opt, 1.0, image_weight,
                                         kernels, sched, marks)
 
@@ -2795,6 +2823,387 @@ def run_eval(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: SRFlow base-model training, validate, the RRDB's plain-SR trainer
+# ---------------------------------------------------------------------------
+
+# srflow_train.py without --prior on configs/srflow/SRFlow-LP_DF2K_4X.yml:
+# the train section of phase 12 (batch 12 of 160^2 GT, Adam at 2.5e-4,
+# betas (0.9, 0.99), its MultiStepLR), now over every parameter of the
+# model, weight_fl 1 and no weight_l1 (the conf sets none); a frozen-phase
+# step's launches (the RRDB's dense-block convs on K3; the trained flow
+# runs unfused, on no kernel) and the live phase's (none: the RRDB trains
+# on cuDNN); validate's heats and samples (the conf's val section) on one
+# batch of 2 val pairs of 160^2, whose launches: the RRDB once on K3, each
+# of the 4 x 3 samples' 48 conditional steps on K5's reverse (the NLL runs
+# unfused); the plain-SR trainer's batch (the x4 RRDB at 64 x 23, B 16 of
+# 32^2 LQ, Charbonnier)
+BASE_TRAIN_LAUNCHES = {"conv3x3_cat": 345}
+VAL_HEATS, VAL_SAMPLES, VAL_PAIRS = (0.0, 0.5, 0.75, 1.0), 3, 2
+SR_TRAIN_BATCH, SR_TRAIN_LQ = 16, 32
+# the RRDB's conditioning maps on K3 against the same RRDB on cuDNN (the
+# live phase's convs), each relative to its largest value: 23 blocks of
+# f32 convs summed in another order; validate's NLL on the kernel path's
+# records against the twin path's, relative
+BASE_TOL = {"rrdb_cudnn_rel": 1e-4, "nll_rel": 1e-5}
+
+
+def base_train_step(model, freeze, kernels=True, marks=None):
+    """The base trainer's step at the flagship's optimizer and schedule (a
+    fresh Adam over every parameter of the model): the frozen form, or
+    the live form past its unfreeze."""
+    from bfsr_tpu_torch.pipelines.srflow_train import make_srflow_train_step
+
+    opt, sched = srflow_adam(model.parameters())
+    return make_srflow_train_step(
+        model, opt, 1.0, 0.0, rrdb_unfreeze_step=None if freeze else 0,
+        freeze_rrdb=freeze, kernels=kernels, scheduler=sched, marks=marks)
+
+
+def quant_noise(batch, seed):
+    """Quantisation noise (U - 0.5) / 32 for the batch's GT from a seeded
+    generator on the card, so that two paths see the same."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.rand(batch["GT"].shape, generator=gen, device="cuda")
+            - 0.5) / 32
+
+
+def rrdb_launch_checks(model, lq, label):
+    """The RRDB conditioning of ``lq`` in the current mode, each of its K3
+    launches (the bf16 K3 under default) against its twin on that
+    launch's input, within the kernel's own tolerance (TOL).  Returns a
+    line for the log."""
+    import torch
+
+    from bfsr_tpu_torch.models.unet import k3, k3_twin
+    from bfsr_tpu_torch.ops import nn as fnn
+
+    name = "conv3x3_cat_bf16" if fnn.bf16_stage() else "conv3x3_cat"
+    worst = [0, 0.0, ""]
+
+    def conv(blocks, m, act):
+        y = k3(blocks, m, act)
+        ok, err, tol_s = within(y, k3_twin(blocks, m, act), TOL[name])
+        if not ok:
+            raise RuntimeError(f"{label}: {name} launch {worst[0] + 1} on the "
+                               f"step's own values disagrees with its twin: "
+                               f"max abs err {err:.3e} ({tol_s})")
+        worst[:] = [worst[0] + 1, max(worst[1], err), tol_s]
+        return y
+
+    with torch.no_grad():
+        model.rrdb_preprocess(lq, conv=conv)
+    return (f"the RRDB launch by launch: {name} x {worst[0]} max abs err "
+            f"{worst[1]:.3e} ({worst[2]})")
+
+
+def _launched():
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+
+    torch.cuda.synchronize()
+    return {k: v for k, v in cuda.LAUNCHES.items() if v}
+
+
+def check_base_frozen_step(model, batch, noise):
+    """A frozen-phase step's loss and gradients on the kernel path, with
+    the launch counters reset first (BASE_TRAIN_LAUNCHES), its RRDB held
+    launch by launch, against the twin path from the same state, batch and
+    noise, held to the twin path's spread under LQ x (1 +- 1e-7)
+    (``hold_step``).  Returns (launches, (the twin path's metrics, its
+    gradients, the nudged gradients))."""
+    from bfsr_tpu_torch.ops import cuda
+
+    label = "srflow base train step frozen"
+    cuda.reset_launch_counts()
+    mets, grads = base_train_step(model, True).loss_and_grads(batch, 0, noise)
+    launches = _launched()
+    if launches != BASE_TRAIN_LAUNCHES:
+        raise RuntimeError(f"{label}: launches {launches}, expected "
+                           f"{BASE_TRAIN_LAUNCHES}")
+    held = "; " + rrdb_launch_checks(model, batch["LQ"], label)
+    twin = base_train_step(model, True, kernels=False)
+    ref, ref_grads = twin.loss_and_grads(batch, 0, noise)
+    nudged = [twin.loss_and_grads(dict(
+        batch, LQ=batch["LQ"] * (1 + sign * GRAD_NUDGE)), 0, noise)[1]
+        for sign in (1, -1)]
+    hold_step(label, mets, grads, ref, ref_grads, nudged,
+              f"the larger of LQ x (1 +- {GRAD_NUDGE:g})", held)
+    log(f"{label}: launches {launches}; "
+        + ", ".join(f"{k} {float(v)!r}" for k, v in mets.items()))
+    return launches, (ref, ref_grads, nudged)
+
+
+def check_base_live_step(model, batch, noise, frozen_twin):
+    """The live step at the same weights, batch and noise: no kernel
+    launched; its loss and the flow's gradients against the frozen twin
+    step's, within that step's spread (``hold_step``); and the RRDB's
+    conditioning on K3 against the same RRDB on cuDNN."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+
+    label = "srflow base train step live"
+    cuda.reset_launch_counts()
+    mets, grads = base_train_step(model, False).loss_and_grads(batch, 0,
+                                                               noise)
+    launches = _launched()
+    if launches:
+        raise RuntimeError(f"{label}: launches {launches}, expected none")
+
+    def flow(g):
+        return {k: v for k, v in g.items() if not k.startswith("RRDB.")}
+
+    ref, ref_grads, nudged = frozen_twin
+    n_rrdb = sum(bool(v.any()) for k, v in grads.items()
+                 if k.startswith("RRDB."))
+    hold_step(f"{label} (the flow's gradients, the RRDB on cuDNN) vs the "
+              "frozen step's twin path", mets, flow(grads), ref,
+              flow(ref_grads), [flow(n) for n in nudged],
+              f"the larger of LQ x (1 +- {GRAD_NUDGE:g})")
+    with torch.no_grad():
+        k = model.rrdb_preprocess(batch["LQ"], kernels=True)
+        c = model.rrdb_preprocess(batch["LQ"], kernels=False)
+    errs = {key: float((k[key] - c[key]).abs().max() / c[key].abs().max())
+            for key in model.cond_keys()}
+    if not all(e <= BASE_TOL["rrdb_cudnn_rel"] for e in errs.values()):
+        raise RuntimeError(f"{label}: the RRDB on K3 vs on cuDNN: {errs} "
+                           f"relative (at most {BASE_TOL['rrdb_cudnn_rel']})")
+    log(f"{label}: launches none; {n_rrdb} RRDB gradient tensors non-zero; "
+        f"the RRDB's conditioning maps on K3 vs on cuDNN, max abs err "
+        f"relative to the largest value: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (at most {BASE_TOL['rrdb_cudnn_rel']:g})")
+
+
+def check_base_default_step(model, batch, noise):
+    """One frozen-phase step under default: the bf16 K3 345 times, the
+    RRDB held launch by launch, the loss finite."""
+    import math
+
+    from bfsr_tpu_torch.ops import cuda
+
+    label = "srflow base train step frozen default"
+    want = {"conv3x3_cat_bf16": BASE_TRAIN_LAUNCHES["conv3x3_cat"]}
+    with precision("default"):
+        cuda.reset_launch_counts()
+        mets, _ = base_train_step(model, True).loss_and_grads(batch, 0,
+                                                              noise)
+        launches = _launched()
+        if launches != want or not math.isfinite(float(mets["loss"])):
+            raise RuntimeError(f"{label}: launches {launches} (expected "
+                               f"{want}), loss {float(mets['loss'])!r}")
+        held = rrdb_launch_checks(model, batch["LQ"], label)
+    log(f"{label}: launches {launches}; loss {float(mets['loss'])!r}; {held}")
+    return launches
+
+
+def check_validate(model, dev):
+    """``validate`` on one batch of VAL_PAIRS val pairs at VAL_HEATS x
+    VAL_SAMPLES on the kernel path, the launch counters reset first (K3
+    345, K5 48 reverse a sample), and on the twin path: the heat-0 images
+    within TOL['srflow_image'], the NLL within BASE_TOL['nll_rel']
+    relative.  Returns the launches."""
+    import torch
+
+    from bfsr_tpu_torch.entry import example_srflow_train_batch
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.srflow_eval import validate
+
+    n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
+    want = {"conv3x3_cat": BASE_TRAIN_LAUNCHES["conv3x3_cat"],
+            "flow_step_reverse": n_cond * len(VAL_HEATS) * VAL_SAMPLES}
+    val = [example_srflow_train_batch(dev, 50, VAL_PAIRS, SRFLOW_TRAIN_GT)]
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nll, samples = validate(model, val, VAL_HEATS, VAL_SAMPLES)
+    launches = _launched()
+    kernel_s = time.perf_counter() - t0
+    if launches != want:
+        raise RuntimeError(f"validate: launches {launches}, expected {want}")
+    t0 = time.perf_counter()
+    ref_nll, ref = validate(model, val, VAL_HEATS, VAL_SAMPLES,
+                            kernels=False)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    rel = abs(nll - ref_nll) / abs(ref_nll)
+    errs = {k: float((samples[k] - ref[k]).abs().max()) for k in samples}
+    heat0 = max(e for (h, _), e in errs.items() if h == 0.0)
+    if not (rel <= BASE_TOL["nll_rel"] and heat0 <= TOL["srflow_image"]
+            and all(torch.isfinite(v).all() for v in samples.values())):
+        raise RuntimeError(f"validate: nll {nll!r} vs twin path {ref_nll!r} "
+                           f"({rel:.3e} relative); images max abs err "
+                           f"{errs}")
+    log(f"validate {VAL_PAIRS} pairs of {SRFLOW_TRAIN_GT}^2 at heats "
+        f"{VAL_HEATS} x {VAL_SAMPLES}: launches {launches}; nll {nll!r} "
+        f"bits/dim vs twin path {ref_nll!r} ({rel:.3e} relative, at most "
+        f"{BASE_TOL['nll_rel']:g}); heat-0 images max abs err {heat0:.3e} "
+        f"(at most {TOL['srflow_image']:g}); heat > 0 (the same draws): "
+        + ", ".join(f"{h:g}: {max(e for (hh, _), e in errs.items() if hh == h):.3e}"
+                    for h in VAL_HEATS[1:])
+        + f"; {kernel_s * 1e3:.1f} ms kernel path, {twin_s * 1e3:.1f} ms "
+        "twin path (with freeze())")
+    return launches
+
+
+def run_sr_trainer(dev):
+    """The RRDB's plain-SR trainer: the x4 RRDB at 64 x 23 (gc 32), B 16
+    of 32^2 LQ, Charbonnier, Adam at 2e-4: no kernel launched, losses
+    finite, ms/step and peak memory."""
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.entry import synthetic_lrhr_sample
+    from bfsr_tpu_torch.models.base import seeded
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.sr_train import make_sr_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    model = registry.make({"name": "rrdb", "args": {
+        "nf": 64, "nb": 23, "gc": 32, "no_upsampling": False}})
+    model.reset_parameters(seeded(0))
+    model = model.to(dev).train()
+    opt = make_optimizer({"name": "adam", "args": {
+        "lr": 2e-4, "betas": (0.9, 0.99)}}, model.parameters())
+    step = make_sr_train_step(model, opt, "cb")
+    batches = []
+    for seed in range(2):
+        rng = np.random.default_rng(60 + seed)
+        ss = [synthetic_lrhr_sample(rng, 4 * SR_TRAIN_LQ)
+              for _ in range(SR_TRAIN_BATCH)]
+        batches.append({k: torch.as_tensor(np.stack([s[k] for s in ss]),
+                                           device=dev) for k in ss[0]})
+    cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(batches[i % 2])["loss"] for i in range(3)]
+    launches = _launched()
+    if launches or not np.isfinite(losses).all():
+        raise RuntimeError(f"sr train: launches {launches} (expected none), "
+                           f"losses {losses}")
+    it = iter(range(10 ** 9))
+    med = time_steps({"kernel": lambda: step(batches[next(it) % 2])},
+                     f"sr train B={SR_TRAIN_BATCH} {SR_TRAIN_LQ}^2 LQ x4 cb",
+                     per_block=3)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"sr train: losses {losses} (Charbonnier sums over "
+        f"{SR_TRAIN_BATCH} x {4 * SR_TRAIN_LQ}^2 x 3); no kernel launched; "
+        f"peak memory {peak / 2**20:.1f} MiB; median {med['kernel']:.3f} "
+        "ms/step")
+
+
+def run_srflow_base_trainer(dev):
+    """Phase 14: the SRFlow base trainer at its full configuration, its
+    validation and the RRDB's plain-SR trainer.  Returns {path:
+    launches}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.data.loader import DataLoader
+    from bfsr_tpu_torch.data.pkl_dataset import LRHRPkl
+    from bfsr_tpu_torch.entry import (example_srflow_train_batch,
+                                      srflow_specs)
+    from bfsr_tpu_torch.models.base import seeded
+
+    t0 = time.perf_counter()
+    model = registry.make(srflow_specs()[0])
+    model.reset_parameters(seeded(0))
+    model = model.to(dev).freeze()
+    batches = [example_srflow_train_batch(dev, 40 + seed, SRFLOW_TRAIN_BATCH,
+                                          SRFLOW_TRAIN_GT)
+               for seed in range(4)]
+    model.prime_actnorms(batches[0]["GT"], batches[0]["LQ"])
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"srflow base train: model ({n_params} parameters, "
+        f"{sum(p.numel() for p in model.RRDB.parameters())} in the RRDB) "
+        f"built, actnorms primed on the first of 4 synthetic batches of "
+        f"{SRFLOW_TRAIN_BATCH} x {SRFLOW_TRAIN_GT}^2 GT in "
+        f"{time.perf_counter() - t0:.2f} s")
+    noise = quant_noise(batches[0], 0)
+    launches = {}
+    launches["srflow_base_train"], frozen_twin = check_base_frozen_step(
+        model, batches[0], noise)
+    check_base_live_step(model, batches[0], noise, frozen_twin)
+    del frozen_twin
+    launches["srflow_base_train_default"] = check_base_default_step(
+        model, batches[1], quant_noise(batches[1], 1))
+
+    shape = f"B={SRFLOW_TRAIN_BATCH} {SRFLOW_TRAIN_GT}^2"
+    it = iter(range(10 ** 9))
+    medians = {}
+    for form in ("frozen", "live"):
+        step = base_train_step(model, form == "frozen")
+        if form == "live":
+            rrdb0 = {k: v.detach().clone()
+                     for k, v in model.RRDB.named_parameters()}
+            step(batches[1])
+            still = [k for k, v in model.RRDB.named_parameters()
+                     if torch.equal(v, rrdb0[k])]
+            head = [k for k in rrdb0
+                    if k.split(".")[0] in ("upconv2", "HRconv", "conv_last")]
+            if sorted(still) != sorted(head):
+                raise RuntimeError(f"srflow base train live step: RRDB "
+                                   f"tensors that did not move {still}, "
+                                   f"expected only the x4 head {head}")
+            log(f"srflow base train live step: every RRDB tensor moved but "
+                f"the x4 head's {len(head)}, which the flow never reads")
+            del rrdb0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses = []
+        medians.update(time_steps(
+            {form: lambda s=step: losses.append(
+                s(batches[next(it) % 4])["loss"])},
+            f"srflow base train {shape} resident"))
+        peak = torch.cuda.max_memory_allocated()
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"srflow base train {form}: losses {losses}")
+        log(f"srflow base train {form} step: peak memory "
+            f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above "
+            f"the {base / 2**20:.1f} MiB resident); nll_loss over its "
+            f"{len(losses)} timed steps (one Adam): "
+            f"{[round(v, 3) for v in losses]}")
+        train_stages(lambda marks, f=form: base_train_step(
+            model, f == "frozen", marks=marks), batches[0],
+            f"srflow base train {shape} {form}")
+        profile_predict(lambda s=step: s(batches[0]), medians[form],
+                        f"srflow base train {shape} {form} step", top=12,
+                        what="step")
+        if form == "frozen":
+            with tempfile.TemporaryDirectory() as root:
+                paths = write_lrhr_pickles(root, 5 * SRFLOW_TRAIN_BATCH)
+                loader = DataLoader(LRHRPkl(paths["GT"], paths["LQ"],
+                                            use_flip=True,
+                                            gt_size=SRFLOW_TRAIN_GT),
+                                    SRFLOW_TRAIN_BATCH, shuffle=True,
+                                    drop_last=True, num_workers=3, seed=0)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                losses = [step(b)["loss"] for b in loader]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            if not np.isfinite(losses).all():
+                raise RuntimeError(f"srflow base train: losses {losses}")
+            log(f"time srflow base train {shape} loader-fed frozen step: "
+                f"{len(losses)} steps in {wall * 1e3:.3f} ms, "
+                f"{wall * 1e3 / len(losses):.3f} ms/step (the DataLoader's 3 "
+                f"threads reading lrhr-pkl pickles, flips on); nll_loss "
+                f"{losses[0]!r} -> {losses[-1]!r}")
+    launches["srflow_validate"] = check_validate(model, dev)
+    del model, batches
+    torch.cuda.empty_cache()
+    run_sr_trainer(dev)
+    log(f"srflow base train: phase 14 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -2979,6 +3388,10 @@ def main():
 
     # --- the evaluation entry points ---
     launches.update(run_eval(dev))
+    torch.cuda.empty_cache()
+
+    # --- SRFlow base-model training, validate, plain-SR training ---
+    launches.update(run_srflow_base_trainer(dev))
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
         "build included")
 

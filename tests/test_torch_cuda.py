@@ -1331,3 +1331,103 @@ def test_srflow_predictor_pad_multiple_8_kernel_path_matches_twin_path(dev):
                             pad_multiple=8).predict(lr)
     assert got.shape == (52, 40, 3) and torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, rtol=0, atol=5e-3)
+
+
+# --- SRFlow base-model training and validation ---------------------------
+
+
+def _small_srflow(dev):
+    """The smallest SRFlow the kernels take (RRDB nf 16 x 2 blocks, gc 16;
+    K 2, hidden 64), live random weights, frozen on ``dev``."""
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.models.base import seeded
+
+    model = registry.make({"name": "srflow", "args": {
+        "nf": 16, "nb": 2, "gc": 16, "K": 2, "L": 3, "hidden_channels": 64,
+        "stack_blocks": (0, 1)}})
+    model.reset_parameters(seeded(3))
+    return model.to(dev).freeze()
+
+
+def _base_step(model, **kw):
+    from bfsr_tpu_torch.pipelines.srflow_train import make_srflow_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         model.parameters())
+    return make_srflow_train_step(model, opt, **kw)
+
+
+def test_frozen_phase_rrdb_on_k3_matches_twin_path(dev):
+    """The base trainer's frozen-phase step at B 2 of 64^2 GT: the RRDB's
+    30 dense-block convs on K3, no K5 (the trained flow runs unfused); its
+    loss within 1e-4 relative of the twin path's from the same state and
+    noise, and the gradients, as one vector, within 1e-2 relative L2, as
+    the prior trainer's small step is held."""
+    from bfsr_tpu_torch.entry import example_srflow_train_batch
+
+    model = _small_srflow(dev)
+    batch = example_srflow_train_batch(dev, 0, batch=2, gt_size=64)
+    noise = (torch.rand(batch["GT"].shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+             - 0.5) / 32
+    kcuda.reset_launch_counts()
+    mets, grads = _base_step(model, freeze_rrdb=True,
+                             weight_l1=0.5).loss_and_grads(batch, 0, noise)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kcuda.LAUNCHES.items() if v} == {
+        "conv3x3_cat": 30}, kcuda.LAUNCHES
+    kcuda.reset_launch_counts()
+    ref, ref_grads = _base_step(model, freeze_rrdb=True, weight_l1=0.5,
+                                kernels=False).loss_and_grads(batch, 0, noise)
+    assert not any(kcuda.LAUNCHES.values()), kcuda.LAUNCHES
+    for k in mets:
+        torch.testing.assert_close(mets[k], ref[k], rtol=1e-4, atol=0)
+    g = torch.cat([v.flatten() for v in grads.values()])
+    r = torch.cat([ref_grads[k].flatten() for k in grads])
+    assert torch.isfinite(g).all()
+    assert float((g - r).norm() / r.norm()) <= 1e-2
+    assert not any(grads[k].any() for k in grads if k.startswith("RRDB."))
+
+
+def test_validate_k5_decode_at_heat_half_matches_twin_path(dev):
+    """``validate`` at heat 0.5 with its seeded generator on the card: K3
+    30 and K5 6 reverse a sample (no K5 forward: the NLL runs unfused);
+    the sample within 5e-3 of the twin path's (the same draws), the NLL
+    within 1e-4 relative."""
+    from bfsr_tpu_torch.entry import example_srflow_train_batch
+    from bfsr_tpu_torch.pipelines.srflow_eval import validate
+
+    model = _small_srflow(dev)
+    batch = example_srflow_train_batch(dev, 1, batch=1, gt_size=64)
+    kcuda.reset_launch_counts()
+    nll, samples = validate(model, [batch], heats=(0.5,), n_sample=1)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kcuda.LAUNCHES.items() if v} == {
+        "conv3x3_cat": 30, "flow_step_reverse": 6}, kcuda.LAUNCHES
+    ref_nll, ref = validate(model, [batch], heats=(0.5,), n_sample=1,
+                            kernels=False)
+    assert np.isfinite(nll) and abs(nll - ref_nll) <= 1e-4 * abs(ref_nll)
+    torch.testing.assert_close(samples[0.5, 0], ref[0.5, 0], rtol=0,
+                               atol=5e-3)
+
+
+def test_kernel_layouts_older_than_the_weights_raise(dev):
+    """After a live step moves the RRDB and the flow, the K3 and K5 paths
+    refuse the layouts of the last ``freeze()``; a new ``freeze()`` lays
+    them out again."""
+    from bfsr_tpu_torch.entry import example_srflow_train_batch
+
+    model = _small_srflow(dev)
+    batch = example_srflow_train_batch(dev, 2, batch=2, gt_size=64)
+    _base_step(model, rrdb_unfreeze_step=0)(batch, 0)
+    lq = batch["LQ"]
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="older than its weights"):
+            model.rrdb_preprocess(lq)
+        cache = model.precompute_ft(model.rrdb_preprocess(lq, kernels=False))
+        with pytest.raises(RuntimeError, match="older than its weights"):
+            model.normal_flow(batch["GT"], cache)
+        model.freeze()
+        cache = model.precompute_ft(model.rrdb_preprocess(lq))
+        assert torch.isfinite(model.normal_flow(batch["GT"], cache)[-1]).all()

@@ -288,10 +288,14 @@ def test_cli_trains_saves_resumes_and_refuses_base_training(tmp_path,
     assert sv["iter"] == 4
     assert sv["optimizer"]["sd"]["state"][0]["step"] == 4
     assert "auto-resumed" in (save / "log.txt").read_text()
-    # the base model's NLL training and SR training wait for a later slice
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        cli.cli([conf_path, "--device", "cpu"])
+    # without --prior the conf trains the base model, and model: sr the
+    # RRDB (tests/test_torch_srflow_train_cli.py runs both); neither is
+    # refused any more
+    called = []
+    monkeypatch.setattr(cli, "train_srflow", lambda *a: called.append("base"))
+    monkeypatch.setattr(cli, "train_sr", lambda *a: called.append("sr"))
+    cli.cli([conf_path, "--device", "cpu"])
     sr = tmp_path / "sr.yml"
     sr.write_text(yaml.safe_dump(dict(conf, model="sr")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        cli.cli([str(sr), "--prior", "--device", "cpu"])
+    cli.cli([str(sr), "--prior", "--device", "cpu"])
+    assert called == ["base", "sr"]
