@@ -25,6 +25,11 @@ and ``vgg_weights`` are torch files: the reference's LINF checkpoint
 ``state_dict``.  Each epoch writes ``prior_model-epoch-last.ckpt`` (and
 ``prior_model-epoch-N.ckpt`` every ``epoch_save``) under ``./save/<name>``;
 ``resume_prior_model`` resumes from one, optimizer and epoch included.
+The encoder is any the registry has (``configs/train/
+train_rrdb-linf-LP.yaml``: RRDB on ``image-folder-DF2K``) and the latent
+module any of ``unet``, ``swin_latent`` and ``edsr-baseline-latent``;
+``swin_latent`` trains with stochastic depth, drawn from a
+``torch.Generator`` seeded with ``--seed``.
 
 ``--patch PS`` (odd, > 1) trains the patch model's prior, as ``train.py``
 rewrites the config: ``-patch`` on the train wrapper (with
@@ -169,9 +174,13 @@ def main(config, save_path, seed=0, device="cuda"):
     vgg_weight = config["loss_weight"]["vgg"]
     latent_weight = config["loss_weight"]["latent"]
     vgg = load_vgg(config, device) if vgg_weight > 0 else None
+    # stochastic depth's draws (swin_latent's; the other latent modules
+    # draw none), seeded as train.py seeds its dp_key
+    generator = torch.Generator(device=device).manual_seed(seed)
     step = make_train_step(linf, prior, vgg, optimizer,
                            vgg_weight=vgg_weight, latent_weight=latent_weight,
-                           data_norm=data_norm, scheduler=scheduler)
+                           data_norm=data_norm, scheduler=scheduler,
+                           generator=generator)
 
     epoch_max, epoch_save = config["epoch_max"], config.get("epoch_save")
     epoch_val = config.get("epoch_val")

@@ -2,13 +2,16 @@
 
 The reverse of ``bfsr_tpu/convert/torch_import.py``: it builds a
 reference-keyed ``state_dict`` from a ``bfsr_tpu`` params pytree, so
-``bfsr_tpu.convert.torch_import.convert_linf`` / ``convert_unet`` /
-``convert_srflow`` / ``convert_srflow_unet`` map the port's ``state_dict``
-back to the same pytree.
+``bfsr_tpu.convert.torch_import.convert_linf`` (any of its encoders:
+EDSR, RRDB, RDN, SwinIR) / ``convert_unet`` / ``convert_swin_latent`` /
+``convert_edsr_latent`` / ``convert_mlp`` / ``convert_srflow`` /
+``convert_srflow_unet`` map the port's ``state_dict`` back to the same
+pytree.
 
 * conv: HWIO -> OIHW;
 * the LINF MLP, stored as linears (in, out) -> 1x1 convs (out, in, 1, 1);
-* the phase linear (in, out) -> (out, in);
+* the phase linear and every other linear (in, out) -> (out, in);
+* LayerNorm scale/bias -> weight/bias;
 * flow ``w``/``b`` as they are, per layer (``w_inv``/``logabsdet`` are
   recomputed in float64 by ``freeze()``);
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
@@ -47,19 +50,87 @@ def _bn(sd, prefix, p):
 
 
 def edsr_state_dict(params, prefix=""):
+    """Reference-keyed state_dict of an EDSR, with its upsampler
+    (``tail.0.{0,2,..}``, ``tail.1``) where the params have one."""
     sd = {}
     _conv(sd, prefix + "head.0", params["head"])
     for i, blk in enumerate(params["body"]):
         _conv(sd, f"{prefix}body.{i}.body.0", blk["conv1"])
         _conv(sd, f"{prefix}body.{i}.body.2", blk["conv2"])
     _conv(sd, f"{prefix}body.{len(params['body'])}", params["body_tail"])
+    for i, p in enumerate(params.get("upsampler", ())):
+        _conv(sd, f"{prefix}tail.0.{2 * i}", p)
+    if "tail" in params:
+        _conv(sd, prefix + "tail.1", params["tail"])
     return sd
 
 
-def linf_state_dict(params):
-    """Reference-keyed state_dict of a LINF or LINF patch model (EDSR
-    encoder)."""
-    sd = edsr_state_dict(params["encoder"], prefix="encoder.")
+def rdn_state_dict(params, prefix=""):
+    """Reference-keyed state_dict of an RDN, with its ``UPNet`` where the
+    params have one."""
+    sd = {}
+    _conv(sd, prefix + "SFENet1", params["sfe1"])
+    _conv(sd, prefix + "SFENet2", params["sfe2"])
+    for i, rdb in enumerate(params["rdbs"]):
+        for j, c in enumerate(rdb["convs"]):
+            _conv(sd, f"{prefix}RDBs.{i}.convs.{j}.conv.0", c)
+        _conv(sd, f"{prefix}RDBs.{i}.LFF", rdb["lff"])
+    _conv(sd, prefix + "GFF.0", params["gff1"])
+    _conv(sd, prefix + "GFF.1", params["gff2"])
+    for i, p in enumerate(params.get("upnet", ())):
+        _conv(sd, f"{prefix}UPNet.{2 * i}", p)
+    return sd
+
+
+def _linear(sd, prefix, p):
+    sd[prefix + ".weight"] = _t(np.asarray(p["w"]).T)
+    if p.get("b") is not None:
+        sd[prefix + ".bias"] = _t(p["b"])
+
+
+def _ln(sd, prefix, p):
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def _swin_block(sd, prefix, p):
+    _ln(sd, prefix + ".norm1", p["norm1"])
+    _linear(sd, prefix + ".attn.qkv", p["attn"]["qkv"])
+    _linear(sd, prefix + ".attn.proj", p["attn"]["proj"])
+    sd[prefix + ".attn.relative_position_bias_table"] = _t(
+        p["attn"]["bias_table"])
+    _ln(sd, prefix + ".norm2", p["norm2"])
+    _linear(sd, prefix + ".mlp.fc1", p["mlp_fc1"])
+    _linear(sd, prefix + ".mlp.fc2", p["mlp_fc2"])
+
+
+def swinir_state_dict(params, prefix=""):
+    """Reference-keyed state_dict of the SwinIR encoder."""
+    sd = {}
+    _conv(sd, prefix + "conv_first", params["conv_first"])
+    if params.get("patch_norm") is not None:
+        _ln(sd, prefix + "patch_embed.norm", params["patch_norm"])
+    for li, layer in enumerate(params["layers"]):
+        for bi, blk in enumerate(layer["blocks"]):
+            _swin_block(sd, f"{prefix}layers.{li}.residual_group.blocks.{bi}",
+                        blk)
+        _conv(sd, f"{prefix}layers.{li}.conv", layer["conv"])
+    _ln(sd, prefix + "norm", params["norm"])
+    _conv(sd, prefix + "conv_after_body", params["conv_after_body"])
+    _conv(sd, prefix + "conv_before_upsample.0",
+          params["conv_before_upsample"])
+    return sd
+
+
+def linf_state_dict(params, encoder_name="edsr-baseline"):
+    """Reference-keyed state_dict of a LINF or LINF patch model whose
+    encoder is the registry's ``encoder_name``: ``edsr-baseline``,
+    ``edsr``, ``rrdb``, ``rdn`` or ``swinir``."""
+    if encoder_name not in ENCODER_STATE_DICTS:
+        raise NotImplementedError(f"LINF encoder {encoder_name!r}: expected "
+                                  f"one of {sorted(ENCODER_STATE_DICTS)}")
+    sd = ENCODER_STATE_DICTS[encoder_name](params["encoder"],
+                                           prefix="encoder.")
     _conv(sd, "coef", params["coef"])
     _conv(sd, "freq", params["freq"])
     sd["phase.weight"] = _t(np.asarray(params["phase"]["w"]).T)
@@ -103,6 +174,42 @@ def unet_state_dict(params):
     return sd
 
 
+def swin_latent_state_dict(params):
+    """Reference-keyed state_dict of the Swin latent module."""
+    sd = {}
+    _dense5(sd, "input_proj", params["input_proj"])
+    _conv(sd, "lr_proj.0", params["lr_proj_conv"])
+    _dense5(sd, "lr_proj.2", params["lr_proj_dense"])
+    for li, layer in enumerate(params["layers"]):
+        for bi, blk in enumerate(layer["blocks"]):
+            _swin_block(sd, f"layers.{li}.blocks.{bi}", blk)
+    _ln(sd, "norm", params["norm"])
+    for i, p in enumerate(params["head"]):
+        _conv(sd, f"head.{2 * i}", p)
+    return sd
+
+
+def edsr_latent_state_dict(params):
+    """Reference-keyed state_dict of the EDSR latent module."""
+    sd = {}
+    _dense5(sd, "input_proj", params["input_proj"])
+    _conv(sd, "lr_proj.0", params["lr_proj_conv"])
+    _dense5(sd, "lr_proj.2", params["lr_proj_dense"])
+    for i, blk in enumerate(params["body"]):
+        _conv(sd, f"body.{i}.body.0", blk["conv1"])
+        _conv(sd, f"body.{i}.body.2", blk["conv2"])
+    _conv(sd, "last_conv", params["last_conv"])
+    return sd
+
+
+def mlp_state_dict(params):
+    """Reference-keyed state_dict of an ``mlp`` (``layers.{0,2,..}``)."""
+    sd = {}
+    for i, p in enumerate(params["layers"]):
+        _linear(sd, f"layers.{2 * i}", p)
+    return sd
+
+
 def rrdb_state_dict(params, prefix=""):
     """Reference-keyed state_dict of an RRDBNet, with its x4 head where the
     params have one."""
@@ -117,6 +224,12 @@ def rrdb_state_dict(params, prefix=""):
         if key in params:
             _conv(sd, prefix + name, params[key])
     return sd
+
+
+# LINF's encoders by registry name
+ENCODER_STATE_DICTS = {"edsr-baseline": edsr_state_dict,
+                       "edsr": edsr_state_dict, "rrdb": rrdb_state_dict,
+                       "rdn": rdn_state_dict, "swinir": swinir_state_dict}
 
 
 def _actnorm(sd, prefix, p):
@@ -176,6 +289,13 @@ def srflow_unet_state_dict(params):
     return sd
 
 
+# the latent modules by registry name
+PRIOR_STATE_DICTS = {"unet": unet_state_dict,
+                     "swin_latent": swin_latent_state_dict,
+                     "edsr-baseline-latent": edsr_latent_state_dict,
+                     "srflow-unet": srflow_unet_state_dict}
+
+
 def vgg_state_dict(params, feature_layer=34):
     """torchvision-keyed state_dict (``features.{i}.*``) of a VGG19
     feature extractor cut after layer ``feature_layer``."""
@@ -208,10 +328,18 @@ def load_srflow_unet(prior, params):
 
 
 def load_linf(model, params):
-    """Install JAX LINF params into a port ``LINF`` / ``LINFPatch`` and
-    freeze it."""
-    model.load_state_dict(linf_state_dict(params))
+    """Install JAX LINF params into a port ``LINF`` / ``LINFPatch`` (any
+    registered encoder) and freeze it."""
+    model.load_state_dict(linf_state_dict(
+        params, model.args["encoder_spec"]["name"]))
     return model.freeze()
+
+
+def load_prior(prior, params):
+    """Install JAX latent-module params into a port ``UNet``,
+    ``SwinLatent``, ``EDSRLatent`` or ``SRFlowUNet`` and freeze it."""
+    prior.load_state_dict(PRIOR_STATE_DICTS[prior.registry_name](params))
+    return prior.freeze()
 
 
 def load_unet(prior, params):

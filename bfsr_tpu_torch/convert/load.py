@@ -84,38 +84,32 @@ def _finish(model, device, freeze):
 
 
 def load_linf_model(path, freeze=True, device="cuda"):
-    """A LINF or LINF patch model from ``path`` (any of the three
-    formats)."""
+    """A LINF or LINF patch model, on any registered encoder, from
+    ``path`` (any of the three formats)."""
     kind, ckpt = read_checkpoint(path)
     spec = ckpt["model"] if "model" in ckpt else ckpt
     model = registry.make(spec)
-    model.load_state_dict(spec["sd"] if kind == "torch"
-                          else from_jax.linf_state_dict(spec["params"]))
+    model.load_state_dict(
+        spec["sd"] if kind == "torch" else from_jax.linf_state_dict(
+            spec["params"], spec["args"]["encoder_spec"]["name"]))
     return _finish(model, device, freeze)
 
 
 def load_prior_model(path, device="cuda"):
-    """A latent module (the LINF-LP UNet or SRFlow-LP's two-branch UNet)
-    from ``path`` (any of the three formats), frozen.  A reference
-    checkpoint names both ``unet``; the two-branch one is told by its
-    keys."""
+    """A latent module (the LINF-LP UNet, ``swin_latent``,
+    ``edsr-baseline-latent`` or SRFlow-LP's two-branch UNet) from
+    ``path`` (any of the three formats), frozen.  A reference checkpoint
+    names both UNets ``unet``; the two-branch one is told by its keys."""
     kind, ckpt = read_checkpoint(path)
     spec = ckpt["prior_model"] if "prior_model" in ckpt else ckpt
-    name = spec["name"]
-    if kind == "torch":
-        sd = spec["sd"]
-        if name == "unet" and "input_proj0.conv1.weight" in sd:
-            name = "srflow-unet"
-    elif name == "unet":
-        sd = from_jax.unet_state_dict(spec["params"])
-    elif name == "srflow-unet":
-        sd = from_jax.srflow_unet_state_dict(spec["params"])
-    else:
-        sd = None
-    if name not in ("unet", "srflow-unet") or sd is None:
-        raise NotImplementedError(
-            f"latent module {spec['name']!r}: the port has the UNet priors "
-            "only (the others are ROADMAP.md queue 1, slice 6)")
+    name, known = spec["name"], from_jax.PRIOR_STATE_DICTS
+    if kind == "torch" and name == "unet" and (
+            "input_proj0.conv1.weight" in spec["sd"]):
+        name = "srflow-unet"
+    if name not in known:
+        raise NotImplementedError(f"latent module {spec['name']!r}: "
+                                  f"expected one of {sorted(known)}")
     prior = registry.make({"name": name, "args": spec.get("args") or {}})
-    prior.load_state_dict(sd)
+    prior.load_state_dict(spec["sd"] if kind == "torch"
+                          else known[name](spec["params"]))
     return _finish(prior, device, True)

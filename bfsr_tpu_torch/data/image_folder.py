@@ -1,6 +1,7 @@
 """``image-folder``: the images of a directory as float32 HWC arrays in
-[0, 1], and ``paired-image-folders``, two of them item by item: the
-counterparts of ``bfsr_tpu/data/image_folder.py``'s (the reference's
+[0, 1]; ``image-folder-DF2K``, DIV2K's folder then Flickr2K's; and
+``paired-image-folders``, two folders item by item: the counterparts of
+``bfsr_tpu/data/image_folder.py``'s (the reference's
 ``LINF-LP/datasets/image_folder.py``).
 
 Cache modes: 'none' (decode at each access), 'bin' (a one-time pickle of
@@ -68,6 +69,36 @@ class ImageFolder:
             with open(x, "rb") as f:
                 return np.asarray(pickle.load(f), np.float32) / 255.0
         return x
+
+
+@register("image-folder-DF2K")
+class ImageFolderDF2K:
+    """DIV2K's images (cached per ``cache``, as ``image-folder`` caches
+    them) then Flickr2K's (always decoded at each access), each folder in
+    sorted order and cut to its ``first_k``."""
+
+    def __init__(self, root_path_D2K, root_path_F2K, first_k=None, repeat=1,
+                 cache="none"):
+        self.repeat = repeat
+        self.cache = cache
+        self.files = list(ImageFolder(root_path_D2K, first_k=first_k,
+                                      cache=cache).files)
+        filenames = sorted(os.listdir(root_path_F2K))
+        if first_k is not None:
+            filenames = filenames[:first_k]
+        self.files.extend(os.path.join(root_path_F2K, f) for f in filenames)
+
+    def __len__(self):
+        return len(self.files) * self.repeat
+
+    def __getitem__(self, idx):
+        x = self.files[idx % len(self.files)]
+        if not isinstance(x, str):
+            return x
+        if x.endswith(".pkl"):
+            with open(x, "rb") as f:
+                return np.asarray(pickle.load(f), np.float32) / 255.0
+        return _decode(x).astype(np.float32) / 255.0
 
 
 @register("paired-image-folders")

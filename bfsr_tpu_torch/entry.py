@@ -36,6 +36,14 @@ VGG19 as ``build_flagship_trainer`` draws it; ``example_patch_train_batch``
 a synthetic batch in the ``sr-implicit-downsampled-fast-crop-patch``
 layout (LR crops of 3 x ``inp_size``).
 
+``build_rrdb_linf`` is path (A) of the other encoders' slice,
+``configs/train/train_rrdb-linf-LP.yaml``: the flagship's flow, info MLP
+and UNet prior on an RRDB encoder (nf 64, nb 23, gc 32); ``build_swin_prior``
+is path (B), the flagship LINF with the ``swin_latent`` prior (embed 96,
+depths 2/2/6/2, heads 3/6/12/24, window 7); ``build_linf`` builds any
+pair of specs.  ``tiny=True`` gives the CPU test sizes (RRDB nf 8, nb 2,
+gc 4; the flagship's tiny LINF).
+
 ``build_srflow_lp`` is the same for SRFlow-LP: the network_G and
 prior_model of ``configs/srflow/SRFlow-LP_DF2K_4X.yml`` (RRDB nf 64,
 nb 23, gc 32; K 16, L 3, hidden 64, stackRRDB [1, 8, 15, 22] concat,
@@ -80,18 +88,60 @@ def flagship_specs(tiny=False):
 
 
 @torch.no_grad()
-def build_flagship(device="cuda", seed=0, tiny=False):
-    """(frozen LINF, UNet prior), eval mode, on ``device``."""
-    linf_spec, unet_spec = flagship_specs(tiny)
+def build_linf(linf_spec, prior_spec, device="cuda", seed=0):
+    """(frozen LINF, frozen latent module) of the specs, eval mode, on
+    ``device``, from ``seed``; the flow weights + I."""
     gen = seeded(seed)
     model = registry.make(linf_spec)
     model.reset_parameters(gen)
     for lin in [*model.imnet.linears, model.imnet.last]:
         lin._weight.add_(torch.eye(3))
-    prior = registry.make(unet_spec)
+    prior = registry.make(prior_spec)
     prior.reset_parameters(gen)
     model = model.to(device).eval().freeze()
     return model, prior.to(device).eval().freeze()
+
+
+def build_flagship(device="cuda", seed=0, tiny=False):
+    """(frozen LINF, UNet prior), eval mode, on ``device``."""
+    return build_linf(*flagship_specs(tiny), device, seed)
+
+
+def rrdb_linf_specs(tiny=False):
+    """(linf spec, unet spec) of ``configs/train/train_rrdb-linf-LP.yaml``:
+    the flagship's flow, MLP and UNet on an RRDB encoder (nf 64, nb 23,
+    gc 32, ``no_upsampling``); ``tiny``: RRDB nf 8, nb 2, gc 4 and the
+    flagship's tiny rest."""
+    linf_spec, unet_spec = flagship_specs(tiny)
+    rrdb = {"nf": 8, "nb": 2, "gc": 4} if tiny else {}
+    linf_spec["args"]["encoder_spec"] = {
+        "name": "rrdb", "args": {**rrdb, "no_upsampling": True}}
+    return linf_spec, unet_spec
+
+
+def _cpu_only(tiny, device, what):
+    if tiny and torch.device(device).type == "cuda":
+        raise ValueError(f"the tiny {what} config runs on the CPU only: K3 "
+                         "takes Cout 8-64 and K2 hidden 128 or 256")
+
+
+def build_rrdb_linf(device="cuda", seed=0, tiny=False):
+    """(frozen RRDB-encoder LINF, UNet prior), eval mode, on ``device``:
+    path (A), ``rrdb_linf_specs``."""
+    _cpu_only(tiny, device, "RRDB-LINF")
+    return build_linf(*rrdb_linf_specs(tiny), device, seed)
+
+
+SWIN_PRIOR = {"name": "swin_latent", "args": {"in_chans": 3}}
+
+
+def build_swin_prior(device="cuda", seed=0, tiny=False):
+    """(frozen flagship LINF, ``swin_latent`` prior at the JAX package's
+    widths: embed 96, depths 2/2/6/2, heads 3/6/12/24, window 7), eval
+    mode, on ``device``: path (B).  ``tiny``: the flagship's tiny LINF
+    (the latent module's widths are fixed)."""
+    _cpu_only(tiny, device, "LINF")
+    return build_linf(flagship_specs(tiny)[0], SWIN_PRIOR, device, seed)
 
 
 def example_inputs(device, lr_hw, hr_hw, seed=0):

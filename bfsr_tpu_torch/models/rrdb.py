@@ -134,10 +134,12 @@ class RRDBNet(Model):
         res["fea_up0"] = resize_bilinear(last, (h // 2, w // 2))
         return res
 
-    def forward(self, x, kernels=True):
+    def forward(self, x, kernels=True, conv=None):
         """``RRDBNet.apply``: the trunk features, or with the head the x4
-        image (B, 4h, 4w, out_nc)."""
-        fea = self.encode(x, kernels)
+        image (B, 4h, 4w, out_nc).  As LINF's encoder (``no_upsampling``)
+        it is ``rrdb_encode``: its 345 dense-block convs on K3 at the
+        input's batch."""
+        fea = self.encode(x, kernels, conv)
         if self.no_upsampling:
             return fea
         h, w = x.shape[1], x.shape[2]

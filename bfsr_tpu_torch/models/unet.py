@@ -100,6 +100,18 @@ def _bn_lrelu(h, bn, bn_stats):
     return fnn.leaky_relu(h)
 
 
+def lr_embed(lr_proj, lr, hw):
+    """The LR projection of the latent modules (``lr_proj``: stride-3
+    conv, LeakyReLU, DenseBlock_5C over explicit concats), bilinear-resized
+    to ``hw``."""
+    c = lr_proj[0]
+    e = fnn.leaky_relu(fnn.conv2d(lr, c.weight, c.bias, stride=3, padding=1))
+    e = lr_proj[2](e)
+    if e.shape[1:3] != tuple(hw):
+        e = resize_bilinear(e, tuple(hw), align_corners=False)
+    return e
+
+
 class DoubleConv(nn.Module):
     def __init__(self, cin, cout, mid=None):
         super().__init__()
@@ -231,24 +243,16 @@ class UNet(Model):
         cuda.stamp_layouts(self)
         return self
 
-    def _lr_embed(self, lr, hw):
-        c = self.lr_proj[0]
-        e = fnn.leaky_relu(fnn.conv2d(lr, c.weight, c.bias, stride=3,
-                                      padding=1))
-        e = self.lr_proj[2](e)
-        if e.shape[1:3] != tuple(hw):
-            e = resize_bilinear(e, hw, align_corners=False)
-        return e
-
     def _out(self, x):
         return fnn.conv2d(x, self.outc.conv.weight, self.outc.conv.bias)
 
-    def forward(self, z, lr, kernels=True, training=False):
+    def forward(self, z, lr, kernels=True, training=False, generator=None):
         """z: (B, H, W, in_chans) latent; lr: (B, h, w, 3) normalized LR.
         Returns (B, H, W, in_chans); with ``training=True`` (plain convs,
         batch statistics, any batch) ``(out, bn_stats)``, bn_stats mapping
         each BatchNorm's ``state_dict`` name to its batch's (mean, unbiased
-        var)."""
+        var).  ``generator`` is accepted for the latent-module interface
+        (nothing here is random)."""
         if training:
             stats = {}
             out = self._forward_plain(z, lr, stats)
@@ -259,7 +263,7 @@ class UNet(Model):
         cuda.check_layouts(self)
         hw = z.shape[1:3]
         proj = self.input_proj.forward_cat([z])
-        x = self.inc.forward_cat([proj, self._lr_embed(lr, hw)])
+        x = self.inc.forward_cat([proj, lr_embed(self.lr_proj, lr, hw)])
         feats = [x]
         for down in self.down_layers:
             x = down(x)
@@ -272,7 +276,7 @@ class UNet(Model):
 
     def _forward_plain(self, z, lr, bn_stats=None):
         x = self.input_proj(z)
-        x = torch.cat([x, self._lr_embed(lr, x.shape[1:3])], -1)
+        x = torch.cat([x, lr_embed(self.lr_proj, lr, x.shape[1:3])], -1)
         x = self.inc(x, bn_stats)
         feats = [x]
         for down in self.down_layers:

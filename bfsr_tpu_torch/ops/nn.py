@@ -199,6 +199,28 @@ def linear(x, weight, bias=None):
     return F.linear(x, weight, bias)
 
 
+def matmul(a, b):
+    """``a @ b`` (batched) that follows the stage's precision, forward and
+    backward: the raw ``jnp.einsum(..., precision=default_precision())``
+    sites of the JAX package (the Swin attention's two products)."""
+    if bf16_stage():
+        return _bf16_product(lambda x, y, _: torch.matmul(x, y), a, b, None,
+                             ())
+    return torch.matmul(a, b)
+
+
+def layer_norm(x, ln, eps=1e-5):
+    """LayerNorm over the last axis: ``ln``, an ``nn.LayerNorm`` (its
+    affine); the JAX package's ``swinir.layer_norm`` (biased variance)."""
+    return F.layer_norm(x, x.shape[-1:], ln.weight, ln.bias, eps)
+
+
+def pixel_shuffle(x, r):
+    """NHWC pixel shuffle: (B, H, W, C r^2) -> (B, H r, W r, C), channels
+    read in torch ``nn.PixelShuffle``'s (c, ry, rx) order."""
+    return nchw_to_nhwc(F.pixel_shuffle(nhwc_to_nchw(x), r))
+
+
 def relu(x):
     return torch.relu(x)
 

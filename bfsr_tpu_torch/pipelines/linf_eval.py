@@ -6,13 +6,15 @@ on its fused-kernel path (``_predict_pallas``) and ``eval_psnr``.  For a
 regular query grid (the HR grid of a pixel model, the patch-centre grid
 of a patch model) and d = 3 ps^2:
 
-1. the EDSR encoder (K3 on CUDA);
+1. the encoder (EDSR-baseline and RRDB on K3 on CUDA; the others on
+   plain convs);
 2. the coef/freq 3x3 convs;
 3. the per-query affine info, computed ONCE and shared by the forward and
    inverse flow passes (K2 on CUDA), channel-major (2dL, H*W);
 4. with a prior: the flow forward of the ``gt_lr_up`` residual (K1 at
    d = 3, K4 at d = 27),
-5. the UNet prior (K3 at full resolution),
+5. the latent module (the UNet's full-resolution stages and
+   ``edsr-baseline-latent``'s convs on K3; ``swin_latent`` plain),
 6. the flow inverse (K1 / K4) of the learned latent; without a prior, the
    inverse of zeros (temperature 0) or of N(0, t^2) noise drawn from the
    caller's ``torch.Generator``;

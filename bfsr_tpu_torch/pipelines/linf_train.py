@@ -6,14 +6,17 @@ d = 3 ps^2, JAX's ``patch=True``), on one device.  A step on a batch of
 crops:
 
 1. the frozen part, under ``torch.no_grad()`` (JAX's ``stop_gradient``):
-   the EDSR encoder (K3, 34 launches on the card), the Fourier head
+   the encoder (EDSR-baseline: K3, 34 launches on the card; RRDB: K3,
+   345), the Fourier head
    (cuDNN), the affine info of every sample's crop (K2, once, channel-major
    (2dL, B*H*W)) and the flow forward of the LR-up residual (K1 at d = 3,
    K4 at d = 27; once more for the HR residual, ``gt_pixel`` or
    ``gt_patch``, when ``latent_weight > 0``);
-2. the trainable part, under autograd: the UNet prior with batch
-   statistics (plain convs: cuDNN, as XLA convs in JAX) in the ``prior``
-   stage, the flow inverse of its latent (K1's or K4's inverse with the
+2. the trainable part, under autograd: the latent module in its
+   training form (``prior(z, lr, training=True, generator=g)``: plain
+   convs, cuDNN, as XLA convs in JAX; the UNet with batch statistics,
+   ``swin_latent`` with stochastic depth drawn from ``g``) in the
+   ``prior`` stage, the flow inverse of its latent (K1's or K4's inverse with the
    plain twin's gradient, ``linf_flow.FlowInverse``) plus the bilinear LR
    (the pixel model at its queries; the patch model folds each query's
    patch and adds the LR sampled at the HR window's ``interpolate_coord``),
@@ -22,7 +25,8 @@ crops:
    residual's;
 3. backward, the optimizer's step on the prior alone, one step of the LR
    schedule, and the batch statistics folded into the BatchNorms' running
-   stats.
+   stats (``apply_bn_updates``: nothing for a module without
+   BatchNorm).
 
 The JAX step computes the info twice, once for the encodes
 (``query_log_p_grid``) and once in ``query_rgb`` (``linf_affine_info``,
@@ -94,7 +98,7 @@ def patch_grid_axes(coord, window_hw, ps):
 
 def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
                     latent_weight=0.0, data_norm=None, kernels=True,
-                    scheduler=None, marks=None):
+                    scheduler=None, marks=None, generator=None):
     """``step(batch) -> {'loss', 'vgg_l', 'latent_l'}`` (floats, one host
     fetch), which updates the prior, its optimizer and its BatchNorm
     running stats in place; ``step.loss_and_grads(batch) -> (metrics
@@ -102,7 +106,11 @@ def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
     and the prior's gradients and changes nothing.
 
     linf: a frozen ``LINF`` or ``LINFPatch`` (``freeze()`` called); prior:
-    the ``UNet`` (``in_chans`` = ``linf.dim``);
+    the latent module (``unet``, ``swin_latent`` or
+    ``edsr-baseline-latent``; ``in_chans`` = ``linf.dim``); generator: a
+    ``torch.Generator`` on the prior's device that each step's stochastic
+    depth draws from, in turn (the JAX trainer splits its ``dp_key`` once
+    a step), or None for none;
     vgg: a frozen ``VGGFeatureExtractor`` (or None when ``vgg_weight`` is
     0); optimizer: over the prior's parameters; scheduler: a per-iteration
     LR scheduler (``train.optim.lr_scheduler``) or None; batch: the crop
@@ -166,7 +174,8 @@ def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
         coord, cell = batch["coord"], batch["cell"]
         mark("prior")
         with fnn.stage("prior"):
-            z_learned, bn_stats = prior(fz["z_lr"], inp, training=True)
+            z_learned, bn_stats = prior(fz["z_lr"], inp, training=True,
+                                        generator=generator)
         zero = torch.zeros((), device=device)
         latent_l = (l1_loss(z_learned, fz["z_hr"]) if latent_weight > 0
                     else zero)

@@ -4,13 +4,17 @@ The same names and ``make(spec)`` semantics as ``bfsr_tpu/registry.py``:
 components register under a string name and are built from
 ``{'name': ..., 'args': {...}}`` dicts, which compose recursively (an
 ``encoder_spec`` lives inside a model spec).  Importing
-``bfsr_tpu_torch.models`` registers ``linf``, ``linf-patch``,
-``edsr-baseline``, ``flow``, ``unet``, ``VGGFeatureExtractor``, ``rrdb``,
-``srflow`` and ``srflow-unet``; importing ``bfsr_tpu_torch.data.wrappers`` registers
-``sr-implicit-paired-fast``, ``sr-implicit-paired-fast-patch`` and
+``bfsr_tpu_torch.models`` registers the encoders ``edsr-baseline``,
+``edsr``, ``rrdb``, ``rdn`` and ``swinir``, the models ``linf`` and
+``linf-patch`` with ``flow``, the latent modules ``unet``,
+``swin_latent`` and ``edsr-baseline-latent``, ``mlp``,
+``VGGFeatureExtractor``, ``srflow`` and ``srflow-unet``; importing
+``bfsr_tpu_torch.data.wrappers`` registers ``sr-implicit-paired-fast``,
+``sr-implicit-paired-fast-patch`` and
 ``sr-implicit-downsampled-fast-crop``, ``bfsr_tpu_torch.data.
-image_folder`` registers ``image-folder`` and ``bfsr_tpu_torch.data.
-pkl_dataset`` ``lrhr-pkl``.
+image_folder`` registers ``image-folder``, ``image-folder-DF2K`` and
+``paired-image-folders``, and ``bfsr_tpu_torch.data.pkl_dataset``
+``lrhr-pkl``.
 """
 
 import copy

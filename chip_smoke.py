@@ -189,7 +189,27 @@ fails (non-zero exit, no result line) if any phase fails:
    ``BASE_TOL['nll_rel']`` of the twin path's); and the RRDB's plain-SR
    trainer (the x4 RRDB at 64 x 23, B 16 of 32^2 LQ, Charbonnier: no
    kernel, losses finite, ms/step, peak memory).  It prints the phase's
-   seconds.
+   seconds;
+15. LINF-LP's other encoders and latent modules (``run_other_encoders``):
+   (A) the RRDB-encoder LINF of ``configs/train/train_rrdb-linf-LP.yaml``
+   (RRDB 64 x 23, gc 32, the flagship's flow, MLP and UNet): the encoder's
+   345 K3 launches each against its twin on its own input, K3 at its
+   conv4 / conv5 at 128^2 and at B 16 @48^2 beside cuDNN, the 128^2 ->
+   512^2 predict against the twin path (K3 354, K2 1, K1 1 + 1), timed
+   and profiled, under ``mixed`` (LINF-LP's floors) and ``default``
+   (``RRDB_DEFAULT``), and one trainer step (K3 345; the whole step's loss
+   against the twin path's, the frozen part launch by launch, the
+   trainable part within the twin's spread), ms/step, profile, peak
+   memory; (B) the flagship with the ``swin_latent`` prior: the predict
+   against the twin path (K3 34), timed and profiled, the cuDNN times of
+   the 96-wide dense convs no K3 takes, and one step with stochastic depth
+   on both paths from the same generator state, held as phase 10 holds
+   its step; a loader-fed ``cli/train.py`` epoch of
+   ``train_rrdb-linf-LP.yaml`` as shipped over DF2K-size PNGs it writes
+   (K3 345 a step); the SwinIR- and RDN-encoder LINFs and the flagship
+   with ``edsr-baseline-latent`` (K3 34 + 42), each predict against the
+   twin path and timed, and the full EDSR's 256-wide conv on cuDNN.  It
+   prints the phase's seconds.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -998,7 +1018,8 @@ def rrdb_k3_cases(model, lr):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rdb = model.RRDB.RRDB_trunk[0].RDB1
+    # SRFlow's RRDB, or an RRDBNet itself (LINF's RRDB encoder)
+    rdb = getattr(model, "RRDB", model).RRDB_trunk[0].RDB1
     nf, gc = rdb.conv1.weight.shape[1], rdb.conv1.weight.shape[0]
     xs = [torch.randn((lr.shape[0], *lr.shape[1:3], ch), generator=gen,
                       device="cuda") for ch in [nf] + [gc] * 4]
@@ -1574,7 +1595,8 @@ def global_rel_l2(grads, ref):
 def frozen_launch_checks(linf, batch, fz, label):
     """A step's frozen part in the current mode, launch by launch on the
     kernel path's own values ``fz`` (``step.frozen``): each of the
-    encoder's 34 K3 launches (the bf16 K3 under default) against its twin
+    encoder's K3 launches (34 for EDSR, 345 for the RRDB; the bf16 K3
+    under default) against its twin
     on that launch's input, K2 against its twin on the encoder's output
     fz['feat'], and the LR-up residual's flow forward (K1, or K4 at d =
     27) against its twin at fz['info']; each within its kernel's own
@@ -1599,12 +1621,14 @@ def frozen_launch_checks(linf, batch, fz, label):
         worst[name] = (n + 1, max(e, err), tol_s)
 
     def conv(t, m, act):
+        # EDSR's hook passes a tensor, the RRDB's a dense block's inputs
+        xs = t if isinstance(t, list) else [t]
         bf16 = fnn.bf16_stage()
-        y = conv3x3.conv3x3_cat([t], m.weight, bias=m.bias, act=act,
+        y = conv3x3.conv3x3_cat(xs, m.weight, bias=m.bias, act=act,
                                 kweight=m.kweight,
                                 kweight_bf16=m.kweight_bf16)
         hold("conv3x3_cat_bf16" if bf16 else "conv3x3_cat", y,
-             conv3x3.conv3x3_cat_twin([t], m.weight, bias=m.bias, act=act),
+             conv3x3.conv3x3_cat_twin(xs, m.weight, bias=m.bias, act=act),
              TOL["conv3x3_cat_bf16" if bf16 else "conv3x3_cat"])
         return y
 
@@ -2870,8 +2894,9 @@ def quant_noise(batch, seed):
             - 0.5) / 32
 
 
-def rrdb_launch_checks(model, lq, label):
-    """The RRDB conditioning of ``lq`` in the current mode, each of its K3
+def rrdb_launch_checks(model, lq, label, encode=None):
+    """The RRDB conditioning of ``lq`` in the current mode (or
+    ``encode(lq, conv=...)``, LINF's RRDB encoder), each of its K3
     launches (the bf16 K3 under default) against its twin on that
     launch's input, within the kernel's own tolerance (TOL).  Returns a
     line for the log."""
@@ -2894,7 +2919,7 @@ def rrdb_launch_checks(model, lq, label):
         return y
 
     with torch.no_grad():
-        model.rrdb_preprocess(lq, conv=conv)
+        (encode or model.rrdb_preprocess)(lq, conv=conv)
     return (f"the RRDB launch by launch: {name} x {worst[0]} max abs err "
             f"{worst[1]:.3e} ({worst[2]})")
 
@@ -3204,6 +3229,479 @@ def run_srflow_base_trainer(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: LINF-LP's other encoders and latent modules
+# ---------------------------------------------------------------------------
+
+# (A) the RRDB-encoder LINF of configs/train/train_rrdb-linf-LP.yaml: a
+# predict's launches (the encoder's 345 dense-block convs and the UNet's 9
+# on K3, the info once, K1 both ways) and a trainer step's (the 345 at
+# B 16, the info, K1's forward and FlowInverse); under mixed the UNet's 9
+# take the bf16 K3, under default all 354
+RRDB_LAUNCHES = {"conv3x3_cat": 354, "linf_info": 1, "linf_flow_forward": 1,
+                 "linf_flow_inverse": 1}
+RRDB_MODE_LAUNCHES = {
+    "mixed": {"conv3x3_cat": 345, "conv3x3_cat_bf16": 9, "linf_info": 1,
+              "linf_flow_forward": 1, "linf_flow_inverse": 1},
+    "default": {"conv3x3_cat_bf16": 354, "linf_info": 1,
+                "linf_flow_forward": 1, "linf_flow_inverse": 1}}
+# (A) under default.  The RRDB's random features are ~28x the EDSR's
+# (std 12.8, max 53 at seed 0, against 0.46 and 2.0), the Fourier head's
+# frequencies reach ~30, and bf16 operands move the image to ~25 dB of
+# high's on the twin path itself (PERF.md): LINF-LP's 50 dB floor does
+# not apply to these weights.  Held instead: each of the encoder's 345
+# launches against its twin on its own input (TOL), the kernel path at
+# least twin_margin_db closer to the twin path than the twin path is to
+# high (the kernel's share below the rounding's own effect), and both
+# paths as close to high as each other, within high_gap_db
+RRDB_DEFAULT = {"twin_margin_db": 10.0, "high_gap_db": 1.0}
+RRDB_TRAIN_LAUNCHES = {"conv3x3_cat": 345, "linf_info": 1,
+                       "linf_flow_forward": 1, "linf_flow_inverse": 1}
+# (B) the flagship LINF with the swin_latent prior: the EDSR encoder's 34
+# on K3; the latent module runs no kernel (its convs have Cout 96, its
+# products are plain)
+SWIN_LAUNCHES = {"conv3x3_cat": 34, "linf_info": 1, "linf_flow_forward": 1,
+                 "linf_flow_inverse": 1}
+# the other predicts: SwinIR and RDN encoders (no kernel) under the UNet
+# prior's 9, and edsr-baseline-latent (its 10 dense and 32 body convs) as
+# the flagship's prior beside the encoder's 34
+OTHER_LAUNCHES = {
+    "swinir_linf": {"conv3x3_cat": 9, "linf_info": 1,
+                    "linf_flow_forward": 1, "linf_flow_inverse": 1},
+    "rdn_linf": {"conv3x3_cat": 9, "linf_info": 1, "linf_flow_forward": 1,
+                 "linf_flow_inverse": 1},
+    "edsr_latent": {"conv3x3_cat": 76, "linf_info": 1,
+                    "linf_flow_forward": 1, "linf_flow_inverse": 1}}
+# the loader-fed epoch of train_rrdb-linf-LP.yaml: 4 DIV2K-size and 4
+# Flickr2K-size PNGs, repeat 8 as shipped, batch 16: 4 steps
+DF2K_HR = ((1356, 2040), (1152, 2040))
+DF2K_N = 4
+
+
+def launched_by(fn):
+    """(fn(), the kernels it launched), the counters reset first."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    out = fn()
+    return out, _launched()
+
+
+def hold_predict(label, model, prior, inputs, want, tol=TOL["image"]):
+    """A predict with the launch counters reset first: its launches must
+    be ``want`` and its image within ``tol`` of the twin path's.  Returns
+    the launches."""
+    import torch
+
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = launched_by(
+        lambda: LINFPredictor(model, prior).predict(*inputs))
+    peak = torch.cuda.max_memory_allocated()
+    ref = LINFPredictor(model, prior, kernels=False).predict(*inputs)
+    err = float((out - ref).abs().max())
+    log(f"predict {label}: shape {tuple(out.shape)}, launches "
+        f"{json.dumps(launches)}, max |kernel - twin| {err:.3e} (tol "
+        f"{tol:g}), peak memory {peak / 2**20:.1f} MiB")
+    if launches != want:
+        raise RuntimeError(f"predict {label}: launches {launches}, expected "
+                           f"{want}")
+    if not (torch.isfinite(out).all() and err <= tol):
+        raise RuntimeError(f"predict {label}: kernel path vs twin path "
+                           f"{err:.3e}")
+    return launches
+
+
+def time_predict(label, model, prior, inputs, profile=False):
+    """ms/image of the kernel and twin paths (``time_paths``), and with
+    ``profile`` a kernel-path predict's profile."""
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+
+    paths = {k: (lambda p=LINFPredictor(model, prior, kernels=k == "kernel"):
+                 p.predict(*inputs)) for k in ("twin", "kernel")}
+    mp = inputs[1].shape[1] * inputs[1].shape[2] / 1e6
+    med = time_paths(paths, mp, label)
+    if profile:
+        profile_predict(paths["kernel"], med["kernel"], label, top=12)
+    return med
+
+
+def time_plain_convs(label, cases):
+    """cuDNN's time (f32, TF32 off) and the bound of each conv that no K3
+    takes, at the shape its path gives it.  cases: (name, x (NHWC), conv
+    module, launches per predict)."""
+    import torch
+    import torch.nn.functional as F
+
+    out = []
+    with torch.inference_mode():
+        for name, x, conv, n in cases:
+            xc = x.permute(0, 3, 1, 2).contiguous()
+            w, b = conv.weight, conv.bias
+            B, H, W = x.shape[:3]
+            kh, kw = w.shape[2:]
+            flops = 2 * kh * kw * w.shape[1] * w.shape[0] * B * H * W
+            ms = gpu_time_ms(lambda: F.conv2d(xc, w, b, padding=kh // 2))
+            r = {"conv": name, "ms": ms, "launches": n,
+                 **bound(flops, nbytes(x, w, b) + 4 * w.shape[0] * B * H * W)}
+            log(f"plain conv {label} {name}: cuDNN {ms:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, {n} a predict")
+            out.append(r)
+    return out
+
+
+def rrdb_mode_predicts(model, prior, inputs, label):
+    """(A) under mixed and default: the launches, and the image against
+    the twin path in the same mode and against high's (under mixed the
+    LINF-LP floors; under default RRDB_DEFAULT, with each encoder launch
+    held against its twin)."""
+    import torch
+
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+    from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
+
+    high = LINFPredictor(model, prior).predict(*inputs)
+    launches = {}
+    for mode in ("mixed", "default"):
+        with precision(mode):
+            out, got = launched_by(
+                lambda: LINFPredictor(model, prior).predict(*inputs))
+            ref = LINFPredictor(model, prior, kernels=False).predict(*inputs)
+            held = ("; " + rrdb_launch_checks(
+                model.encoder, inputs[0], f"{label} {mode}",
+                encode=model.encoder.encode) if mode == "default" else "")
+        err = float((out - ref).abs().max())
+        db, twin_db = agreement_db(out, high), agreement_db(out, ref)
+        ref_db = agreement_db(ref, high)
+        log(f"predict {label} {mode}: launches {json.dumps(got)}, max "
+            f"|kernel - twin| {err:.3e}, {twin_db:.3f} dB against the twin "
+            f"path; agreement vs high {db:.3f} dB, the twin path's "
+            f"{ref_db:.3f}{held}")
+        if got != RRDB_MODE_LAUNCHES[mode]:
+            raise RuntimeError(f"predict {label} {mode}: launches {got}, "
+                               f"expected {RRDB_MODE_LAUNCHES[mode]}")
+        if mode == "mixed":
+            ok = (db >= AGREEMENT_FLOOR_DB[mode]
+                  and err <= TOL["mode_image"][mode])
+        else:
+            ok = (twin_db >= ref_db + RRDB_DEFAULT["twin_margin_db"]
+                  and abs(db - ref_db) <= RRDB_DEFAULT["high_gap_db"])
+        if not (torch.isfinite(out).all() and ok):
+            raise RuntimeError(f"predict {label} {mode}: twin error "
+                               f"{err:.3e} ({twin_db:.3f} dB), agreement "
+                               f"{db:.3f} dB (twin path {ref_db:.3f})")
+        launches[f"rrdb_linf_{mode}"] = got
+    return launches
+
+
+def rrdb_step_check(linf, prior, vgg, batch, label):
+    """(A)'s trainer step in high.  The launches and the whole step's loss
+    (TRAIN_TOL) on both paths; then the frozen part launch by launch on
+    the kernel path's own values (each of the 345 K3 launches, K2, the
+    flow forward within TOL), and the trainable part on both paths from
+    those values, held to the twin path's spread under z_lr x (1 +
+    GRAD_NUDGE).  The whole step's gradients are logged beside the twin
+    path's own spread under inp x (1 + GRAD_NUDGE), not held: the random
+    RRDB's features (~28x the EDSR's) feed Fourier frequencies up to ~30,
+    so the ~1e-6 relative that K3 and cuDNN differ by in the features
+    moves the prior's gradients by a few % (PERF.md).  Returns the
+    launches."""
+    import torch
+
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step, to_device
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    batch = to_device(batch, "cuda")
+    step = make_train_step(linf, prior, vgg, opt)
+    twin = make_train_step(linf, prior, vgg, opt, kernels=False)
+    (mets, grads, _), launches = launched_by(
+        lambda: step.loss_and_grads(batch))
+    if launches != RRDB_TRAIN_LAUNCHES:
+        raise RuntimeError(f"{label}: launches {launches}, expected "
+                           f"{RRDB_TRAIN_LAUNCHES}")
+    whole, whole_grads, _ = twin.loss_and_grads(batch)
+    rel = abs(float(mets["loss"]) - float(whole["loss"])) / abs(
+        float(whole["loss"]))
+    inp_nudged = twin.loss_and_grads(dict(
+        batch, inp=batch["inp"] * (1 + GRAD_NUDGE)))[1]
+    log(f"{label}: the whole step, kernel path vs twin path: loss "
+        f"{float(mets['loss'])!r} vs {float(whole['loss'])!r} ({rel:.3e} "
+        f"relative, at most {TRAIN_TOL['loss_rel']:g}), all gradients "
+        f"{global_rel_l2(grads, whole_grads):.3e} relative L2; the twin "
+        f"path's own spread under inp x {1 + GRAD_NUDGE:.9g}: "
+        f"{global_rel_l2(inp_nudged, whole_grads):.3e} (not held)")
+    if not rel <= TRAIN_TOL["loss_rel"]:
+        raise RuntimeError(f"{label}: the whole step's loss {rel:.3e} "
+                           "relative from the twin path's")
+    fz = step.frozen(batch)
+    held = "; " + frozen_launch_checks(linf, batch, fz, label)
+    kmets, kgrads, _ = step.loss_and_grads(batch, frozen=fz)
+    ref, ref_grads, _ = twin.loss_and_grads(batch, frozen=fz)
+    nudged = twin.loss_and_grads(batch, frozen=dict(
+        fz, z_lr=fz["z_lr"] * (1 + GRAD_NUDGE)))[1]
+    hold_step(f"{label} (the trainable part from the kernel path's frozen "
+              "values)", kmets, kgrads, ref, ref_grads, [nudged],
+              f"z_lr x {1 + GRAD_NUDGE:.9g}", held)
+    return launches
+
+
+def swin_step_check(linf, prior, vgg, batch, label):
+    """One step of the Swin prior's trainer with stochastic depth: the
+    kernel path and the twin path from the same generator state (the same
+    keep masks), the loss finite and within TRAIN_TOL, the gradients
+    within the twin path's own spread under ``gt_lr_up`` nudged (drawn
+    from that state too).  Returns (launches, the generator)."""
+    import torch
+
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step, to_device
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = to_device(batch, "cuda")
+    steps = {k: make_train_step(linf, prior, vgg, opt, kernels=k,
+                                generator=gen) for k in (True, False)}
+    state = gen.get_state()
+    (mets, grads, _), launches = launched_by(
+        lambda: steps[True].loss_and_grads(batch))
+    gen.set_state(state)
+    ref, ref_grads, _ = steps[False].loss_and_grads(batch)
+    gen.set_state(state)
+    nudged = steps[False].loss_and_grads(dict(
+        batch, gt_lr_up=batch["gt_lr_up"] * (1 + GRAD_NUDGE)))
+    if launches != {k: v for k, v in TRAIN_LAUNCHES.items()}:
+        raise RuntimeError(f"{label}: launches {launches}, expected "
+                           f"{TRAIN_LAUNCHES}")
+    hold_step(label, mets, grads, ref, ref_grads, [nudged[1]],
+              f"gt_lr_up x {1 + GRAD_NUDGE:.9g}, the same keep masks")
+    # a second draw gives other masks: the loss moves
+    again = steps[True].loss_and_grads(batch)[0]["loss"]
+    log(f"{label}: launches {launches}; loss {float(mets['loss'])!r}, with "
+        f"the generator's next draws {float(again)!r}")
+    if not torch.isfinite(mets["loss"]):
+        raise RuntimeError(f"{label}: loss {float(mets['loss'])}")
+    return launches, gen
+
+
+def train_time_and_memory(linf, prior, vgg, batches, tag, generator=None):
+    """ms/step of both paths on resident batches (``time_steps``), one
+    kernel-path step's peak memory and its profile."""
+    import torch
+
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    steps = {k: make_train_step(linf, prior, vgg, opt, kernels=k == "kernel",
+                                generator=generator)
+             for k in ("twin", "kernel")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = steps["kernel"](batches[0])["loss"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: a kernel-path step's loss {loss!r}, peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    it = iter(range(10 ** 9))
+    med = time_steps({k: (lambda s=s: s(batches[next(it) % len(batches)]))
+                      for k, s in steps.items()},
+                     f"{tag} B={TRAIN_BATCH} {TRAIN_INP}^2 resident",
+                     blocks=2, per_block=3)
+    profile_predict(lambda: steps["kernel"](batches[0]), med["kernel"],
+                    f"{tag} B={TRAIN_BATCH} step", top=12, what="step")
+    return med
+
+
+def rrdb_cli_epoch(tmp):
+    """One loader-fed ``cli/train.py`` epoch of ``train_rrdb-linf-LP.yaml``
+    as shipped, its folders pointed at DF2K-size PNGs written here: every
+    step's launches (K3 345, K2 1, K1 1 + 1) and the epoch's seconds."""
+    import math
+    import os
+
+    import yaml
+
+    from bfsr_tpu_torch.cli import train as train_cli
+    from bfsr_tpu_torch.pipelines import linf_train
+
+    d2k, f2k = os.path.join(tmp, "DIV2K_train_HR"), os.path.join(
+        tmp, "Flickr2K_HR")
+    write_smooth_pngs(d2k, DF2K_N, DF2K_HR[0], 5)
+    write_smooth_pngs(f2k, DF2K_N, DF2K_HR[1], 6)
+    with open(ROOT / "configs" / "train" / "train_rrdb-linf-LP.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["train_dataset"]["dataset"]["args"].update(root_path_D2K=d2k,
+                                                   root_path_F2K=f2k)
+    cfg["val_dataset"]["dataset"]["args"]["root_path"] = d2k
+    cfg.update(epoch_max=1, resume=os.path.join(tmp, "no-such.pth"))
+    with open(os.path.join(tmp, "rrdb.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    counts = []
+    make = linf_train.make_train_step
+
+    def counting_step(*a, **k):
+        step = make(*a, **k)
+
+        def run(batch):
+            out, got = launched_by(lambda: step(batch))
+            counts.append(got)
+            return out
+        return run
+
+    t0 = time.perf_counter()
+    with contextlib.chdir(tmp), mock.patch.object(
+            train_cli, "make_train_step", counting_step):
+        train_cli.cli(["--config", "rrdb.yaml", "--name", "rrdb",
+                       "--allow_random_vgg", "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    lines = [line for line in open(os.path.join(
+        tmp, "save", "rrdb", "log.txt")).read().splitlines()
+        if line.startswith("epoch 1/1")]
+    n = 2 * DF2K_N * cfg["train_dataset"]["dataset"]["args"]["repeat"] \
+        // cfg["train_dataset"]["batch_size"]
+    log(f"rrdb cli/train.py: one loader-fed epoch of train_rrdb-linf-LP.yaml "
+        f"({2 * DF2K_N} DF2K-size PNGs, repeat 8, B 16: {len(counts)} steps) "
+        f"in {secs:.2f} s, the models' build included: {lines}")
+    hold_launches("rrdb cli/train.py", counts, RRDB_TRAIN_LAUNCHES, n)
+    loss = float(lines[0].split("vgg_l=")[1].split(",")[0]) if lines else 0
+    if not math.isfinite(loss) or not lines:
+        raise RuntimeError(f"rrdb cli/train.py: {lines}")
+    return counts[0]
+
+
+def other_predicts(dev, inputs, launches, plain, checks):
+    """SwinIR- and RDN-encoder LINFs (the registry's full widths, the
+    flagship's flow, MLP and UNet) and the flagship with
+    ``edsr-baseline-latent`` (16 blocks, dim 64) as its prior: each
+    predict's launches, held against the twin path, timed."""
+    import torch
+
+    from bfsr_tpu_torch.entry import build_linf, flagship_specs
+
+    linf_spec, unet_spec = flagship_specs()
+    cases = {
+        "swinir_linf": ({"name": "swinir", "args": {"no_upsampling": True}},
+                        unet_spec),
+        "rdn_linf": ({"name": "rdn", "args": {"no_upsampling": True}},
+                     unet_spec),
+        "edsr_latent": (None, {"name": "edsr-baseline-latent",
+                               "args": {"in_chans": 3}})}
+    for name, (enc, pspec) in cases.items():
+        spec = {**linf_spec, "args": dict(linf_spec["args"])}
+        if enc:
+            spec["args"]["encoder_spec"] = enc
+        model, prior = build_linf(spec, pspec, dev, 0)
+        label = f"{name} 128x128->512x512"
+        launches[name] = hold_predict(label, model, prior, inputs,
+                                      OTHER_LAUNCHES[name])
+        time_predict(label, model, prior, inputs)
+        if name == "edsr_latent":
+            rdb = prior.body[0].body[0]
+            x = torch.randn((1, *HR, 64), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(7))
+            checks.setdefault("conv3x3_cat", []).append(check_k3(
+                "edsr-baseline-latent body conv1 64->64 @512^2", [x], rdb,
+                None, rdb.bias, "lrelu"))
+        del model, prior
+        torch.cuda.empty_cache()
+    # the full EDSR's 256-wide trunk conv at the LR extent: no K3 takes it
+    from bfsr_tpu_torch import registry
+
+    edsr = registry.make({"name": "edsr", "args": {"n_resblocks": 1,
+                                                   "no_upsampling": True}})
+    conv = edsr.to(dev).body[0].body[0]
+    x = torch.randn((1, *LR, 256), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(8))
+    plain.extend(time_plain_convs("edsr (full)", [
+        ("edsr 256->256 @128^2 (x 65 a predict)", x, conv, 65)]))
+
+
+def run_other_encoders(dev):
+    """Phase 15: LINF-LP's other encoders and latent modules at full
+    width.  Returns (K3 checks, launches by path, the plain convs' times)."""
+    import tempfile
+
+    import torch
+
+    from bfsr_tpu_torch.entry import (build_rrdb_linf, build_swin_prior,
+                                      example_inputs, example_train_batch,
+                                      he_normal_vgg)
+
+    t0 = time.perf_counter()
+    checks, launches, plain = {}, {}, []
+    inputs = example_inputs(dev, LR, HR, seed=0)
+
+    # (A) the RRDB encoder: its K3 launches one by one, then the predict
+    linf, prior = build_rrdb_linf(dev, seed=0)
+    log("rrdb linf: " + rrdb_launch_checks(
+        linf.encoder, inputs[0], "rrdb linf encoder 128^2",
+        encode=linf.encoder.encode))
+    batches = [example_train_batch(dev, seed, TRAIN_BATCH, TRAIN_INP,
+                                   TRAIN_SCALE_MAX) for seed in range(2)]
+    for case in (rrdb_k3_cases(linf.encoder, inputs[0])
+                 + rrdb_k3_cases(linf.encoder, batches[0]["inp"])):
+        checks.setdefault("conv3x3_cat", []).append(check_k3(*case))
+    launches["rrdb_linf"] = hold_predict("rrdb linf 128x128->512x512", linf,
+                                         prior, inputs, RRDB_LAUNCHES)
+    time_predict("rrdb linf 128x128->512x512", linf, prior, inputs, True)
+    launches.update(rrdb_mode_predicts(linf, prior, inputs,
+                                       "rrdb linf 128x128->512x512"))
+    # (A)'s trainer: the frozen RRDB-LINF, its UNet in train mode
+    tprior, vgg = prior.train(), he_normal_vgg(dev, seed=0)
+    log("rrdb train: " + rrdb_launch_checks(
+        linf.encoder, (batches[0]["inp"] - 0.5) / 0.5,
+        f"rrdb train encoder B={TRAIN_BATCH} {TRAIN_INP}^2",
+        encode=linf.encoder.encode))
+    launches["rrdb_linf_train"] = rrdb_step_check(
+        linf, tprior, vgg, batches[0], "rrdb train step")
+    train_time_and_memory(linf, tprior, vgg, batches, "rrdb train")
+    del linf, tprior
+    torch.cuda.empty_cache()
+
+    # (B) the Swin latent module as the flagship's prior
+    model, sprior = build_swin_prior(dev, seed=0)
+    launches["swin_prior"] = hold_predict("swin prior 128x128->512x512",
+                                          model, sprior, inputs,
+                                          SWIN_LAUNCHES)
+    time_predict("swin prior 128x128->512x512", model, sprior, inputs, True)
+    with torch.inference_mode():
+        z = torch.randn((1, *HR, 3), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+        dense = sprior.input_proj
+        feats = [z]
+        cases = []
+        for i, c in enumerate(dense.convs()):
+            x = torch.cat(feats, -1)
+            cases.append((f"swin_latent input_proj conv{i + 1} "
+                          f"{x.shape[-1]}->96 @512^2", x, c, 1))
+            feats.append(torch.randn((1, *HR, 96), device="cuda"))
+    plain.extend(time_plain_convs("swin prior", cases))
+    del feats, cases, z
+    torch.cuda.empty_cache()
+    strain = sprior.train()
+    launches["swin_prior_train"], gen = swin_step_check(
+        model, strain, vgg, batches[0], "swin train step drop_path 0.1")
+    train_time_and_memory(model, strain, vgg, batches, "swin train",
+                          generator=gen)
+    del model, sprior, strain, vgg, batches
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["rrdb_linf_cli_epoch"] = rrdb_cli_epoch(tmp)
+    torch.cuda.empty_cache()
+    other_predicts(dev, inputs, launches, plain, checks)
+    log(f"other encoders: phase 15 in {time.perf_counter() - t0:.1f} s")
+    return checks, launches, plain
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -3392,6 +3890,11 @@ def main():
 
     # --- SRFlow base-model training, validate, plain-SR training ---
     launches.update(run_srflow_base_trainer(dev))
+    torch.cuda.empty_cache()
+
+    # --- LINF-LP's other encoders and latent modules ---
+    other_checks, other_launches, plain_convs = run_other_encoders(dev)
+    launches.update(other_launches)
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
         "build included")
 
@@ -3426,6 +3929,14 @@ def main():
                 {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}
                 for r in train_checks[name]]
+        if name in other_checks:
+            # phase 15: the RRDB encoder's conv4 / conv5 at LR 128^2 B 1
+            # and at 48^2 B 16, edsr-baseline-latent's body conv at 512^2
+            kernels[-1]["other_encoder_checks"] = [
+                {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in other_checks[name]]
+    log(f"plain convs (no K3 takes their Cout): {json.dumps(plain_convs)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

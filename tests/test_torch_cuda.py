@@ -1431,3 +1431,94 @@ def test_kernel_layouts_older_than_the_weights_raise(dev):
         model.freeze()
         cache = model.precompute_ft(model.rrdb_preprocess(lq))
         assert torch.isfinite(model.normal_flow(batch["GT"], cache)[-1]).all()
+
+
+def _small_linf_spec(encoder_spec):
+    """A LINF at K2's hidden 128 (the smallest it takes) on
+    ``encoder_spec``, flow L 3."""
+    return {"name": "linf", "args": {
+        "encoder_spec": encoder_spec,
+        "imnet_spec": {"name": "flow", "args": {"name": "flow"}},
+        "flow_layers": 3, "num_layer": 2, "hidden_dim": 128}}
+
+
+def _grid_args(dev, g, h, w, s):
+    from bfsr_tpu_torch.utils.coords import make_cell, make_coord
+
+    H, W = h * s, w * s
+    return (_t(g.uniform(-1, 1, (1, h, w, 3)), dev),
+            _t(make_coord((H, W), flatten=False)[None], dev),
+            _t(make_cell((H, W))[None], dev),
+            _t(0.1 * g.standard_normal((1, H, W, 3)), dev))
+
+
+@pytest.mark.parametrize("prior_name", ["unet", "edsr-baseline-latent"])
+def test_rrdb_linf_and_edsr_latent_predict_kernel_path_matches_twin_path(
+        dev, prior_name):
+    """An RRDB-encoder LINF (nf 16, nb 2, gc 16: K3 30) with a UNet prior
+    (K3 9) or ``edsr-baseline-latent`` (2 blocks: K3 10 + 4), 24x20 ->
+    72x60: the launches, the image within 1e-3 of the twin path."""
+    from bfsr_tpu_torch.entry import build_linf
+    from bfsr_tpu_torch.pipelines.linf_eval import LINFPredictor
+
+    rrdb = {"name": "rrdb", "args": {"nf": 16, "nb": 2, "gc": 16,
+                                     "no_upsampling": True}}
+    pspec = ({"name": "unet", "args": {"in_chans": 3, "depth": 2,
+                                       "dim": 16}}
+             if prior_name == "unet" else
+             {"name": "edsr-baseline-latent",
+              "args": {"in_chans": 3, "n_resblocks": 2}})
+    model, prior = build_linf(_small_linf_spec(rrdb), pspec, dev, seed=0)
+    args = _grid_args(dev, _gen(6), 24, 20, 3)
+    kcuda.reset_launch_counts()
+    got = LINFPredictor(model, prior).predict(*args)
+    torch.cuda.synchronize()
+    k3 = 30 + (9 if prior_name == "unet" else 14)
+    assert {k: v for k, v in kcuda.LAUNCHES.items() if v} == {
+        "conv3x3_cat": k3, "linf_info": 1, "linf_flow_forward": 1,
+        "linf_flow_inverse": 1}, kcuda.LAUNCHES
+    ref = LINFPredictor(model, prior, kernels=False).predict(*args)
+    assert got.shape == (1, 72, 60, 3) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+
+
+def test_swin_prior_step_kernel_path_matches_twin_path(dev):
+    """One step with the Swin prior (stochastic depth 0.1) on a small EDSR
+    LINF, B 2 of 16^2 crops: the kernel path and the twin path from the
+    same generator state give the same loss within 1e-5 and gradients
+    within 1e-3 relative L2; the next draw gives another loss."""
+    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch.entry import (SWIN_PRIOR, build_linf,
+                                      example_train_batch, he_normal_vgg)
+    from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.train.optim import make_optimizer
+
+    edsr = {"name": "edsr-baseline", "args": {"n_resblocks": 2,
+                                              "n_feats": 16,
+                                              "no_upsampling": True}}
+    model, prior = build_linf(_small_linf_spec(edsr), SWIN_PRIOR, dev, 0)
+    prior.train()
+    vgg = he_normal_vgg(dev, seed=0, tiny=True)
+    batch = example_train_batch(dev, seed=0, batch=2, inp_size=16)
+    opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
+                         prior.parameters())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    steps = [make_train_step(model, prior, vgg, opt, kernels=k,
+                             generator=gen) for k in (True, False)]
+    state = gen.get_state()
+    kcuda.reset_launch_counts()
+    kmets, kgrads, _ = steps[0].loss_and_grads(batch)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kcuda.LAUNCHES.items() if v} == {
+        "conv3x3_cat": 6, "linf_info": 1, "linf_flow_forward": 1,
+        "linf_flow_inverse": 1}, kcuda.LAUNCHES
+    gen.set_state(state)
+    mets, grads, _ = steps[1].loss_and_grads(batch)
+    torch.testing.assert_close(kmets["loss"], mets["loss"], rtol=1e-5,
+                               atol=0)
+    g = torch.cat([v.flatten() for v in kgrads.values()])
+    r = torch.cat([grads[k].flatten() for k in kgrads])
+    assert float((g - r).norm() / r.norm()) < 1e-3
+    assert registry.lookup("swin_latent") is type(prior)
+    assert not torch.equal(steps[0].loss_and_grads(batch)[0]["loss"],
+                           kmets["loss"])

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 import bfsr_tpu.models  # noqa: F401  (registers the JAX components)
 from bfsr_tpu import registry as jregistry
 from bfsr_tpu.train.checkpoints import save_checkpoint as j_save_checkpoint
@@ -110,10 +112,11 @@ def test_load_prior_model_takes_three_formats(tmp_path):
                tmp_path / "srflow_prior.pth")
     assert load_prior_model(str(tmp_path / "srflow_prior.pth"), "cpu"
                             ).registry_name == "srflow-unet"
-    j_save_checkpoint(str(tmp_path / "swin.ckpt"), {"prior_model": {
-        "name": "swin_latent", "args": {}, "params": {}}})
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        load_prior_model(str(tmp_path / "swin.ckpt"), "cpu")
+    # a name that is no latent module is refused, naming the ones there are
+    j_save_checkpoint(str(tmp_path / "mlp.ckpt"), {"prior_model": {
+        "name": "mlp", "args": {}, "params": {}}})
+    with pytest.raises(NotImplementedError, match="swin_latent"):
+        load_prior_model(str(tmp_path / "mlp.ckpt"), "cpu")
 
 
 def _write_pngs(root, shapes, seed):

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 import bfsr_tpu.models  # noqa: F401
 from bfsr_tpu import registry as jregistry
 from bfsr_tpu.data.wrappers import _center_coords

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 from bfsr_tpu.models.edsr import edsr_apply_fused
 from bfsr_tpu.ops import nn as jnn
 from bfsr_tpu.pipelines.linf_eval import LINFPredictor as JLINFPredictor

@@ -26,6 +26,8 @@ import optax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 from bfsr_tpu.pipelines.srflow_eval import sample_sr as j_sample_sr
 from bfsr_tpu.pipelines.srflow_eval import validate as j_validate
 from bfsr_tpu.pipelines.srflow_train import (

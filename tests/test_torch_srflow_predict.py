@@ -129,7 +129,9 @@ def test_port_imports_no_jax_with_jax_blocked():
         "          'models.lpips', 'utils.measure', 'convert.load',\n"
         "          'pipelines.srflow_train', 'pipelines.sr_train',\n"
         "          'pipelines.losses', 'models.rrdb', 'train.optim',\n"
-        "          'profiling.base_train_probe'):\n"
+        "          'profiling.base_train_probe', 'models.swinir',\n"
+        "          'models.swin_latent', 'models.edsr_latent', 'models.rdn',\n"
+        "          'models.mlp', 'data.image_folder'):\n"
         "    assert 'bfsr_tpu_torch.' + m in names, m\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.startswith('jax') or m.startswith('bfsr_tpu.'))]\n"

@@ -27,6 +27,8 @@ import optax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 from bfsr_tpu.ops import nn as jnn
 from bfsr_tpu.pipelines.srflow_prior_train import (
     make_srflow_prior_train_step as j_make_step)

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 from bfsr_tpu import registry as jregistry
 from bfsr_tpu.data.pkl_dataset import LRHRPkl as JLRHRPkl
 from bfsr_tpu.models.srflow.unet_prior import srflow_unet_apply
