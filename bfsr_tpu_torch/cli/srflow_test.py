@@ -2,7 +2,7 @@
 
     python -m bfsr_tpu_torch.cli.srflow_test <conf.yml> \\
         [--limit N] [--lpips_weights PATH | --no_lpips] \\
-        [--pad_multiple M] [--warmup] \\
+        [--pad_multiple M] [--warmup] [--heat T] [--seed N] \\
         [--precision high|highest|mixed|default] [--device cuda|cpu]
 
 It reads the reference's conf schema: ``dataroot_LR`` / ``dataroot_GT``
@@ -20,6 +20,16 @@ image, and the means to a ``Mean:`` line.  LPIPS needs weights
 LR to that multiple (2 at least) and crops the SR back; ``--warmup``
 predicts each padded LR shape once first, its size read from the PNG
 headers.
+
+A conf without ``prior_model`` (plain SRFlow, such as the 8x model of
+``bfsr_tpu_torch/configs/srflow_df2k_8x.yml``, whose L 4 flow the
+two-branch prior does not read) is served by the sampler instead:
+``pipelines/srflow_eval.py:sample_sr`` at temperature ``--heat`` (0 by
+default), image i drawn from a generator seeded with ``--seed`` + i, each
+LR padded to the multiple its flow decodes (``lr_multiple``;
+``--pad_multiple`` is the predictor's), the rows under
+``results/SRFlow/``.  The JAX CLI has no such mode: it needs a
+prior.
 """
 
 import argparse
@@ -35,7 +45,8 @@ import bfsr_tpu_torch.models  # noqa: F401  (registers)
 from bfsr_tpu_torch.cli.srflow_train import load_prior, load_srflow
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.imresize import imresize
-from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
+from bfsr_tpu_torch.pipelines.srflow_eval import (SRFlowLPPredictor,
+                                                  lr_multiple, sample_sr)
 from bfsr_tpu_torch.utils.measure import Measure, natsorted, psnr_uint8
 
 FIELDS = ("conf", "name", "PSNR", "SSIM", "LPIPS", "LRC PSNR")
@@ -72,6 +83,12 @@ def main(argv=None):
     parser.add_argument("--warmup", action="store_true",
                         help="predict each padded LR shape once before the "
                              "sweep (shapes read from the PNG headers)")
+    parser.add_argument("--heat", type=float, default=0.0,
+                        help="without a prior_model: the sampling "
+                             "temperature")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="without a prior_model: image i's seed is "
+                             "seed + i")
     parser.add_argument("--precision", default=None,
                         choices=["default", "high", "highest", "mixed"])
     parser.add_argument("--device", default="cuda")
@@ -109,29 +126,38 @@ def main(argv=None):
         lr_paths, hr_paths = lr_paths[:args.limit], hr_paths[:args.limit]
 
     model = load_srflow(opt, device)
-    prior = load_prior(opt, device, train=False)
-    predictor = SRFlowLPPredictor(model, prior,
-                                  pad_multiple=args.pad_multiple)
+    if "prior_model" in opt:
+        prior = load_prior(opt, device, train=False)
+        predictor = SRFlowLPPredictor(model, prior,
+                                      pad_multiple=args.pad_multiple)
+        m, test_dir = predictor.pad_multiple, os.path.join("results",
+                                                           "SRFlow-LP")
+
+        def predict(lr01, idx):
+            return predictor.predict(lr01)
+    else:
+        m, test_dir = lr_multiple(model), os.path.join("results", "SRFlow")
+
+        def predict(lr01, idx):
+            return sample_sr(model, lr01, args.heat, args.seed + idx)
     if args.warmup:
-        m = predictor.pad_multiple
         for shape in dict.fromkeys(
                 (-(-h // m) * m, -(-w // m) * m)
                 for w, h in (Image.open(p).size for p in lr_paths)):
             t0 = time.perf_counter()
-            predictor.predict(np.zeros((*shape, 3), np.float32))
+            predict(np.zeros((*shape, 3), np.float32), 0)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             print(f"warmup: LR {shape[0]}x{shape[1]} in "
                   f"{time.perf_counter() - t0:.1f}s")
 
-    test_dir = os.path.join("results", "SRFlow-LP")
     os.makedirs(test_dir, exist_ok=True)
     csv_partial = os.path.join(test_dir, "measure_full.csv_")
     rows, scale = [], opt["scale"]
     for idx, (lp, hp) in enumerate(zip(lr_paths, hr_paths)):
         lr = read_rgb(lp)
         hr = read_rgb(hp)
-        sr01 = predictor.predict(lr.astype(np.float32) / 255.0)
+        sr01 = predict(lr.astype(np.float32) / 255.0, idx)
         sr = np.round(sr01.cpu().numpy() * 255.0).astype(np.uint8)
         Image.fromarray(sr).save(os.path.join(test_dir, f"{idx:06d}.png"))
         p, s, lp_ = measure.measure(sr, hr)

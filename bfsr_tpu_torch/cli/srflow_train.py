@@ -74,7 +74,7 @@ def make_loader(opt, seed=0):
         "dataroot_GT": dtrain["dataroot_GT"],
         "dataroot_LQ": dtrain["dataroot_LQ"],
         "use_flip": dtrain.get("use_flip", False),
-        "gt_size": dtrain.get("GT_size")}})
+        "gt_size": dtrain.get("GT_size"), "scale": opt.get("scale", 4)}})
     return DataLoader(dataset, batch_size=dtrain["batch_size"], shuffle=True,
                       num_workers=dtrain.get("n_workers", 3), drop_last=True,
                       seed=seed)

@@ -211,15 +211,16 @@ def mlp_state_dict(params):
 
 
 def rrdb_state_dict(params, prefix=""):
-    """Reference-keyed state_dict of an RRDBNet, with its x4 head where the
-    params have one."""
+    """Reference-keyed state_dict of an RRDBNet, with its head where the
+    params have one (``upconv3`` at x8)."""
     sd = {}
     _conv(sd, prefix + "conv_first", params["conv_first"])
     for i, blk in enumerate(params["trunk"]):
         for j in (1, 2, 3):
             _dense5(sd, f"{prefix}RRDB_trunk.{i}.RDB{j}", blk[f"rdb{j}"])
     for name, key in (("trunk_conv", "trunk_conv"), ("upconv1", "upconv1"),
-                      ("upconv2", "upconv2"), ("HRconv", "hr_conv"),
+                      ("upconv2", "upconv2"), ("upconv3", "upconv3"),
+                      ("HRconv", "hr_conv"),
                       ("conv_last", "conv_last")):
         if key in params:
             _conv(sd, prefix + name, params[key])

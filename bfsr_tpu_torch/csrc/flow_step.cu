@@ -1,6 +1,8 @@
 // K5: one fused conditional SRFlow FlowStep (eval, no log-det), forward and
-// reverse, float32.  NHWC state (B, H, W, C) with C in {12, 24, 96} (the
-// three flow levels) and coupling hidden width 64, any batch: the image is
+// reverse, float32.  NHWC state (B, H, W, C) with C in {12, 24, 48, 96,
+// 192} (the three flow levels of the 4x model, and levels 3 and 4 of the
+// 8x model's L = 4 flow: 12, 24, 48, 192) and coupling hidden width 64,
+// any batch: the image is
 // blockIdx.z, the state, its records and the output are offset by whole
 // images and the packed weights are shared, so a batch-1 launch is the
 // launch it was before the batch.
@@ -50,11 +52,15 @@
 //   D. (reverse only) the ft affine and the folded inverse 1x1, after the
 //      tower, as the reverse order requires, its weight in shared memory.
 // W2 stays whole in shared memory.  W1 and W3 come in chunks of WT taps:
-// whole at C = 12 and 24; one tap at a time through a two-slot cp.async
-// ring at C = 96 (whole they would not fit), so tap t+1's copy overlaps
-// tap t's FMAs.  W3's first chunk is copied during conv2 into the
-// space the window, the fold and W1 leave.  Global reads and writes of the
-// state and records are float2 / float4 vectors.
+// whole at C = 12 and 24; three taps at a time at C = 48; one tap at a
+// time at C = 96 and 192 (whole they would not fit), through a two-slot
+// cp.async ring, so chunk t+1's copy overlaps chunk t's FMAs.  The folds
+// (C x C) sit in shared memory up to C = 96; at C = 192 (144 KB) they do
+// not fit beside the rest, and stages A and D read them from global
+// memory (L2: every block reads the same 147 KB; the lanes of a warp read
+// one address at a time, a broadcast).  W3's first chunk is copied during
+// conv2 into the space the window, the fold and W1 leave.  Global reads
+// and writes of the state and records are float2 / float4 vectors.
 //
 // Tiles (set by timing candidates side by side with
 // bfsr_tpu_torch/profiling/k5_times.py, NVIDIA H100 80GB HBM3, 700.00 W):
@@ -62,7 +68,14 @@
 // 1.94 waves), 16 x 8 at C=24 and 4 x 8 at C=96 (one block per SM, 128
 // blocks at 128^2 and 64^2).  On that card: 0.083 / 0.037 / 0.057 ms
 // forward and 0.083 / 0.038 / 0.047 ms reverse at 256^2 x 12 / 128^2 x 24 /
-// 64^2 x 96, 35 / 34 / 21-25% of the bound above.
+// 64^2 x 96, 35 / 34 / 21-25% of the bound above.  The 8x model's levels
+// (k5_times.py --levels x8, same card): 4 x 8 at C = 48 (128 blocks at
+// 64^2; 8 x 8 slower, 8 x 4 level), 0.029 / 0.027 ms forward / reverse,
+// 20-22% of the bound; 2 x 4 at C = 192 (128 blocks at 32^2, 180 at the
+// trainer's 12 x 10^2; 4 x 4, 4 x 8, 4 x 2 and 2 x 2 slower), 0.091 /
+// 0.057 ms, 7 / 11%: that level is bound by latency, not arithmetic, and
+// its forward by the fold read through L2 on the window (6 x 8 pixels for
+// a 2 x 4 tile).
 // What holds it there: besides the halo recompute (the hidden region is
 // 1.4x / 1.4x / 1.9x the tile), the global reads of the records' halo, the
 // weight copies (57 KB a block at C=12) and the stage barriers take about
@@ -86,19 +99,28 @@ constexpr int kPN3 = 12;  // conv3's output channels a thread (3 float4)
 // conv3's PM3 pixels x kPN3 channels a thread, its lanes LG3 channel groups
 // x 32 / LG3 pixels (one broadcast activation load feeds LG3 lanes); WT taps
 // per chunk of W1 and W3 (9: whole); QA / QD outputs per item of the
-// forward fold and the inverse fold; MINB blocks per SM.
+// forward fold and the inverse fold; MINB blocks per SM; FS: the folds in
+// shared memory (else read from global memory).
 template <int C> struct Tile;
 template <> struct Tile<12> {
   static constexpr int TY = 8, TX = 16, PMH = 6, PM3 = 2, LG3 = 1;
-  static constexpr int WT = 9, QA = 6, QD = 12, MINB = 2;
+  static constexpr int WT = 9, QA = 6, QD = 12, MINB = 2, FS = 1;
 };
 template <> struct Tile<24> {
   static constexpr int TY = 16, TX = 8, PMH = 6, PM3 = 4, LG3 = 2;
-  static constexpr int WT = 9, QA = 12, QD = 12, MINB = 1;
+  static constexpr int WT = 9, QA = 12, QD = 12, MINB = 1, FS = 1;
+};
+template <> struct Tile<48> {
+  static constexpr int TY = 4, TX = 8, PMH = 2, PM3 = 2, LG3 = 2;
+  static constexpr int WT = 3, QA = 12, QD = 12, MINB = 1, FS = 1;
 };
 template <> struct Tile<96> {
   static constexpr int TY = 4, TX = 8, PMH = 2, PM3 = 4, LG3 = 4;
-  static constexpr int WT = 1, QA = 16, QD = 16, MINB = 1;
+  static constexpr int WT = 1, QA = 16, QD = 16, MINB = 1, FS = 1;
+};
+template <> struct Tile<192> {
+  static constexpr int TY = 2, TX = 4, PMH = 1, PM3 = 1, LG3 = 4;
+  static constexpr int WT = 1, QA = 16, QD = 16, MINB = 1, FS = 0;
 };
 
 constexpr int up4(int n) { return (n + 3) / 4 * 4; }
@@ -124,6 +146,7 @@ struct Geo {
   static constexpr int WT = T::WT, NCH = 9 / WT;  // W1 / W3 chunks
   static constexpr int CH1 = WT * CN * kHid, CH3 = WT * kHid * N3;
   static constexpr int QA = T::QA, GA = CN / QA, QD = T::QD, GD = C / QD;
+  static constexpr bool FS = T::FS;
   // odd shared-memory strides: window, hidden, partials, x2' / za2, t
   static constexpr int SZ = CN | 1, SH = kHid + 1, SP = N3 + 1;
   static constexpr int S2 = CO | 1, ST = C + 1;
@@ -136,14 +159,15 @@ struct Geo {
   // shared memory, floats: s_w2 | s_h | s_x | s_za2
   //   s_h: the hidden map; then conv3's partials [KS3][NOP][SP], x2'
   //        (reverse, [NO][S2] at H_X2) and t ([NO][ST], over the partials)
-  //   s_x: the window, the fold and the W1 slots; then the
-  //        W3 slots; then (reverse) the inverse fold
+  //   s_x: the window, the fold (FS) and the W1 slots; then the
+  //        W3 slots; then (reverse, FS) the inverse fold
+  static constexpr int FF = FS ? C * C : 0;  // fold floats in s_x
   static constexpr int H_X2 = up4(cmax(KS3 * NOP * SP, NO * ST));
   static constexpr int H = up4(cmax(NH * SH, H_X2 + NO * S2));
-  static constexpr int X_FOLD = up4(NW * SZ), X_W1 = X_FOLD + C * C;
+  static constexpr int X_FOLD = up4(NW * SZ), X_W1 = X_FOLD + FF;
   static constexpr int SLOTS = NCH > 1 ? 2 : 1;
   static constexpr int X = up4(cmax(cmax(X_W1 + SLOTS * CH1, SLOTS * CH3),
-                                    C * C));
+                                    FF));
   static constexpr int SMEM_FLOATS = kHid * kHid + H + X + NO * S2;
   static_assert(C % 4 == 0 && CN == CO, "C must be a multiple of 4");
   static_assert(NH <= 32 * PMH, "one pass over the hidden region");
@@ -152,6 +176,7 @@ struct Geo {
                 N3 == NG3 * LG3 * PN3 && 32 % LG3 == 0, "conv3");
   static_assert(CN % QA == 0 && C % QD == 0 && PN3 % 4 == 0, "groups");
   static_assert(9 % WT == 0, "chunks");
+  static_assert(SMEM_FLOATS * 4 <= 227 * 1024, "shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -181,6 +206,16 @@ __device__ __forceinline__ void copy_async(float* dst,
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// a float4 of a fold: from shared memory (FS) or, read-only, from global
+template <bool FS>
+__device__ __forceinline__ float4 ldf4(const float* p) {
+  if constexpr (FS) {
+    return ld4(p);
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
 }
 
 // v[i] = p[i], i < N, in float4 loads (N % 4 == 0, p 16-byte aligned) or
@@ -253,7 +288,7 @@ flow_step_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   out += img_px * C;
 
   // the weights of stages A and B, in flight while stage A starts
-  if constexpr (!REV) {
+  if constexpr (!REV && G::FS) {
     copy_async(s_x + G::X_FOLD, wp + G::WF, C * C);
     cp_async_commit();
   }
@@ -281,7 +316,7 @@ flow_step_kernel(const float* __restrict__ x, const float* __restrict__ cond,
       }
       const size_t pix = static_cast<size_t>(gy) * W + gx;
       const float4* xr = reinterpret_cast<const float4*>(x + pix * C);
-      const float* wr = s_x + G::X_FOLD + g * QA * C;
+      const float* wr = (G::FS ? s_x + G::X_FOLD : wp + G::WF) + g * QA * C;
       float acc[QA];
 #pragma unroll
       for (int q = 0; q < QA; ++q) acc[q] = 0.f;
@@ -290,7 +325,7 @@ flow_step_kernel(const float* __restrict__ x, const float* __restrict__ cond,
         const float4 v = __ldg(xr + c4);
 #pragma unroll
         for (int q = 0; q < QA; ++q) {
-          const float4 w = ld4(wr + q * C + 4 * c4);
+          const float4 w = ldf4<G::FS>(wr + q * C + 4 * c4);
           acc[q] += v.x * w.x;
           acc[q] += v.y * w.y;
           acc[q] += v.z * w.z;
@@ -493,7 +528,7 @@ flow_step_kernel(const float* __restrict__ x, const float* __restrict__ cond,
     }
     __syncthreads();  // the slot is free; the last time, the map too
   }
-  if constexpr (REV) {  // the inverse fold, in flight during the epilogue
+  if constexpr (REV && G::FS) {  // the inverse fold, in flight now
     copy_async(s_x, wp + G::WI, C * C);
     cp_async_commit();
   }
@@ -572,7 +607,7 @@ flow_step_kernel(const float* __restrict__ x, const float* __restrict__ cond,
       const int p = i % NO, g = i / NO;
       const int gy = y0 + p / TX, gx = x0 + p % TX;
       if (gy >= H || gx >= W) continue;
-      const float* wr = s_x + g * QD * C;
+      const float* wr = (G::FS ? s_x : wp + G::WI) + g * QD * C;
       const float* tr = s_t + p * ST;
       float acc[QD], ab[QD];
 #pragma unroll
@@ -583,7 +618,7 @@ flow_step_kernel(const float* __restrict__ x, const float* __restrict__ cond,
         const float t2 = tr[4 * c4 + 2], t3 = tr[4 * c4 + 3];
 #pragma unroll
         for (int q = 0; q < QD; ++q) {
-          const float4 w = ld4(wr + q * C + 4 * c4);
+          const float4 w = ldf4<G::FS>(wr + q * C + 4 * c4);
           acc[q] += t0 * w.x;
           acc[q] += t1 * w.y;
           acc[q] += t2 * w.z;
@@ -630,7 +665,9 @@ int dispatch(const void* x, const void* cond, const void* packed, void* out,
   switch (C) {
     case 12: return launch<12, REV>(xp, cp, wp, op, B, H, W, st);
     case 24: return launch<24, REV>(xp, cp, wp, op, B, H, W, st);
+    case 48: return launch<48, REV>(xp, cp, wp, op, B, H, W, st);
     case 96: return launch<96, REV>(xp, cp, wp, op, B, H, W, st);
+    case 192: return launch<192, REV>(xp, cp, wp, op, B, H, W, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -639,7 +676,8 @@ int dispatch(const void* x, const void* cond, const void* packed, void* out,
 
 // x, out: (B, H, W, C) NHWC; cond: (B, H, W, 2C + hid) records [scale_ft |
 // shift_ft | aff1_ft]; packed: the step's weights (flow_step.py:pack_step),
-// shared by the batch.  C must be 12, 24 or 96, hid 64 and B <= 65535;
+// shared by the batch.  C must be 12, 24, 48, 96 or 192, hid 64 and B <=
+// 65535;
 // every pointer 16-byte aligned.
 extern "C" int flow_step_forward(const void* x, const void* cond,
                                  const void* packed, void* out, int B, int H,

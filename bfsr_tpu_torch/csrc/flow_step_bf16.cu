@@ -1,7 +1,8 @@
 // K5 at passes=1 (BFSR_PRECISION=default): one fused conditional SRFlow
 // FlowStep (eval, no log-det), forward and reverse, with bf16-rounded
 // operands (round to nearest even) in some of its five products and every
-// sum in f32.  NHWC state (B, H, W, C) with C in {12, 24, 96}, coupling
+// sum in f32.  NHWC state (B, H, W, C) with C in {12, 24, 48, 96, 192}
+// (the 4x model's three flow levels and the 8x model's four), coupling
 // hidden width 64, any H and W, any batch: the image is blockIdx.z, the
 // state, its records and the output are offset by whole images and the
 // weights are shared, so a batch-1 launch is the launch it was before the
@@ -49,7 +50,10 @@
 // skeleton: the halo reads of the state and the records, the weight copies
 // into shared memory (36 KB a block at C = 12, 213 KB at C = 96), the stage
 // barriers and the f32 folds (SIMT, C x C per pixel, the forward one on
-// the 2-pixel halo).
+// the 2-pixel halo).  At C = 192 the fold (147 KB f32) does not fit beside
+// W1 (9 x 96 rows, 124 KB), W2 and the W3 ring: both folds are then read
+// from global memory (FS = 0; every block reads the same rows, which stay
+// in L2) and the state from global memory too (XS = 0).
 //
 // Design.  A block of 256 threads (8 warps) owns a TY x TX tile of output
 // pixels.  At its start it copies the step's weights into shared memory
@@ -102,7 +106,13 @@
 // 0.057.  What holds it there: at C = 12 the MMAs (~2,500 a block with
 // the halo and the pads, ~11 us of the 29 at the rate mma.sync reaches
 // here) and the weight copies (~4 us); at C = 96 the halo recompute of
-// the forward fold and the weight copies (~210 KB a block).
+// the forward fold and the weight copies (~210 KB a block).  The 8x
+// model's levels (k5_times.py --levels x8): 8 x 8 at C = 48 (64 blocks at
+// 64^2; 16 x 8 slower, 4 x 16 level; 4 x 8 would split its 6 n8 tiles of
+// W3 over 4 warps), 0.016 ms each way, 8% of the bound; 4 x 4 at C = 192
+// (64 blocks at 32^2; 4 x 8 and 8 x 4 slower), 0.055 / 0.033 ms forward /
+// reverse, 2 / 4%: latency, the folds read through L2 and, at 16 tile
+// pixels, W1 and the W3 ring copied into every block (~185 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,19 +131,28 @@ constexpr float kAffineEps = 1e-4f;
 // one W3 tap (9: whole); items of the forward fold PX pixels x QA outputs,
 // of the inverse fold PXD pixels x QD outputs; XS: the forward fold reads
 // the state from a copy of the window in shared memory (else from global
-// memory); MINB blocks per SM.
+// memory); MINB blocks per SM; FS: the fold of the direction in shared
+// memory (else read from global memory).
 template <int C> struct Tile;
 template <> struct Tile<12> {
   static constexpr int TY = 16, TX = 16, S3 = 9, PX = 1, QA = 6, PXD = 1,
-                       QD = 6, XS = 0, MINB = 2;
+                       QD = 6, XS = 0, MINB = 2, FS = 1;
 };
 template <> struct Tile<24> {
   static constexpr int TY = 16, TX = 8, S3 = 9, PX = 1, QA = 12, PXD = 1,
-                       QD = 6, XS = 1, MINB = 1;
+                       QD = 6, XS = 1, MINB = 1, FS = 1;
+};
+template <> struct Tile<48> {
+  static constexpr int TY = 8, TX = 8, S3 = 9, PX = 2, QA = 6, PXD = 2,
+                       QD = 6, XS = 1, MINB = 1, FS = 1;
 };
 template <> struct Tile<96> {
   static constexpr int TY = 4, TX = 8, S3 = 2, PX = 4, QA = 6, PXD = 2,
-                       QD = 6, XS = 1, MINB = 1;
+                       QD = 6, XS = 1, MINB = 1, FS = 1;
+};
+template <> struct Tile<192> {
+  static constexpr int TY = 4, TX = 4, S3 = 2, PX = 2, QA = 12, PXD = 1,
+                       QD = 12, XS = 0, MINB = 1, FS = 0;
 };
 
 constexpr int rup128(int n) { return (n + 127) / 128 * 128; }
@@ -159,7 +178,7 @@ struct Geo {
   static constexpr int S3 = T::S3, NG3C = S3 == 9 ? 1 : S3;  // W3 groups
   static constexpr int QA = T::QA, GA = CN / QA, QD = T::QD, GD = C / QD;
   static constexpr int PX = T::PX, PXD = T::PXD;
-  static constexpr bool XS = T::XS;
+  static constexpr bool XS = T::XS, FS = T::FS;
   static constexpr int SX = C + 4;  // the state's window copy, f32
   // z1 pixel stride (bf16): even, an odd number of 32-bit words
   static constexpr int SZ = (CN / 2) % 2 ? CN : CN + 2;
@@ -184,7 +203,7 @@ struct Geo {
   static constexpr int B_2 = B_H + rup128(MH * 16 * kLD * 2);
   static constexpr int B_W3 = B_2 + rup128(NO * S2 * 4);
   static constexpr int B_F = B_W3 + rup128(S3 * kHid * LD3 * 2);
-  static constexpr int B_Z = B_F + rup128(C * C * 4);
+  static constexpr int B_Z = B_F + (FS ? rup128(C * C * 4) : 0);
   static constexpr int B_W1 = B_Z + rup128(NW * SZ * 2);
   static constexpr int B_X = B_W1 + rup128(K1P * kLD * 2);
   static constexpr int SMEM = cmax(B_X + (XS ? rup128(NW * SX * 4) : 0),
@@ -197,6 +216,7 @@ struct Geo {
                 NO % PX == 0 && NO % PXD == 0, "fold items");
   static_assert(S3 == 9 || (S3 >= 2 && S3 <= 8), "W3 slots");
   static_assert(NVEC % 4 == 0 && (C * C) % 4 == 0, "16-byte copies");
+  static_assert(SMEM <= 227 * 1024, "shared memory");
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -267,6 +287,16 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int ld,
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// a float4 of a fold: from shared memory (FS) or, read-only, from global
+template <bool FS>
+__device__ __forceinline__ float4 ldf4(const float* p) {
+  if constexpr (FS) {
+    return ld4(p);
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
 }
 
 // v[i] = p[i], i < N, in float4 loads (N % 4 == 0, p 16-byte aligned) or
@@ -381,7 +411,9 @@ flow_step_bf16_kernel(const float* __restrict__ x,
   __nv_bfloat16* s_h = reinterpret_cast<__nv_bfloat16*>(smem + G::B_H);
   float* s_2 = reinterpret_cast<float*>(smem + G::B_2);  // za2 / x2'
   __nv_bfloat16* s_w3 = reinterpret_cast<__nv_bfloat16*>(smem + G::B_W3);
-  float* s_f = reinterpret_cast<float*>(smem + G::B_F);  // the fold
+  // the fold of this direction: in shared memory (FS) or global memory
+  const float* s_f = G::FS ? reinterpret_cast<const float*>(smem + G::B_F)
+                           : wf + (REV ? G::WI : G::WF);
   __nv_bfloat16* s_z = reinterpret_cast<__nv_bfloat16*>(smem + G::B_Z);
   __nv_bfloat16* s_w1 = reinterpret_cast<__nv_bfloat16*>(smem + G::B_W1);
   float* s_x = reinterpret_cast<float*>(smem + G::B_X);  // XS: the window
@@ -395,7 +427,10 @@ flow_step_bf16_kernel(const float* __restrict__ x,
   out += img_px * C;
 
   // ---- the weights, in flight while stage A runs ----
-  copy_f32(s_f, wf + (REV ? G::WI : G::WF), C * C);
+  if constexpr (G::FS) {
+    copy_f32(reinterpret_cast<float*>(smem + G::B_F),
+             wf + (REV ? G::WI : G::WF), C * C);
+  }
   copy_f32(s_vec, wf, G::NVEC);
   if constexpr (G::XS) {  // the state on the window, zero outside
     for (int e = tid; e < G::NW * (C / 4); e += kThreads) {
@@ -488,7 +523,7 @@ flow_step_bf16_kernel(const float* __restrict__ x,
         }
 #pragma unroll
         for (int q = 0; q < QA; ++q) {
-          const float4 w = ld4(wr + q * C + 4 * c4);
+          const float4 w = ldf4<G::FS>(wr + q * C + 4 * c4);
 #pragma unroll
           for (int k = 0; k < PX; ++k) {
             acc[k][q] += v[k].x * w.x;
@@ -808,7 +843,7 @@ flow_step_bf16_kernel(const float* __restrict__ x,
         }
 #pragma unroll
         for (int q = 0; q < QD; ++q) {
-          const float4 w = ld4(wr + q * C + 4 * c4);
+          const float4 w = ldf4<G::FS>(wr + q * C + 4 * c4);
 #pragma unroll
           for (int k = 0; k < PXD; ++k) {
             acc[k][q] += t[k][0] * w.x;
@@ -862,7 +897,9 @@ int dispatch(const void* x, const void* cond, const void* packed, void* out,
   switch (C) {
     case 12: return launch<12, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
     case 24: return launch<24, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
+    case 48: return launch<48, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
     case 96: return launch<96, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
+    case 192: return launch<192, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -872,8 +909,8 @@ int dispatch(const void* x, const void* cond, const void* packed, void* out,
 // x, out: (B, H, W, C) NHWC f32; cond: (B, H, W, 2C + hid) records
 // [scale_ft | shift_ft | aff1_ft]; packed: the step's one-pass buffer in the
 // entry's form (flow_step.py:pack_step_bf16), shared by the batch, 32-byte
-// aligned.  C must be 12, 24 or 96, hid 64 and B <= 65535; x and cond
-// 16-byte aligned.
+// aligned.  C must be 12, 24, 48, 96 or 192, hid 64 and B <= 65535; x and
+// cond 16-byte aligned.
 extern "C" int flow_step_bf16_forward(const void* x, const void* cond,
                                       const void* packed, void* out, int B,
                                       int H, int W, int C, int hid,

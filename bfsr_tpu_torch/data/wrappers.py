@@ -46,6 +46,18 @@ the reference, the paired one always pads the HR grid, even where ps
 divides it: a centre that falls in the padding gets zero coords, and
 ``eval_psnr`` crops the folded image back to ``gt``.
 
+The four flat LIIF-style wrappers (``sr-implicit-paired``,
+``sr-implicit-downsampled``, ``sr-implicit-uniform-varied`` and, with
+stride-1 patches, ``sr-implicit-downsampled-fast-patch``) follow the JAX
+wrappers of the same names draw for draw: the same ``random`` and
+``np.random`` calls in the same order, so one ``random.seed`` and one
+``np.random.seed`` give the same items.  The flat ones emit per-query
+arrays: ``coord`` (N, 2), ``cell`` (N, 2), ``gt`` (N, 3), all of the HR
+grid's pixels or a random ``sample_q`` of them (``np.random.choice``
+without replacement); ``sr-implicit-downsampled-fast-patch`` keeps its
+queries laid out (``inp_size``, ``inp_size``) as a random subset of the
+HR grid, as ``sr-implicit-downsampled-fast`` does.
+
 ``batches(dataset)`` adds the batch axis, as the JAX package's loader does
 at batch size 1.
 """
@@ -172,6 +184,87 @@ class SRImplicitPairedFastPatch:
                 "cell": base["cell"], "gt": base["gt"]}
 
 
+def flat_samples(crop_hr, sample_q=None):
+    """The flat wrappers' queries: (coord (N, 2), cell (N, 2), rgb (N, 3))
+    of every pixel of ``crop_hr``, or of ``sample_q`` of them drawn by
+    ``np.random.choice`` without replacement."""
+    coord = make_coord(crop_hr.shape[:2])
+    rgb = crop_hr.reshape(-1, crop_hr.shape[-1])
+    if sample_q is not None:
+        sel = np.random.choice(len(coord), sample_q, replace=False)
+        coord, rgb = coord[sel], rgb[sel]
+    cell = np.ones_like(coord)
+    cell[:, 0] *= 2 / crop_hr.shape[0]
+    cell[:, 1] *= 2 / crop_hr.shape[1]
+    return coord, cell, rgb
+
+
+@register("sr-implicit-paired")
+class SRImplicitPaired:
+    """Paired LR/HR, flat queries: the whole LR (HR cut to s times it) or
+    a random ``inp_size``^2 LR crop and its HR, the flips, then every HR
+    pixel or ``sample_q`` of them."""
+
+    def __init__(self, dataset, inp_size=None, augment=False, sample_q=None):
+        self.dataset = dataset
+        self.inp_size = inp_size
+        self.augment = augment
+        self.sample_q = sample_q
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        img_lr, img_hr = self.dataset[idx]
+        s = img_hr.shape[0] // img_lr.shape[0]
+        if self.inp_size is None:
+            h_lr, w_lr = img_lr.shape[:2]
+            crop_lr, crop_hr = img_lr, img_hr[:h_lr * s, :w_lr * s]
+        else:
+            n = self.inp_size
+            x0 = random.randint(0, img_lr.shape[0] - n)
+            y0 = random.randint(0, img_lr.shape[1] - n)
+            crop_lr = img_lr[x0:x0 + n, y0:y0 + n]
+            crop_hr = img_hr[x0 * s:(x0 + n) * s, y0 * s:(y0 + n) * s]
+        aug = augment_factory(self.augment)
+        crop_lr, crop_hr = aug(crop_lr), aug(crop_hr)
+        coord, cell, rgb = flat_samples(crop_hr, self.sample_q)
+        return {"inp": crop_lr, "coord": coord, "cell": cell, "gt": rgb}
+
+
+@register("sr-implicit-uniform-varied")
+class SRImplicitUniformVaried:
+    """Paired, the HR resized (PIL bicubic) to a side growing linearly with
+    the index from ``size_min`` to ``size_max``, a horizontal flip of both
+    with probability 1/2 (``augment``), an optional second resize to
+    ``gt_resize``, then flat queries as ``sr-implicit-paired``."""
+
+    def __init__(self, dataset, size_min, size_max=None, augment=False,
+                 gt_resize=None, sample_q=None):
+        self.dataset = dataset
+        self.size_min = size_min
+        self.size_max = size_max if size_max is not None else size_min
+        self.augment = augment
+        self.gt_resize = gt_resize
+        self.sample_q = sample_q
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        img_lr, img_hr = self.dataset[idx]
+        p = idx / (len(self.dataset) - 1)
+        side = round(self.size_min + (self.size_max - self.size_min) * p)
+        img_hr = resize_fn_pil(img_hr, side)
+        if self.augment and random.random() < 0.5:
+            img_lr = np.ascontiguousarray(img_lr[:, ::-1])
+            img_hr = np.ascontiguousarray(img_hr[:, ::-1])
+        if self.gt_resize is not None:
+            img_hr = resize_fn_pil(img_hr, self.gt_resize)
+        coord, cell, rgb = flat_samples(img_hr, self.sample_q)
+        return {"inp": img_lr, "coord": coord, "cell": cell, "gt": rgb}
+
+
 def downsample_crop(img, s, inp_size):
     """(LR, HR, h_lr, w_lr, h_hr, w_hr) at scale ``s``: without
     ``inp_size`` the image cut to round(floor(H / s) s) x round(floor(W /
@@ -218,6 +311,22 @@ class _Downsampled:
         return aug(crop_lr), aug(crop_hr), h_lr, w_lr, h_hr, w_hr
 
 
+@register("sr-implicit-downsampled")
+class SRImplicitDownsampled(_Downsampled):
+    """HR images downsampled on the fly (``_Downsampled``), flat queries
+    as ``sr-implicit-paired``: every HR pixel or ``sample_q`` of them."""
+
+    def __init__(self, dataset, inp_size=None, scale_min=1, scale_max=None,
+                 augment=False, sample_q=None):
+        super().__init__(dataset, inp_size, scale_min, scale_max, augment)
+        self.sample_q = sample_q
+
+    def __getitem__(self, idx):
+        crop_lr, crop_hr = self._crop(idx)[:2]
+        coord, cell, rgb = flat_samples(crop_hr, self.sample_q)
+        return {"inp": crop_lr, "coord": coord, "cell": cell, "gt": rgb}
+
+
 @register("sr-implicit-downsampled-fast")
 class SRImplicitDownsampledFast(_Downsampled):
     """HR images downsampled on the fly: the HR grid's coords, pixels,
@@ -247,6 +356,36 @@ class SRImplicitDownsampledFast(_Downsampled):
         return {"inp": crop_lr, "coord": coord,
                 "cell": make_cell(crop_hr.shape[:2]), "gt": gt,
                 "gt_pixel": hr_residual, "gt_lr_up": lr_up_residual}
+
+
+@register("sr-implicit-downsampled-fast-patch")
+class SRImplicitDownsampledFastPatch(_Downsampled):
+    """``sr-implicit-downsampled-fast`` for a patch model at train time:
+    both residuals unfolded into stride-1 ps x ps patches ((c, ky, kx)
+    order, zero padded by ps // 2) at every HR pixel; with ``inp_size`` a
+    random subset of ``inp_size``^2 of the crop's queries (``gt``, the
+    coords and both patch maps picked alike)."""
+
+    def __getitem__(self, idx):
+        crop_lr, crop_hr, h_lr, w_lr, h_hr, w_hr = self._crop(idx)
+        ps = self.patch_size
+        coord = make_coord((h_hr, w_hr), flatten=False)
+        lr_up, lr_up_residual = residuals(crop_lr, crop_hr.shape[:2])
+        hr_residual = (((crop_hr - 0.5) / 0.5) - lr_up).astype(np.float32)
+        gt = crop_hr
+        gt_patch = patchify_stride_1(hr_residual, ps)
+        lr_up_patch = patchify_stride_1(lr_up_residual, ps)
+        if self.inp_size is not None:
+            sel = np.random.choice(h_hr * w_hr, h_lr * w_lr, replace=False)
+
+            def pick(a):
+                return a.reshape(-1, a.shape[-1])[sel].reshape(h_lr, w_lr, -1)
+
+            coord, gt_patch, lr_up_patch, gt = (
+                pick(a) for a in (coord, gt_patch, lr_up_patch, gt))
+        return {"inp": crop_lr, "coord": coord,
+                "cell": make_cell(crop_hr.shape[:2]), "gt": gt,
+                "gt_patch": gt_patch, "gt_lr_up": lr_up_patch}
 
 
 @register("sr-implicit-downsampled-fast-patch-test")

@@ -55,7 +55,10 @@ runs on the CPU only.  ``build_srflow_prior_trainer`` is its prior trainer
 (``srflow_train.py --prior`` on the same conf): the frozen flow, made
 live as above, and its prior in train mode; ``example_srflow_train_batch``
 a synthetic batch in the ``lrhr-pkl`` layout (``synthetic_lrhr_sample``:
-smooth random 160^2 HR crops and their LQ by a 4x4 area mean, no PIL).
+smooth random 160^2 HR crops and their LQ by a 4x4 area mean, no PIL;
+``scale=8``: an 8x8 mean).  ``build_srflow_x8`` is SRFlow's 8x model
+(``bfsr_tpu_torch/configs/srflow_df2k_8x.yml``: the same network at scale
+8 and L 4, no prior), made live the same way.
 """
 
 import numpy as np
@@ -277,6 +280,28 @@ def srflow_specs(tiny=False):
                                              "bilinear": True}})
 
 
+def srflow_x8_spec(tiny=False):
+    """The srflow spec of SRFlow's 8x model (``bfsr_tpu_torch/configs/
+    srflow_df2k_8x.yml``: scale 8, L 4, the flagship's widths) or its tiny
+    size."""
+    spec, _ = srflow_specs(tiny)
+    return {"name": "srflow", "args": {**spec["args"], "scale": 8, "L": 4}}
+
+
+@torch.no_grad()
+def build_srflow_x8(device="cuda", seed=0, tiny=False):
+    """The frozen 8x SRFlowNet (``srflow_x8_spec``) with live random
+    weights from ``seed`` (``SRFlowNet.reset_parameters``), eval mode, on
+    ``device``."""
+    device = torch.device(device)
+    if tiny and device.type == "cuda":
+        raise ValueError("the tiny SRFlow config runs on the CPU only: K3 "
+                         "takes Cout 8-64 and K5 hidden 64")
+    model = registry.make(srflow_x8_spec(tiny))
+    model.reset_parameters(seeded(seed))
+    return model.to(device).eval().freeze()
+
+
 def patch_specs(tiny=False):
     """(linf-patch spec, unet spec) of the patch configuration (or its
     tiny size)."""
@@ -374,10 +399,12 @@ def synthetic_lrhr_sample(rng, gt_size=160, scale=4):
     return {"GT": hr, "LQ": lq}
 
 
-def example_srflow_train_batch(device, seed=0, batch=12, gt_size=160):
-    """A batch of ``synthetic_lrhr_sample`` s from
+def example_srflow_train_batch(device, seed=0, batch=12, gt_size=160,
+                               scale=4):
+    """A batch of ``synthetic_lrhr_sample`` s at ``scale`` from
     ``np.random.default_rng(seed)``, as float32 tensors on ``device``."""
     rng = np.random.default_rng(seed)
-    samples = [synthetic_lrhr_sample(rng, gt_size) for _ in range(batch)]
+    samples = [synthetic_lrhr_sample(rng, gt_size, scale)
+               for _ in range(batch)]
     return {k: torch.as_tensor(np.stack([s[k] for s in samples]),
                                device=device) for k in samples[0]}

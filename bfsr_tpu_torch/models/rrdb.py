@@ -4,13 +4,16 @@ plain-SR generator, registered as ``'rrdb'``.
 The counterpart of ``bfsr_tpu/models/rrdb.py`` in its plain NHWC form
 (``init_rrdb``, ``_dense_block``, ``rrdb_apply_steps``, ``RRDBNet``):
 conv_first -> nb RRDBs (3 residual dense blocks each, residual scale
-0.2) -> trunk_conv + skip (``encode``).  ``steps`` adds the taps SRFlow's
-flow levels read: nearest-up x2 through upconv1 and a bilinear
-down-resize to half size (the x4 head's ``fea_up4`` / ``out``, which the
-flow never reads, are not computed).  ``forward`` is the registry model's
-``apply``: with ``no_upsampling=True`` the trunk features, else the x4
-generator: nearest x2 -> upconv1 -> lrelu -> nearest x4 -> upconv2 ->
-lrelu -> HRconv -> lrelu -> conv_last.  The TPU layouts of the trunk
+0.2) -> trunk_conv + skip (``encode``).  ``steps`` adds the maps SRFlow's
+flow levels read, and only those: nearest-up x2 through upconv1
+(``fea_up2``), then nearest-up x4 of its LeakyReLU through upconv2
+(``fea_up4``, read at x8), and the bilinear down-resizes to h/2
+(``fea_up0``) and h/4 (``fea_up-1``); ``fea_up8`` and the image head
+(``out``), which no ported flow reads, are not computed.  ``forward`` is
+the registry model's ``apply``: with ``no_upsampling=True`` the trunk
+features, else the generator at ``scale`` 4 or 8: nearest x2 -> upconv1
+-> lrelu -> nearest x4 -> upconv2 -> lrelu [-> nearest x8 -> upconv3 ->
+lrelu] -> HRconv -> lrelu -> conv_last.  The TPU layouts of the trunk
 (batch-to-space, scatter, space-to-depth) and its remat are not ported:
 they compute the same sums.
 
@@ -29,7 +32,8 @@ stay ``fnn.conv2d``.
 
 ``state_dict`` keys are the reference's: ``conv_first``,
 ``RRDB_trunk.{i}.RDB{1,2,3}.conv{1..5}``, ``trunk_conv``, and with the
-head ``upconv1``, ``upconv2``, ``HRconv``, ``conv_last``.
+head ``upconv1``, ``upconv2``, at x8 ``upconv3``, ``HRconv``,
+``conv_last``.
 """
 
 import torch
@@ -41,6 +45,10 @@ from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.cuda import TWINS, check_layouts, stamp_layouts
 from bfsr_tpu_torch.ops.interp import resize_bilinear, resize_nearest
 from bfsr_tpu_torch.registry import register
+
+HEAD_SCALES = (4, 8)
+# the maps ``steps`` computes besides the block taps
+STEP_MAPS = ("fea_up1", "fea_up2", "fea_up4", "fea_up0", "fea_up-1")
 
 
 class RRDB(nn.Module):
@@ -68,11 +76,15 @@ class RRDBNet(Model):
     registry_name = "rrdb"
 
     def __init__(self, in_nc=3, out_nc=3, nf=64, nb=23, gc=32,
-                 no_upsampling=True):
+                 no_upsampling=True, scale=4):
         super().__init__()
+        if scale not in HEAD_SCALES:
+            raise ValueError(f"the RRDB's head upsamples x4 or x8 (x16's "
+                             f"upconv4: ROADMAP.md queue 1), got x{scale}")
         self.args = dict(in_nc=in_nc, out_nc=out_nc, nf=nf, nb=nb, gc=gc,
-                         no_upsampling=no_upsampling)
+                         no_upsampling=no_upsampling, scale=scale)
         self.no_upsampling = no_upsampling
+        self.scale = scale
         self.out_dim = nf if no_upsampling else out_nc
         self.conv_first = nn.Conv2d(in_nc, nf, 3, padding=1)
         self.RRDB_trunk = nn.ModuleList([RRDB(nf, gc) for _ in range(nb)])
@@ -80,6 +92,8 @@ class RRDBNet(Model):
         if not no_upsampling:
             self.upconv1 = nn.Conv2d(nf, nf, 3, padding=1)
             self.upconv2 = nn.Conv2d(nf, nf, 3, padding=1)
+            if scale == 8:
+                self.upconv3 = nn.Conv2d(nf, nf, 3, padding=1)
             self.HRconv = nn.Conv2d(nf, nf, 3, padding=1)
             self.conv_last = nn.Conv2d(nf, out_nc, 3, padding=1)
         self.reset_parameters(seeded(0))
@@ -120,30 +134,49 @@ class RRDBNet(Model):
         """``rrdb_encode``: the trunk features (B, h, w, nf)."""
         return self._trunk(x, (), kernels, conv)[0]
 
-    def steps(self, x, block_idxs=(), kernels=True, conv=None):
-        """``rrdb_apply_steps`` for the maps SRFlow's conditioning reads:
-        x (B, h, w, 3) -> dict of ``block_{i}`` taps, ``fea_up1`` (the trunk
-        output), ``fea_up2`` (upconv1 of its nearest-up x2) and ``fea_up0``
-        (its bilinear down-resize to h/2).  The x4 head (``fea_up4``,
-        HRconv, conv_last) is not computed: the flow does not read it."""
+    def steps(self, x, keys, block_idxs=(), kernels=True, conv=None):
+        """``rrdb_apply_steps`` for the maps ``keys`` (of ``STEP_MAPS``)
+        that SRFlow's conditioning reads: x (B, h, w, 3) -> dict of
+        ``block_{i}`` taps and those maps: ``fea_up1`` (the trunk output),
+        ``fea_up2`` (upconv1 of its nearest-up x2), ``fea_up4`` (upconv2 of
+        the nearest-up x4 of lrelu(``fea_up2``)), ``fea_up0`` / ``fea_up-1``
+        (its bilinear down-resizes to h/2 / h/4).  A map no key needs is
+        not computed."""
+        bad = set(keys) - set(STEP_MAPS)
+        if bad:
+            raise ValueError(f"RRDB steps computes {STEP_MAPS}, not "
+                             f"{sorted(bad)}")
         last, res = self._trunk(x, block_idxs, kernels, conv)
         h, w = x.shape[1], x.shape[2]
-        res["fea_up1"] = last
-        res["fea_up2"] = _conv(resize_nearest(last, (h * 2, w * 2)),
-                               self.upconv1)
-        res["fea_up0"] = resize_bilinear(last, (h // 2, w // 2))
+        if "fea_up1" in keys:
+            res["fea_up1"] = last
+        if "fea_up2" in keys or "fea_up4" in keys:
+            up2 = _conv(resize_nearest(last, (h * 2, w * 2)), self.upconv1)
+            if "fea_up2" in keys:
+                res["fea_up2"] = up2
+            if "fea_up4" in keys:
+                res["fea_up4"] = _conv(resize_nearest(
+                    fnn.leaky_relu(up2), (h * 4, w * 4)), self.upconv2)
+        for key, div in (("fea_up0", 2), ("fea_up-1", 4)):
+            if key in keys:
+                res[key] = resize_bilinear(last, (h // div, w // div))
         return res
 
     def forward(self, x, kernels=True, conv=None):
-        """``RRDBNet.apply``: the trunk features, or with the head the x4
-        image (B, 4h, 4w, out_nc).  As LINF's encoder (``no_upsampling``)
-        it is ``rrdb_encode``: its 345 dense-block convs on K3 at the
-        input's batch."""
+        """``RRDBNet.apply``: the trunk features, or with the head the
+        image (B, s h, s w, out_nc) at ``scale`` s.  As LINF's encoder
+        (``no_upsampling``) it is ``rrdb_encode``: its 345 dense-block convs
+        on K3 at the input's batch."""
         fea = self.encode(x, kernels, conv)
         if self.no_upsampling:
             return fea
         h, w = x.shape[1], x.shape[2]
         lrelu = fnn.leaky_relu
-        f = lrelu(_conv(resize_nearest(fea, (h * 2, w * 2)), self.upconv1))
-        f = lrelu(_conv(resize_nearest(f, (h * 4, w * 4)), self.upconv2))
+        ups = [self.upconv1, self.upconv2]
+        if self.scale == 8:
+            ups.append(self.upconv3)
+        f = fea
+        for i, up in enumerate(ups):
+            f = lrelu(_conv(resize_nearest(f, (h << (i + 1), w << (i + 1))),
+                            up))
         return _conv(lrelu(_conv(f, self.HRconv)), self.conv_last)

@@ -10,6 +10,15 @@ at level 1,
   level 2: squeeze(6->24)   2x[...]              16x[...]
   level 3: squeeze(24->96)  2x[...]              16x[...]
 
+and at L=4 (scale 8, SRFlow's 8x model) splits at levels 1 and 2:
+
+  level 1: squeeze(3->12)   ...  split (12 -> pass 6, eps 6)
+  level 2: squeeze(6->24)   ...  split (24 -> pass 12, eps 12)
+  level 3: squeeze(12->48)  ...
+  level 4: squeeze(48->192) ...  final z 192 channels at H/16
+
+``LEVEL_NAMES[scale][level]`` names the RRDB map each level reads.
+
 ``layers`` holds one module per plan entry, so the ``state_dict`` keys are
 the reference's ``layers.{i}.{actnorm,invconv,affine.fFeatures.{0,2,4},
 affine.fAffine.{0,2,4}}`` and ``layers.{i}.conv`` (the split).
@@ -70,8 +79,10 @@ from bfsr_tpu_torch.ops.cuda.flow_step import (flow_step_forward,
                                                flow_step_reverse_twin,
                                                pack_step, pack_step_bf16)
 
-LEVEL_NAMES = {4: {0: "fea_up4", 1: "fea_up2", 2: "fea_up1", 3: "fea_up0",
-                   4: "fea_up-1"}}
+LEVEL_NAMES = {
+    8: {0: "fea_up8", 1: "fea_up4", 2: "fea_up2", 3: "fea_up1", 4: "fea_up0"},
+    4: {0: "fea_up4", 1: "fea_up2", 2: "fea_up1", 3: "fea_up0", 4: "fea_up-1"},
+}
 
 
 def build_plan(scale=4, L=3, K=16, additional_steps=2, split_enable=True,

@@ -3,9 +3,16 @@
 The counterpart of ``bfsr_tpu/models/srflow/srflow_net.py``, registered
 as ``'srflow'``:
 
-* ``rrdb_preprocess`` runs the RRDB trunk with taps and appends the
-  nearest-resized stack of blocks ``stack_blocks`` to every conditioning
-  map (64 + 4 * 64 = 320 channels at the flagship);
+* ``rrdb_preprocess`` runs the RRDB trunk with taps and, under
+  ``stack_concat``, appends the nearest-resized stack of blocks
+  ``stack_blocks`` to every conditioning map (64 + 4 * 64 = 320 channels
+  at the flagship; ``nf`` without the stack);
+* the configurations: scale 4 at L 3 (the flagship) or L 4 (the last
+  level on ``fea_up-1``, ``fea_upm1``), and scale 8 at L 4 (SRFlow's 8x
+  model: levels on ``fea_up4``, ``fea_up2``, ``fea_up1``, ``fea_up0``, two
+  splits, a 192-channel final latent).  Scale 16 and a level whose map is
+  switched off (``fea_up0`` / ``fea_upm1``, which the JAX model meets
+  with a ``KeyError``) raise at construction;
 * ``precompute_ft`` builds every conditional step's record once per batch
   (``differentiable=True``: records autograd differentiates, the
   trainer's);
@@ -47,16 +54,42 @@ from bfsr_tpu_torch.ops.interp import resize_nearest
 from bfsr_tpu_torch.registry import register
 
 
-def rrdb_preprocess(rrdb, lr, block_idxs, keys, kernels=True, conv=None):
-    """RRDB taps + pyramid, with the nearest-resized stack of the blocks
-    ``block_idxs`` appended to each map in ``keys`` (``conv``: as
-    ``RRDBNet.forward``)."""
-    res = rrdb.steps(lr, block_idxs, kernels, conv)
+def rrdb_preprocess(rrdb, lr, block_idxs, keys, kernels=True, conv=None,
+                    concat=True):
+    """RRDB taps + the pyramid maps ``keys``, with (``concat`` and blocks
+    to stack) the nearest-resized stack of the blocks ``block_idxs``
+    appended to each (``conv``: as ``RRDBNet.forward``)."""
+    res = rrdb.steps(lr, keys, block_idxs, kernels, conv)
+    if not (block_idxs and concat):
+        return res
     stack = torch.cat([res[f"block_{i}"] for i in block_idxs], -1)
     for k in keys:
         h, w = res[k].shape[1], res[k].shape[2]
         res[k] = torch.cat([res[k], resize_nearest(stack, (h, w))], -1)
     return res
+
+
+def check_config(scale, L, fea_up0, fea_upm1):
+    """Refuse what the port does not run: scale 16 (ROADMAP queue 1), a
+    scale or level with no conditioning map, and a level whose map is
+    switched off."""
+    if scale == 16:
+        raise NotImplementedError(
+            "SRFlow at 16x (K5 at C = 384, the RRDB's upconv4) is not "
+            "ported yet: ROADMAP.md queue 1")
+    if scale not in LEVEL_NAMES:
+        raise ValueError(f"SRFlow runs at scale {tuple(LEVEL_NAMES)}, got "
+                         f"{scale}")
+    names = LEVEL_NAMES[scale]
+    for lvl in range(1, L + 1):
+        if lvl not in names:
+            raise ValueError(f"scale {scale} has conditioning maps for "
+                             f"levels 1-{max(names)}, not L={L}")
+        for key, on, flag in (("fea_up0", fea_up0, "fea_up0"),
+                              ("fea_up-1", fea_upm1, "fea_upm1")):
+            if names[lvl] == key and not on:
+                raise ValueError(f"level {lvl} at scale {scale}, L={L} reads "
+                                 f"{key}: set {flag}")
 
 
 def standardize_epses(epses, eps=1e-8):
@@ -79,11 +112,7 @@ class SRFlowNet(Model):
                  split_enable=True, stack_blocks=(1, 8, 15, 22),
                  stack_concat=True, fea_up0=True, fea_upm1=False, quant=32):
         super().__init__()
-        if (scale != 4 or L != 3 or fea_upm1 or not fea_up0
-                or not stack_concat or not stack_blocks):
-            raise NotImplementedError("the port runs the SRFlow-LP 4x config "
-                                      "(scale 4, L 3, stacked concat, "
-                                      "fea_up0)")
+        check_config(scale, L, fea_up0, fea_upm1)
         self.args = dict(in_nc=in_nc, out_nc=out_nc, nf=nf, nb=nb, gc=gc,
                          scale=scale, K=K, L=L,
                          hidden_channels=hidden_channels,
@@ -94,10 +123,13 @@ class SRFlowNet(Model):
                          fea_upm1=fea_upm1, quant=quant)
         self.scale, self.L, self.quant = scale, L, quant
         self.stack_blocks = tuple(stack_blocks)
+        self.stack_concat = stack_concat
         self.plan, self.final_c = build_plan(scale, L, K, additional_steps,
                                              split_enable, base_c=in_nc)
-        cond_channels = (len(stack_blocks) + 1) * nf
-        self.RRDB = RRDBNet(in_nc, out_nc, nf, nb, gc, no_upsampling=False)
+        cond_channels = ((len(stack_blocks) + 1) * nf if stack_concat
+                         else nf)
+        self.RRDB = RRDBNet(in_nc, out_nc, nf, nb, gc, no_upsampling=False,
+                            scale=scale)
         self.flowUpsamplerNet = FlowUpsamplerNet(self.plan, cond_channels,
                                                  hidden_channels)
         self.reset_parameters(seeded(0), live=False)
@@ -187,7 +219,8 @@ class SRFlowNet(Model):
     def rrdb_preprocess(self, lr, kernels=True, conv=None):
         """The conditioning maps the flow reads (and the block taps)."""
         return rrdb_preprocess(self.RRDB, lr, self.stack_blocks,
-                               self.cond_keys(), kernels, conv)
+                               self.cond_keys(), kernels, conv,
+                               self.stack_concat)
 
     def _conds(self, lr_enc):
         names = LEVEL_NAMES[self.scale]
@@ -200,7 +233,7 @@ class SRFlowNet(Model):
     @torch.no_grad()
     def prime_actnorms(self, gt, lr):
         """Data-dependent actnorm init from one (gt (B, H, W, 3), lr (B,
-        H/4, W/4, 3)) batch, as ``bfsr_tpu/models/srflow/srflow_net.py:
+        H/s, W/s, 3)) batch, as ``bfsr_tpu/models/srflow/srflow_net.py:
         prime_actnorms`` (the reference's ``FlowActNorms.py:45-59``), then
         ``freeze()`` again, the same ``step_form``.  Only meaningful on a
         random flow (``flowUpsamplerNet.actnorms_unprimed()``)."""
@@ -210,14 +243,15 @@ class SRFlowNet(Model):
         return self.freeze(steps[0].step_form if steps else "xla")
 
     def normal_flow(self, gt, cache, kernels=True):
-        """Encode gt (B, H, W, 3) -> [eps0, z_final], no noise, no log-det."""
+        """Encode gt (B, H, W, 3) -> [the eps of each split..., z_final], no
+        noise, no log-det."""
         return self.flowUpsamplerNet.encode(gt, cache, kernels)
 
     def reverse_flow(self, epses, cache, kernels=True, differentiable=False,
                      eps_std=None, generator=None):
-        """Decode [eps0, z_final] -> the SR images (B, H, W, 3); from
-        ``[z_final]`` alone the split's eps is drawn from ``generator``
-        times ``eps_std`` (zeros with no generator)."""
+        """Decode [the eps of each split..., z_final] -> the SR images (B,
+        H, W, 3); from ``[z_final]`` alone each split's eps is drawn from
+        ``generator`` times ``eps_std`` (zeros with no generator)."""
         return self.flowUpsamplerNet.decode(epses, cache, kernels,
                                             differentiable, eps_std,
                                             generator)

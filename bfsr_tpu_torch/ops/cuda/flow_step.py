@@ -71,7 +71,9 @@ from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.flows import AFFINE_EPS, fold_actnorm_invconv
 from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 
-KERNEL_CHANNELS = (12, 24, 96)
+# the flow levels' widths: 12 / 24 / 96 of the 4x model's L 3 flow, 12 /
+# 24 / 48 / 192 of the 8x model's L 4 flow
+KERNEL_CHANNELS = (12, 24, 48, 96, 192)
 KERNEL_HIDDEN = 64
 # the image is the grid's z
 GRID_Z = 65535
@@ -480,8 +482,8 @@ BF16_FORMS = {
 def flow_step_forward(x, cond, packed, hid, packed_bf16=None,
                       step_form="xla"):
     """K5 forward at the stage's precision: on CUDA the f32 kernel or, in
-    a bf16 stage, the one-pass kernel of ``step_form`` (C in 12/24/96,
-    hidden 64); on CPU the twin of that form.
+    a bf16 stage, the one-pass kernel of ``step_form`` (C in
+    ``KERNEL_CHANNELS``, hidden 64); on CPU the twin of that form.
 
     x: (B, H, W, C) state; cond: (B, H, W, 2C + hid) records; packed /
     packed_bf16: the step's ``pack_step`` / ``pack_step_bf16`` buffers (a

@@ -63,6 +63,21 @@ from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
 STAGES = ("rrdb", "precompute_ft", "encode", "prior", "decode")
 
 
+def check_prior_flow(model):
+    """Refuse a flow the two-branch prior does not read: it takes [the eps
+    of the one split, z_final], the epses of an L 3 flow.  At L 4 (the 8x
+    model) the flow has two splits and its second eps is the 12-channel
+    split latent, not z_final: the JAX ``SRFlowLPPredictor`` fails there
+    with a reshape ``TypeError`` (ROADMAP.md queue 3)."""
+    if model.L != 3:
+        raise ValueError(
+            f"SRFlow-LP's two-branch prior is defined for an L 3 flow (one "
+            f"split: epses [eps0, z]); this flow has L={model.L} "
+            f"({len([e for e in model.plan if e['kind'] == 'split'])} "
+            "splits). Serve it with sample_sr / get_sr or validate, without "
+            "a prior (ROADMAP.md queue 3)")
+
+
 def pad_to_multiple(lr_img01, multiple=2):
     """(h, w, 3) -> (1, h', w', 3), h' and w' the next multiples of
     ``multiple`` (at least 2), padded at the bottom and right: reflected
@@ -87,6 +102,7 @@ class SRFlowLPPredictor:
     def __init__(self, model, prior_model, kernels=True, pad_multiple=2):
         if not model.flowUpsamplerNet.frozen():
             raise ValueError("freeze() the SRFlow model before predicting")
+        check_prior_flow(model)
         self.model = model
         self.prior = prior_model
         self.kernels = kernels
@@ -130,6 +146,12 @@ class SRFlowLPPredictor:
         return torch.clamp(sr[0], 0.0, 1.0)[: h * s, : w * s]
 
 
+def lr_multiple(model):
+    """The LR multiple a flow of scale s and L levels decodes: its final
+    latent is at s h / 2^L (at least 2, the protocol's pad)."""
+    return max(2, 2 ** model.L // model.scale)
+
+
 def _refreeze(model):
     """``freeze()`` on the current weights, in the one-pass form the flow
     was frozen with."""
@@ -144,9 +166,9 @@ def validate(model, batches, heats=(0.0, 0.5, 0.75, 1.0), n_sample=3, seed=0,
     heat x ``n_sample`` and the mean NLL of GT (with its quantisation
     noise), in bits/dim.
 
-    batches: an iterable of {'GT': (B, H, W, 3), 'LQ': (B, H/4, W/4, 3)}
-    (numpy arrays or tensors; H, W divisible by 2^L).  Returns (the mean
-    over batches of each batch's mean NLL, {(heat, i): the first image of
+    batches: an iterable of {'GT': (B, H, W, 3), 'LQ': (B, H/s, W/s, 3)}
+    at scale s (numpy arrays or tensors; H, W divisible by 2^L).  Returns
+    (the mean over batches of each batch's mean NLL, {(heat, i): the first image of
     the last batch's sample i at heat, clipped to [0, 1]})."""
     path = True if kernels is True else TWINS
     _refreeze(model)
@@ -172,16 +194,18 @@ def validate(model, batches, heats=(0.0, 0.5, 0.75, 1.0), n_sample=3, seed=0,
 @torch.no_grad()
 def sample_sr(model, lr_img01, heat=0.0, seed=0, kernels=True):
     """An SR sample of one LR image (h, w, 3) in [0, 1] at temperature
-    ``heat`` (``SRFlow_model.get_sr``): reflect-padded to even, decoded on
-    K5 from a final latent and split eps drawn from a generator seeded
-    with ``seed``, clipped and cropped to (4h, 4w, 3)."""
+    ``heat`` (``SRFlow_model.get_sr``): padded to the multiple the flow's
+    last level needs (``lr_multiple``: reflect-padded to even at x4 L 3 and
+    x8 L 4), decoded on K5 from a final latent and each split's eps drawn
+    from a generator seeded with ``seed``, clipped and cropped to (s h, s
+    w, 3) at scale s."""
     path = True if kernels is True else TWINS
     _refreeze(model)
     dev = next(model.parameters()).device
     if isinstance(lr_img01, np.ndarray):
         lr_img01 = torch.as_tensor(lr_img01, dtype=torch.float32, device=dev)
     h, w = lr_img01.shape[:2]
-    lr = pad_to_multiple(lr_img01.to(dev), 2)
+    lr = pad_to_multiple(lr_img01.to(dev), lr_multiple(model))
     gen = torch.Generator(device=dev).manual_seed(seed)
     z = model.sample_z(heat, lr.shape[1:3], 1, gen, dev)
     sr = model.get_sr(lr, heat, z=z, generator=gen, kernels=path)

@@ -47,6 +47,7 @@ from bfsr_tpu_torch.ops.cuda import TWINS
 from bfsr_tpu_torch.ops.interp import resize_bilinear
 from bfsr_tpu_torch.pipelines.linf_train import to_device
 from bfsr_tpu_torch.pipelines.losses import l1_loss
+from bfsr_tpu_torch.pipelines.srflow_eval import check_prior_flow
 
 BATCH_KEYS = ("GT", "LQ")
 
@@ -66,7 +67,9 @@ def make_srflow_prior_train_step(model, prior, optimizer, eps_weight=1.0,
     ``SRFlowUNet``; optimizer: over the prior's parameters; scheduler: a
     per-iteration LR scheduler (``train.optim.lr_scheduler``) or None;
     batch: {'GT': (B, H, W, 3), 'LQ': (B, H/4, W/4, 3)} in [0, 1], H and
-    W divisible by 2^L (the training crops are 160).  ``marks``: None, or
+    W divisible by 2^L (the training crops are 160).  The flow is an L 3
+    one (``check_prior_flow``): the two-branch prior reads its two
+    epses.  ``marks``: None, or
     a callable that takes the name of each stage as the step enters it
     ('rrdb', 'precompute_ft', 'encode_lr', 'prior', 'encode_gt',
     'decode', 'backward', 'update', then 'end'), for timing them.
@@ -77,6 +80,7 @@ def make_srflow_prior_train_step(model, prior, optimizer, eps_weight=1.0,
     if not model.flowUpsamplerNet.frozen():
         raise ValueError("freeze() the SRFlow model before training its "
                          "prior")
+    check_prior_flow(model)
     device = next(prior.parameters()).device
     mark = marks or (lambda name: None)
     s = model.scale

@@ -36,9 +36,13 @@ correction of the global count.  Here an RRDB parameter has no gradient
 (None) while it is frozen or masked, so that ``torch.optim.Adam`` leaves
 it and its layouts alone, and ``train.optim.share_step_count`` gives it,
 at its first gradient, the zero moments and shared count it would have
-after zero gradients: the JAX mask form's update.  The x4 head
-(``upconv2``, ``HRconv``, ``conv_last``), which the flow never reads,
-gets no gradient and stays as it is, as under optax's zero gradients.
+after zero gradients: the JAX mask form's update.  The part of the head
+that the flow never reads (``upconv2`` at x4, ``upconv3`` at x8,
+``HRconv``, ``conv_last``) gets no gradient and stays as it is, as under
+optax's zero gradients.
+
+The step is the same at every flow the model takes: at x8 (L 4) the NLL
+reads the last of three epses, and the encode crosses two splits.
 
 ``kernels=False`` runs the frozen form's RRDB on K3's twin (``TWINS``) on
 any device; with ``kernels=True`` a CUDA batch launches K3 or raises, a
@@ -69,10 +73,10 @@ def make_srflow_train_step(model, optimizer, weight_fl=1.0, weight_l1=0.0,
     model: an ``SRFlowNet`` (``freeze()`` called for the frozen form's K3
     layouts); optimizer: over all of its parameters; scheduler: a
     per-iteration LR scheduler or None; batch: {'GT': (B, H, W, 3), 'LQ':
-    (B, H/4, W/4, 3)} in [0, 1], H and W divisible by 2^L; ``it``: the
-    iteration, read by the live form's mask; ``noise``: the quantisation
-    noise added to GT (B, H, W, 3), else ``(U - 0.5) / quant`` drawn from
-    ``generator``.  ``marks``: None, or a callable that takes the name of
+    (B, H/s, W/s, 3)} in [0, 1] at scale s, H and W divisible by 2^L;
+    ``it``: the iteration, read by the live form's mask; ``noise``: the
+    quantisation noise added to GT (B, H, W, 3), else ``(U - 0.5) /
+    quant`` drawn from ``generator``.  ``marks``: None, or a callable that takes the name of
     each stage as the step enters it ('rrdb', 'precompute_ft', 'encode',
     'decode', 'backward', 'update', then 'end').
     """

@@ -6,7 +6,9 @@ one-pass forms under ``BFSR_PRECISION=default``, ``xla`` (served) or
 ``pallas`` (``csrc/flow_step_bf16.cu``), at SRFlow-LP's level shapes of a
 512^2 image:
 256^2 x 12, 128^2 x 24 and 64^2 x 96, each with a conditioning record of
-2C + 64 channels.  The step is a ``FlowStep`` with live random weights
+2C + 64 channels; ``--levels x8``: the 8x model's levels 3 and 4 at
+512^2 (64^2 x 48, 32^2 x 192; its levels 1 and 2 are the 4x model's).
+The step is a ``FlowStep`` with live random weights
 from seed 0, built as ``tests/test_torch_cuda.py:random_flow_step`` builds
 it, and packed with ``pack_step`` (f32) or ``pack_step_bf16`` in the
 form; the state and record come from numpy seed 1.  CUDA events around ``--iters`` back-to-back launches after a
@@ -38,8 +40,9 @@ from bfsr_tpu_torch.ops.cuda import flow_step as k5
 
 HID = 64
 # (label, C, extent): the first conditional step of each level at 512^2
-LEVELS = [("L1 256^2x12", 12, 256), ("L2 128^2x24", 24, 128),
-          ("L3 64^2x96", 96, 64)]
+LEVELS = {"x4": [("L1 256^2x12", 12, 256), ("L2 128^2x24", 24, 128),
+                 ("L3 64^2x96", 96, 64)],
+          "x8": [("L3 64^2x48", 48, 64), ("L4 32^2x192", 192, 32)]}
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 FORMS = ("f32", "xla", "pallas")
 
@@ -111,9 +114,9 @@ def _entries(form, packed):
                               ("rev", k5.flow_step_reverse, True))]
 
 
-def run(iters=50, form="f32"):
+def run(iters=50, form="f32", levels="x4"):
     out = {}
-    for label, c, hw in LEVELS:
+    for label, c, hw in LEVELS[levels]:
         step = random_step(c)
         packed = (k5.pack_step(step.actnorm, step.invconv, step.affine)
                   if form == "f32" else
@@ -150,6 +153,9 @@ def main(argv=None):
     ap.add_argument("--form", choices=FORMS, default="f32",
                     help="f32: the f32 kernel; xla / pallas: that one-pass "
                     "form under BFSR_PRECISION=default")
+    ap.add_argument("--levels", choices=sorted(LEVELS), default="x4",
+                    help="x4: the 4x flow's three levels; x8: the 8x "
+                    "flow's levels 3 and 4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k5_times: no CUDA device", file=sys.stderr)
@@ -160,7 +166,7 @@ def main(argv=None):
     saved = fnn.precision_mode()
     fnn.set_default_precision("high" if args.form == "f32" else "default")
     try:
-        times = run(args.iters, args.form)
+        times = run(args.iters, args.form, args.levels)
     finally:
         fnn.set_default_precision(saved)
     print(json.dumps({"label": args.label, "card": smi,

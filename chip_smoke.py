@@ -209,7 +209,23 @@ fails (non-zero exit, no result line) if any phase fails:
    (K3 345 a step); the SwinIR- and RDN-encoder LINFs and the flagship
    with ``edsr-baseline-latent`` (K3 34 + 42), each predict against the
    twin path and timed, and the full EDSR's 256-wide conv on cuDNN.  It
-   prints the phase's seconds.
+   prints the phase's seconds;
+16. SRFlow at 8x (``run_srflow_x8``): the model of
+   ``bfsr_tpu_torch/configs/srflow_df2k_8x.yml`` (RRDB 64 x 23, K 16, L 4,
+   hidden 64; 64 conditional steps at C = 12, 24, 48 and 192): K5 f32 and
+   both one-pass forms, forward and reverse, against their twins at each
+   level of the 512^2 sample (256^2 x 12, 128^2 x 24, 64^2 x 48, 32^2 x
+   192) and of the trainer's B 12 (80^2 x 12 ... 10^2 x 192); ``sample_sr``
+   at LR 64^2 -> 512^2 and 50x42 -> 400x336, heat 0 and 0.8 (a seeded
+   generator), under ``high`` and ``default``, each with the launch
+   counters reset first (K3 345 and K5's reverse 64, the bf16 K3 and the
+   served one-pass K5 under ``default``) and against the twin path
+   (``TOL['srflow_image']`` / ``TOL['srflow_default_twin_db']``); ms per
+   image, HR MP/s, the stages (RRDB, records, decode), peak memory and a
+   profile; the base trainer at B 12 of 160^2 GT (a frozen step, K3 345,
+   and a live step, held as phase 14 holds them; ms/step, peak memory)
+   and ``validate`` on 2 pairs (K3 345, K5 768 reverse).  It prints the
+   phase's seconds.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -222,7 +238,8 @@ peak it is taken at in ``bound_rate``: K2's f32-grade products at
 K4, both K3s and K5 (f32 and the served one-pass form) also carry
 ``train_checks``, phases 10-12's checks at the trainers' shapes, K1's and
 K4's inverse with ``FlowInverse``'s gradient, K5's reverse with
-``FlowStepReverse``'s; ``launches_by_path`` gives a step's launches on
+``FlowStepReverse``'s; K5 carries ``x8_checks``, phase 16's checks at
+the 8x flow's four widths; ``launches_by_path`` gives a step's launches on
 each trainer and mode, and an image's or a val batch's on the evaluation
 entry points);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
@@ -2933,7 +2950,8 @@ def _launched():
     return {k: v for k, v in cuda.LAUNCHES.items() if v}
 
 
-def check_base_frozen_step(model, batch, noise):
+def check_base_frozen_step(model, batch, noise,
+                           label="srflow base train step frozen"):
     """A frozen-phase step's loss and gradients on the kernel path, with
     the launch counters reset first (BASE_TRAIN_LAUNCHES), its RRDB held
     launch by launch, against the twin path from the same state, batch and
@@ -2942,7 +2960,6 @@ def check_base_frozen_step(model, batch, noise):
     gradients, the nudged gradients))."""
     from bfsr_tpu_torch.ops import cuda
 
-    label = "srflow base train step frozen"
     cuda.reset_launch_counts()
     mets, grads = base_train_step(model, True).loss_and_grads(batch, 0, noise)
     launches = _launched()
@@ -2962,7 +2979,8 @@ def check_base_frozen_step(model, batch, noise):
     return launches, (ref, ref_grads, nudged)
 
 
-def check_base_live_step(model, batch, noise, frozen_twin):
+def check_base_live_step(model, batch, noise, frozen_twin,
+                         label="srflow base train step live"):
     """The live step at the same weights, batch and noise: no kernel
     launched; its loss and the flow's gradients against the frozen twin
     step's, within that step's spread (``hold_step``); and the RRDB's
@@ -2971,7 +2989,6 @@ def check_base_live_step(model, batch, noise, frozen_twin):
 
     from bfsr_tpu_torch.ops import cuda
 
-    label = "srflow base train step live"
     cuda.reset_launch_counts()
     mets, grads = base_train_step(model, False).loss_and_grads(batch, 0,
                                                                noise)
@@ -3026,7 +3043,7 @@ def check_base_default_step(model, batch, noise):
     return launches
 
 
-def check_validate(model, dev):
+def check_validate(model, dev, label="validate"):
     """``validate`` on one batch of VAL_PAIRS val pairs at VAL_HEATS x
     VAL_SAMPLES on the kernel path, the launch counters reset first (K3
     345, K5 48 reverse a sample), and on the twin path: the heat-0 images
@@ -3041,7 +3058,8 @@ def check_validate(model, dev):
     n_cond = sum(e["kind"] == "step_cond" for e in model.plan)
     want = {"conv3x3_cat": BASE_TRAIN_LAUNCHES["conv3x3_cat"],
             "flow_step_reverse": n_cond * len(VAL_HEATS) * VAL_SAMPLES}
-    val = [example_srflow_train_batch(dev, 50, VAL_PAIRS, SRFLOW_TRAIN_GT)]
+    val = [example_srflow_train_batch(dev, 50, VAL_PAIRS, SRFLOW_TRAIN_GT,
+                                      model.scale)]
     cuda.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3049,7 +3067,7 @@ def check_validate(model, dev):
     launches = _launched()
     kernel_s = time.perf_counter() - t0
     if launches != want:
-        raise RuntimeError(f"validate: launches {launches}, expected {want}")
+        raise RuntimeError(f"{label}: launches {launches}, expected {want}")
     t0 = time.perf_counter()
     ref_nll, ref = validate(model, val, VAL_HEATS, VAL_SAMPLES,
                             kernels=False)
@@ -3060,10 +3078,10 @@ def check_validate(model, dev):
     heat0 = max(e for (h, _), e in errs.items() if h == 0.0)
     if not (rel <= BASE_TOL["nll_rel"] and heat0 <= TOL["srflow_image"]
             and all(torch.isfinite(v).all() for v in samples.values())):
-        raise RuntimeError(f"validate: nll {nll!r} vs twin path {ref_nll!r} "
+        raise RuntimeError(f"{label}: nll {nll!r} vs twin path {ref_nll!r} "
                            f"({rel:.3e} relative); images max abs err "
                            f"{errs}")
-    log(f"validate {VAL_PAIRS} pairs of {SRFLOW_TRAIN_GT}^2 at heats "
+    log(f"{label} {VAL_PAIRS} pairs of {SRFLOW_TRAIN_GT}^2 at heats "
         f"{VAL_HEATS} x {VAL_SAMPLES}: launches {launches}; nll {nll!r} "
         f"bits/dim vs twin path {ref_nll!r} ({rel:.3e} relative, at most "
         f"{BASE_TOL['nll_rel']:g}); heat-0 images max abs err {heat0:.3e} "
@@ -3702,6 +3720,292 @@ def run_other_encoders(dev):
     return checks, launches, plain
 
 
+# ---------------------------------------------------------------------------
+# phase 16: SRFlow at 8x (scale 8, L 4)
+# ---------------------------------------------------------------------------
+
+# the sampler at LR 64^2 -> HR 512^2 and at a ragged even LR, at heat 0 and
+# a nonzero heat drawn from a seeded generator; a sample's launches: the
+# RRDB's 345 dense-block convs on K3 and the decode's 64 conditional steps
+# (16 at each of the four levels, C = 12, 24, 48, 192) on K5's reverse, the
+# bf16 K3 and the served one-pass K5 under default.  The trainer: B 12 of
+# 160^2 GT over 20^2 LQ, the flagship's batch at 8x.
+X8_LR, X8_RAGGED_LR, X8_HEATS, X8_SEED = (64, 64), (50, 42), (0.0, 0.8), 7
+X8_SAMPLE_LAUNCHES = {
+    "high": {"conv3x3_cat": 345, "flow_step_reverse": 64},
+    "default": {"conv3x3_cat_bf16": 345, "flow_step_bf16_reverse": 64}}
+
+
+def check_k5_levels(model, lq, tag):
+    """K5 f32 and both one-pass forms, forward and reverse, against their
+    twins at each level of the flow for ``lq`` (B, h, w, 3): the first
+    conditional step of each level on its record (f32 and ``xla`` on the
+    step's own buffers, ``pallas`` on one packed here), a random state of
+    the batch; the bound by ``k5_work`` over the batch, at the f32 or the
+    bf16 peak.  Returns {kernel: [results, each with its width and
+    shape]}."""
+    import torch
+
+    from bfsr_tpu_torch.ops.cuda import flow_step as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    for e, step, rec in first_steps(model, lq):
+        c, hid = e["c"], step.hidden
+        b, h, w = rec.shape[:3]
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        where = f" {tag} level {e['level']} ({b}, {h}, {w}, {c})"
+        forms = [(None, step.kpacked, "high", PEAK_F32_FLOPS)]
+        for form in k5.STEP_FORMS:
+            pb = (step.kpacked_bf16 if form == step.step_form else
+                  k5.pack_step_bf16(step.actnorm, step.invconv, step.affine,
+                                    form))
+            forms.append((form, pb, "default", PEAK_BF16_FLOPS))
+        for form, buf, mode, peak in forms:
+            flops, n_bytes = k5_work(c, hid, (b * h, w), buf)
+            with precision(mode), torch.inference_mode():
+                if form is None:
+                    fwd = ("flow_step_forward", k5.flow_step_forward_plain)
+                    rev = ("flow_step_reverse", k5.flow_step_reverse_plain)
+                else:
+                    fwd, rev = k5.BF16_FORMS[form, False], \
+                        k5.BF16_FORMS[form, True]
+                y = fwd[1](x, rec, buf, hid)
+                for (name, plain), fn, inp in (
+                        (fwd, k5.flow_step_forward, x),
+                        (rev, k5.flow_step_reverse, y)):
+                    r = compare(
+                        name, lambda: fn(inp, rec, step.kpacked, hid, buf,
+                                         form or "xla"),
+                        lambda: plain(inp, rec, buf, hid), TOL[name], flops,
+                        f" {form or 'f32'}{where}", n_bytes, peak=peak)
+                    results.setdefault(name, []).append(
+                        dict(r, width=c, shape=[b, h, w]))
+    return results
+
+
+def x8_decode(model, lr, heat, kernels):
+    """The sampler's work after its ``freeze()``, on a padded LR batch at
+    ``heat``: ``get_sr`` (unclipped) from a generator seeded with X8_SEED,
+    as ``sample_sr`` draws, with no graph."""
+    import torch
+
+    from bfsr_tpu_torch.ops.cuda import TWINS
+
+    gen = torch.Generator(device="cuda").manual_seed(X8_SEED)
+    z = model.sample_z(heat, lr.shape[1:3], 1, gen, lr.device)
+    with torch.no_grad():
+        return model.get_sr(lr, heat, z=z, generator=gen,
+                            kernels=True if kernels else TWINS)
+
+
+def check_x8_sample(model, img, label, mode):
+    """``sample_sr`` of one LR image at each of X8_HEATS in ``mode``, the
+    launch counters reset first (X8_SAMPLE_LAUNCHES), against the twin path
+    on the same draws (``x8_decode`` on the twins, clipped and cropped as
+    ``sample_sr`` does): under high the clipped image within
+    TOL['srflow_image'] and the unclipped one within
+    TOL['srflow_unclipped_rel'] of the largest value; under default the
+    image within TOL['srflow_default_twin_db'] of the twin path.  Returns
+    the launches and {heat: the image}."""
+    import torch
+
+    from bfsr_tpu_torch.ops import cuda
+    from bfsr_tpu_torch.pipelines.srflow_eval import (lr_multiple,
+                                                      pad_to_multiple,
+                                                      sample_sr)
+    from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
+
+    h, w = img.shape[:2]
+    want = X8_SAMPLE_LAUNCHES[mode]
+    x = pad_to_multiple(img, lr_multiple(model))
+    images = {}
+    with precision(mode):
+        for heat in X8_HEATS:
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            out = sample_sr(model, img, heat, X8_SEED)
+            launches = _launched()
+            sr, sr_ref = (x8_decode(model, x, heat, k) for k in (True, False))
+            ref = torch.clamp(sr_ref[0], 0.0, 1.0)[: 8 * h, : 8 * w]
+            torch.cuda.synchronize()
+            if (launches != want or out.shape != (8 * h, 8 * w, 3)
+                    or not torch.isfinite(out).all()
+                    or not torch.isfinite(sr).all()):
+                raise RuntimeError(f"x8 sample {label} {mode} heat {heat:g}: "
+                                   f"launches {launches} (expected {want}), "
+                                   f"shape {tuple(out.shape)}")
+            err = float((out - ref).abs().max())
+            rel = float((sr - sr_ref).abs().max() / sr_ref.abs().max())
+            db = agreement_db(out, ref)
+            if mode == "high":
+                ok = (err <= TOL["srflow_image"]
+                      and rel <= TOL["srflow_unclipped_rel"])
+                held = (f"max |kernel - twin| {err:.3e} (tol "
+                        f"{TOL['srflow_image']:g}); unclipped max |kernel - "
+                        f"twin| / max |twin| {rel:.3e} (tol "
+                        f"{TOL['srflow_unclipped_rel']:g})")
+            else:
+                ok = db >= TOL["srflow_default_twin_db"]
+                held = (f"kernel path vs twin path {db:.3f} dB (floor "
+                        f"{TOL['srflow_default_twin_db']:g}), max abs "
+                        f"{err:.3e}; unclipped {rel:.3e} relative "
+                        "(reported)")
+            log(f"x8 sample {label} {mode} heat {heat:g}: shape "
+                f"{tuple(out.shape)}, finite, launches {json.dumps(launches)};"
+                f" {held}; {100 * float(((sr_ref > 0) & (sr_ref < 1)).float().mean()):.1f}% "
+                f"of the unclipped twin image inside (0, 1), max |twin| "
+                f"{float(sr_ref.abs().max()):.3f}")
+            if not ok:
+                raise RuntimeError(f"x8 sample {label} {mode} heat {heat:g}: "
+                                   f"the kernel path disagrees with the twin "
+                                   f"path: {held}")
+            images[heat] = out
+    return launches, images
+
+
+def x8_stages(model, x, label, reps=3):
+    """Device time of the sampler's stages on a padded LR (CUDA events
+    between them, median of ``reps``): the RRDB, the conditioning records,
+    the decode."""
+    import torch
+
+    per = {"rrdb": [], "precompute_ft": [], "decode": []}
+    for _ in range(reps):
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with torch.no_grad():
+            evs[0].record()
+            enc = model.rrdb_preprocess(x)
+            evs[1].record()
+            cache = model.precompute_ft(enc)
+            evs[2].record()
+            model.reverse_flow([model.sample_z(0.0, x.shape[1:3], 1,
+                                               device=x.device)], cache)
+            evs[3].record()
+        torch.cuda.synchronize()
+        for k, a, b in zip(per, evs, evs[1:]):
+            per[k].append(a.elapsed_time(b))
+    total = sum(statistics.median(v) for v in per.values())
+    log(f"stages {label}: " + ", ".join(
+        f"{k} {statistics.median(v):.3f} ms "
+        f"({100 * statistics.median(v) / total:.1f}%)" for k, v in per.items())
+        + f"; total {total:.3f} ms")
+
+
+def run_srflow_x8(dev):
+    """Phase 16: SRFlow's 8x model (``bfsr_tpu_torch/configs/
+    srflow_df2k_8x.yml``: RRDB 64 x 23, K 16, L 4, hidden 64) at full
+    width, random live weights from seed 0.  Returns (K5's checks at its
+    four widths, {path: launches})."""
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch.entry import (build_srflow_x8,
+                                      example_srflow_train_batch)
+    from bfsr_tpu_torch.pipelines.srflow_eval import (lr_multiple,
+                                                      pad_to_multiple,
+                                                      sample_sr)
+    from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
+
+    t0 = time.perf_counter()
+    model = build_srflow_x8(dev, seed=0)
+    widths = [e["c"] for e in model.plan if e["kind"] == "step_cond"]
+    log(f"x8: model built from seed 0 in {time.perf_counter() - t0:.2f} s; "
+        f"{len(widths)} conditional steps at C = "
+        f"{sorted(set(widths))}, final latent {model.final_c} channels")
+    rng = np.random.default_rng(8)
+    img = torch.as_tensor(rng.random((*X8_LR, 3)), dtype=torch.float32,
+                          device=dev)
+    ragged = torch.as_tensor(rng.random((*X8_RAGGED_LR, 3)),
+                             dtype=torch.float32, device=dev)
+    batches = [example_srflow_train_batch(dev, 70 + seed, SRFLOW_TRAIN_BATCH,
+                                          SRFLOW_TRAIN_GT, 8)
+               for seed in range(2)]
+    checks = check_k5_levels(model, img[None], "x8 sample")
+    for name, rs in check_k5_levels(model, batches[0]["LQ"],
+                                    "x8 step").items():
+        checks[name].extend(rs)
+
+    # the sampler, both modes
+    tag = f"{X8_LR[0]}x{X8_LR[1]}->{8 * X8_LR[0]}x{8 * X8_LR[1]}"
+    rtag = (f"{X8_RAGGED_LR[0]}x{X8_RAGGED_LR[1]}->{8 * X8_RAGGED_LR[0]}x"
+            f"{8 * X8_RAGGED_LR[1]}")
+    launches = {}
+    launches["srflow_x8_sample"], high = check_x8_sample(model, img, tag,
+                                                         "high")
+    check_x8_sample(model, ragged, rtag, "high")
+    launches["srflow_x8_sample_default"], default = check_x8_sample(
+        model, img, tag, "default")
+    check_x8_sample(model, ragged, rtag, "default")
+    for heat in X8_HEATS:
+        log(f"agreement x8 sample {tag} default vs high at heat {heat:g}: "
+            f"{agreement_db(default[heat], high[heat]):.3f} dB (reported)")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sample_sr(model, img, 0.0)
+    torch.cuda.synchronize()
+    log(f"x8 sample {tag}: sample_sr with its freeze() "
+        f"{(time.perf_counter() - t1) * 1e3:.3f} ms (the times below are "
+        "its decode after the freeze)")
+    medians = {}
+    for t, im in ((tag, img), (rtag, ragged)):
+        x = pad_to_multiple(im, lr_multiple(model))
+        mp = 64 * im.shape[0] * im.shape[1] / 1e6
+        paths = {k: (lambda a=x, kk=k == "kernel": x8_decode(
+            model, a, X8_HEATS[1], kk)) for k in ("twin", "kernel")}
+        medians[t] = time_paths(paths, mp, f"x8 sample {t} heat "
+                                f"{X8_HEATS[1]:g}")
+    x = pad_to_multiple(img, lr_multiple(model))
+    medians["modes"] = time_paths(
+        {m: in_mode(m, lambda: x8_decode(model, x, X8_HEATS[1], True))
+         for m in ("high", "default")}, 64 * X8_LR[0] * X8_LR[1] / 1e6,
+        f"x8 sample {tag} mode")
+    for mode in ("high", "default"):
+        with precision(mode):
+            x8_stages(model, x, f"x8 sample {tag} {mode}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            x8_decode(model, x, X8_HEATS[1], True)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        log(f"x8 sample {tag} {mode}: peak memory {peak / 2**20:.1f} MiB "
+            f"({(peak - base) / 2**20:.1f} MiB above the "
+            f"{base / 2**20:.1f} MiB resident)")
+        profile_predict(in_mode(mode, lambda: x8_decode(
+            model, x, X8_HEATS[1], True)), medians["modes"][mode],
+            f"x8 sample {tag} {mode}", top=12, what="sample")
+
+    # the base trainer at 8x, and validate
+    model.prime_actnorms(batches[0]["GT"], batches[0]["LQ"])
+    noise = quant_noise(batches[0], 0)
+    launches["srflow_x8_train"], frozen_twin = check_base_frozen_step(
+        model, batches[0], noise, "x8 base train step frozen")
+    check_base_live_step(model, batches[0], noise, frozen_twin,
+                         "x8 base train step live")
+    del frozen_twin
+    shape = f"x8 B={SRFLOW_TRAIN_BATCH} {SRFLOW_TRAIN_GT}^2"
+    it = iter(range(10 ** 9))
+    for form in ("frozen", "live"):
+        step = base_train_step(model, form == "frozen")
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        time_steps({form: lambda s=step: losses.append(
+            s(batches[next(it) % 2])["loss"])}, f"{shape} train",
+            per_block=2)
+        peak = torch.cuda.max_memory_allocated()
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"{shape} {form}: losses {losses}")
+        log(f"{shape} {form} step: peak memory {peak / 2**20:.1f} MiB; "
+            f"nll_loss over its {len(losses)} timed steps: "
+            f"{[round(v, 3) for v in losses]}")
+    launches["srflow_x8_validate"] = check_validate(model, dev, "x8 validate")
+    del model, batches
+    torch.cuda.empty_cache()
+    log(f"x8: phase 16 in {time.perf_counter() - t0:.1f} s")
+    return checks, launches
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -3895,6 +4199,11 @@ def main():
     # --- LINF-LP's other encoders and latent modules ---
     other_checks, other_launches, plain_convs = run_other_encoders(dev)
     launches.update(other_launches)
+    torch.cuda.empty_cache()
+
+    # --- SRFlow at 8x: the L 4 flow, K5 at C = 48 and 192 ---
+    x8_checks, x8_launches = run_srflow_x8(dev)
+    launches.update(x8_launches)
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
         "build included")
 
@@ -3936,6 +4245,14 @@ def main():
                 {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}
                 for r in other_checks[name]]
+        if name in x8_checks:
+            # phase 16: K5 at each level of the 8x flow (C = 12, 24, 48,
+            # 192), the sample's shapes at LR 64^2 and the trainer's B 12
+            kernels[-1]["x8_checks"] = [
+                {k: r[k] for k in ("width", "shape", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}
+                for r in x8_checks[name]]
     log(f"plain convs (no K3 takes their Cout): {json.dumps(plain_convs)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -346,7 +346,7 @@ def random_record(hw, c, hid=64, seed=1):
 
 
 # the f32 K5's output tiles (csrc/flow_step.cu, Tile<C>): TY x TX
-K5_TILES = {12: (8, 16), 24: (16, 8), 96: (4, 8)}
+K5_TILES = {12: (8, 16), 24: (16, 8), 96: (4, 8), 48: (4, 8), 192: (2, 4)}
 
 
 def _k5_tile_shapes():
@@ -392,7 +392,8 @@ def test_k5_matches_twin_and_float64(dev, c, hw):
 
 
 @pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
-                                  (96, (15, 9))])
+                                  (96, (15, 9)), (48, (20, 13)),
+                                  (192, (9, 7))])
 def test_k5_launches_are_bitwise_repeatable(dev, c, hw):
     """Two launches on the same inputs give the same bits: the split-K
     partial sums of conv3 meet in a fixed order, with no atomics."""
@@ -411,16 +412,18 @@ def test_k5_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     rec = torch.zeros((1, 4, 4, 2 * 12 + 16), device=dev)
     with pytest.raises(ValueError):   # K5 takes hidden 64 only
         flow_step.flow_step_forward(x, rec, step.kpacked.to(dev), 16)
-    step = random_flow_step(48)
-    x = torch.zeros((1, 4, 4, 48), device=dev)
-    rec = torch.zeros((1, 4, 4, 2 * 48 + 64), device=dev)
-    with pytest.raises(ValueError):   # and C in 12 / 24 / 96
+    step = random_flow_step(36)
+    x = torch.zeros((1, 4, 4, 36), device=dev)
+    rec = torch.zeros((1, 4, 4, 2 * 36 + 64), device=dev)
+    with pytest.raises(ValueError):   # and C in 12 / 24 / 48 / 96 / 192
         flow_step.flow_step_reverse(x, rec, step.kpacked.to(dev), 64)
 
 
 @pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
                                   (96, (15, 9)), (96, (1, 3)), (12, (2, 1)),
-                                  (24, (64, 33)), (96, (17, 2))])
+                                  (24, (64, 33)), (96, (17, 2)),
+                                  (48, (20, 13)), (192, (10, 10)),
+                                  (192, (1, 3))])
 def test_k5_bf16_matches_twin(dev, restore_mode, c, hw):
     """K5's one-pass kernel against its twin on the card, forward then
     reverse back to x.  Both round the same five operands; their f32 sums
@@ -479,10 +482,10 @@ def test_k5_bf16_wrapper_raises_on_what_the_kernel_does_not_take(
     with pytest.raises(ValueError):   # hidden 64 only
         flow_step.flow_step_forward(x, rec, step.kpacked.to(dev), 16,
                                     step.kpacked_bf16.to(dev))
-    step = random_flow_step(48)
-    x = torch.zeros((1, 4, 4, 48), device=dev)
-    rec = torch.zeros((1, 4, 4, 2 * 48 + 64), device=dev)
-    with pytest.raises(ValueError):   # and C in 12 / 24 / 96
+    step = random_flow_step(36)
+    x = torch.zeros((1, 4, 4, 36), device=dev)
+    rec = torch.zeros((1, 4, 4, 2 * 36 + 64), device=dev)
+    with pytest.raises(ValueError):   # and C in 12 / 24 / 48 / 96 / 192
         flow_step.flow_step_reverse(x, rec, step.kpacked.to(dev), 64,
                                     step.kpacked_bf16.to(dev))
 
@@ -810,8 +813,9 @@ def _frame(t):
 
 
 # shapes that no tile of the one-pass K5 divides, at every level (C = 96
-# streams W3 through its tap ring)
-K5_BF16_RAGGED = [(c, hw) for c in (12, 24, 96)
+# and 192 stream W3 through its tap ring; C = 192 reads its folds from
+# global memory)
+K5_BF16_RAGGED = [(c, hw) for c in (12, 24, 96, 48, 192)
                   for hw in ((1, 3), (2, 1), (17, 2), (37, 29), (64, 33))]
 
 
@@ -854,7 +858,8 @@ def test_k5_bf16_forms_match_their_twins(dev, restore_mode, form, c, hw):
 
 @pytest.mark.parametrize("form", ["xla", "pallas"])
 @pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
-                                  (96, (15, 9)), (96, (64, 33))])
+                                  (96, (15, 9)), (96, (64, 33)),
+                                  (48, (20, 13)), (192, (10, 10))])
 def test_k5_bf16_launches_are_bitwise_repeatable(dev, restore_mode, form, c,
                                                  hw):
     """Two launches of a one-pass form on the same inputs give the same
@@ -1129,7 +1134,8 @@ def _k5_batch(c, hw, batch, dev, seed=0):
 @pytest.mark.parametrize("form", [None, "xla", "pallas"])
 @pytest.mark.parametrize("c,hw,batch", [(12, (37, 29), 3), (24, (20, 13), 4),
                                         (96, (15, 9), 5), (96, (1, 3), 2),
-                                        (12, (80, 80), 12)])
+                                        (12, (80, 80), 12), (48, (20, 20), 12),
+                                        (192, (10, 10), 12)])
 def test_batched_k5_matches_twin_and_batch_1(dev, restore_mode, form, c, hw,
                                              batch):
     """K5 at a batch (the image is the grid's z), f32 and both one-pass
@@ -1189,7 +1195,8 @@ def test_k5_wrapper_raises_on_a_batch_it_does_not_take(dev):
 
 @pytest.mark.parametrize("form", [None, "xla"])
 @pytest.mark.parametrize("c,hw", [(12, (40, 33)), (24, (20, 13)),
-                                  (96, (10, 10))])
+                                  (96, (10, 10)), (48, (20, 13)),
+                                  (192, (10, 10))])
 def test_flow_step_reverse_gradient_on_the_card(dev, restore_mode, form, c,
                                                 hw):
     """FlowStepReverse: K5's reverse forward (one launch) and the gradient
