@@ -38,10 +38,13 @@ prior's ``in_chans`` 3 PS^2.  ``--precision`` sets the mode
 (``ops/nn.py``): ``mixed`` trains the prior in bf16, ``default`` every
 conv that reads the mode.
 
-Not yet ported: the ``grain`` loader, refused with a message; and
-validation of the patch model, skipped with a warning (``--patch`` with
-a ``val_dataset`` trains without it): the val wrapper's random query
-subset has no patch-centre grid to fold into (``ROADMAP.md`` queue 3).
+``loader: grain`` in a dataset spec reads it through
+``data.sharded_loader.ShardedLoader``, the grain loader's twin: this
+rank's slice of one global shuffle (the whole dataset without a process
+group).  Not yet ported: validation of the patch model, skipped with a
+warning (``--patch`` with a ``val_dataset`` trains without it): the val
+wrapper's random query subset has no patch-centre grid to fold into
+(``ROADMAP.md`` queue 3).
 """
 
 import argparse
@@ -56,6 +59,7 @@ import bfsr_tpu_torch.data.wrappers  # noqa: F401  (registers)
 import bfsr_tpu_torch.models  # noqa: F401  (registers)
 from bfsr_tpu_torch import registry
 from bfsr_tpu_torch.data.loader import DataLoader
+from bfsr_tpu_torch.data.sharded_loader import ShardedLoader
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.pipelines.linf_eval import eval_psnr
 from bfsr_tpu_torch.pipelines.linf_train import make_train_step
@@ -65,10 +69,7 @@ from bfsr_tpu_torch.train.optim import (lr_scheduler, make_optimizer,
 from bfsr_tpu_torch.utils.misc import (Averager, Timer, compute_num_params,
                                        log, set_save_path, time_text)
 
-LATER = {"grain": "the grain loader is not ported (multi-GPU sharding, a "
-                  "later slice); drop 'loader: grain' to use the "
-                  "thread-prefetch DataLoader",
-         "patch validation": "validation of the patch model (--patch with a "
+LATER = {"patch validation": "validation of the patch model (--patch with a "
                              "val_dataset) is not ported: the val wrapper's "
                              "random query subset has no patch-centre grid "
                              "to fold into, in the JAX package either "
@@ -85,7 +86,11 @@ def make_data_loader(spec, seed=0, tag="train"):
                                       "dataset": dataset}})
     log(f"{tag} dataset: size={len(dataset)}")
     if spec.get("loader") == "grain":
-        raise SystemExit(LATER["grain"])
+        # the grain loader's twin: this rank's slice of a global shuffle
+        # (every epoch reshuffled from seed + epoch alike on every rank)
+        return ShardedLoader(dataset, batch_size=spec["batch_size"],
+                             shuffle=tag == "train", seed=seed,
+                             num_workers=4)
     return DataLoader(dataset, batch_size=spec["batch_size"],
                       shuffle=tag == "train", num_workers=4, seed=seed)
 

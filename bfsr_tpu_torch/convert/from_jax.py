@@ -212,7 +212,7 @@ def mlp_state_dict(params):
 
 def rrdb_state_dict(params, prefix=""):
     """Reference-keyed state_dict of an RRDBNet, with its head where the
-    params have one (``upconv3`` at x8)."""
+    params have one (``upconv3`` from x8, ``upconv4`` at x16)."""
     sd = {}
     _conv(sd, prefix + "conv_first", params["conv_first"])
     for i, blk in enumerate(params["trunk"]):
@@ -220,6 +220,7 @@ def rrdb_state_dict(params, prefix=""):
             _dense5(sd, f"{prefix}RRDB_trunk.{i}.RDB{j}", blk[f"rdb{j}"])
     for name, key in (("trunk_conv", "trunk_conv"), ("upconv1", "upconv1"),
                       ("upconv2", "upconv2"), ("upconv3", "upconv3"),
+                      ("upconv4", "upconv4"),
                       ("HRconv", "hr_conv"),
                       ("conv_last", "conv_last")):
         if key in params:

@@ -58,7 +58,8 @@ a synthetic batch in the ``lrhr-pkl`` layout (``synthetic_lrhr_sample``:
 smooth random 160^2 HR crops and their LQ by a 4x4 area mean, no PIL;
 ``scale=8``: an 8x8 mean).  ``build_srflow_x8`` is SRFlow's 8x model
 (``bfsr_tpu_torch/configs/srflow_df2k_8x.yml``: the same network at scale
-8 and L 4, no prior), made live the same way.
+8 and L 4, no prior), made live the same way; ``build_srflow_x16`` the
+16x one (``srflow_df2k_16x.yml``: scale 16, L 4, the same widths).
 """
 
 import numpy as np
@@ -288,18 +289,37 @@ def srflow_x8_spec(tiny=False):
     return {"name": "srflow", "args": {**spec["args"], "scale": 8, "L": 4}}
 
 
+def srflow_x16_spec(tiny=False):
+    """The srflow spec of SRFlow at 16x (``bfsr_tpu_torch/configs/
+    srflow_df2k_16x.yml``: scale 16, L 4, the flagship's widths; K5 at the
+    8x model's C = 12, 24, 48 and 192) or its tiny size."""
+    spec, _ = srflow_specs(tiny)
+    return {"name": "srflow", "args": {**spec["args"], "scale": 16, "L": 4}}
+
+
+def _build_srflow(spec, device, seed, tiny):
+    device = torch.device(device)
+    if tiny and device.type == "cuda":
+        raise ValueError("the tiny SRFlow config runs on the CPU only: K3 "
+                         "takes Cout 8-64 and K5 hidden 64")
+    model = registry.make(spec)
+    model.reset_parameters(seeded(seed))
+    return model.to(device).eval().freeze()
+
+
 @torch.no_grad()
 def build_srflow_x8(device="cuda", seed=0, tiny=False):
     """The frozen 8x SRFlowNet (``srflow_x8_spec``) with live random
     weights from ``seed`` (``SRFlowNet.reset_parameters``), eval mode, on
     ``device``."""
-    device = torch.device(device)
-    if tiny and device.type == "cuda":
-        raise ValueError("the tiny SRFlow config runs on the CPU only: K3 "
-                         "takes Cout 8-64 and K5 hidden 64")
-    model = registry.make(srflow_x8_spec(tiny))
-    model.reset_parameters(seeded(seed))
-    return model.to(device).eval().freeze()
+    return _build_srflow(srflow_x8_spec(tiny), device, seed, tiny)
+
+
+@torch.no_grad()
+def build_srflow_x16(device="cuda", seed=0, tiny=False):
+    """The frozen 16x SRFlowNet (``srflow_x16_spec``), made as
+    ``build_srflow_x8`` makes the 8x one."""
+    return _build_srflow(srflow_x16_spec(tiny), device, seed, tiny)
 
 
 def patch_specs(tiny=False):
@@ -408,3 +428,81 @@ def example_srflow_train_batch(device, seed=0, batch=12, gt_size=160,
                for _ in range(batch)]
     return {k: torch.as_tensor(np.stack([s[k] for s in samples]),
                                device=device) for k in samples[0]}
+
+
+def dryrun_cases(n):
+    """The three steps of ``dryrun_multichip(n)`` at the tiny configs on the
+    CPU, as ``parallel.sharded.run_cases`` takes them: the LINF-LP dp x sp
+    step (dp 2 where n is even, sp the rest; the HR rows a multiple of sp),
+    the SRFlow NLL step and the SRFlow-LP prior step, both dp n."""
+    from bfsr_tpu_torch.utils.coords import make_cell, make_coord
+
+    rng = np.random.default_rng(0)
+    dp = 2 if n % 2 == 0 and n > 1 else 1
+    sp = n // dp
+    b, h, s = max(2 * dp, 2), 8, 2
+    H = max(h * s, 4 * sp)
+    H = -(-H // sp) * sp
+    coord = make_coord((H, H), flatten=False)
+    linf = {
+        "inp": rng.random((b, h, h, 3)).astype(np.float32),
+        "coord": np.broadcast_to(coord, (b, H, H, 2)).copy(),
+        "cell": np.broadcast_to(make_cell((H, H)), (b, 2)).copy(),
+        "gt": rng.random((b, H, H, 3)).astype(np.float32),
+        "gt_lr_up": (rng.random((b, H, H, 3)) - 0.5).astype(np.float32),
+        "gt_pixel": (rng.random((b, H, H, 3)) - 0.5).astype(np.float32)}
+    nll = {"GT": rng.random((4 * n, 16, 16, 3)).astype(np.float32),
+           "LQ": rng.random((4 * n, 4, 4, 3)).astype(np.float32)}
+    prior = {"GT": rng.random((4 * n, 32, 32, 3)).astype(np.float32),
+             "LQ": rng.random((4 * n, 8, 8, 3)).astype(np.float32)}
+    tiny = {"seed": 0, "tiny": True}
+    return [
+        {"step": "linf", "recipe": tiny, "batch": linf,
+         "mesh": {"dp": dp, "sp": sp},
+         "opts": {"vgg_weight": 1.0, "latent_weight": 0.5, "lr": 1e-4,
+                  "adam": True}},
+        {"step": "srflow_nll", "recipe": tiny, "batch": nll,
+         "mesh": {"dp": n},
+         "opts": {"rrdb_unfreeze_step": 0, "freeze_rrdb": False,
+                  "lr": 1e-4, "adam": True}},
+        {"step": "srflow_prior", "recipe": tiny, "batch": prior,
+         "mesh": {"dp": n},
+         "opts": {"eps_weight": 1.0, "image_weight": 1.0, "lr": 1e-3,
+                  "adam": True}}]
+
+
+def dryrun_multichip(n, store_dir=None):
+    """The twin of ``__graft_entry__.dryrun_multichip`` on ``n`` CPU ranks
+    (``torch.distributed`` over gloo, ``parallel.mesh.spawn``, its store
+    under ``store_dir``, else a temporary directory): one step of each of
+    ``dryrun_cases(n)`` on the ranks, each held against the same step on
+    this process (``parallel.sharded.check_against_single``: the loss
+    within 1e-5 relative, the gradients within 1e-5 relative L2 or twice
+    the step's own spread under a 1e-7 nudge of its input, the parameters
+    after Adam within 1e-3) where the JAX dry run checks for finite values
+    only.  The spatial SRFlow predict is not ported
+    (``pipelines.srflow_eval.SRFlowSpatialPredictor`` refuses: ROADMAP.md
+    slice 7b).  The two-process loader-fed run is
+    ``profiling.multiproc_dryrun``.  Prints each line and returns them;
+    raises on a mismatch."""
+    from bfsr_tpu_torch.parallel.mesh import spawn
+    from bfsr_tpu_torch.parallel.sharded import (check_against_single,
+                                                 run_cases)
+
+    cases = dryrun_cases(n)
+    ranks = spawn(run_cases, n, "gloo", args=(cases, "cpu"),
+                  store_dir=store_dir)
+    lines = []
+    for i, case in enumerate(cases):
+        mesh = "x".join(f"{k}{v}" for k, v in case["mesh"].items())
+        lines.append(check_against_single(
+            case, [r[i] for r in ranks],
+            f"dryrun_multichip(n={n}, mesh={mesh}): {case['step']} step",
+            "cpu"))
+    lines.append(f"dryrun_multichip(n={n}): the spatial SRFlow predict is not "
+                 "ported (SRFlowSpatialPredictor refuses: ROADMAP.md slice "
+                 "7b)")
+    for line in lines:
+        print(line)
+    return lines
+

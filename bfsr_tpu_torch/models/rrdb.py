@@ -7,15 +7,18 @@ conv_first -> nb RRDBs (3 residual dense blocks each, residual scale
 0.2) -> trunk_conv + skip (``encode``).  ``steps`` adds the maps SRFlow's
 flow levels read, and only those: nearest-up x2 through upconv1
 (``fea_up2``), then nearest-up x4 of its LeakyReLU through upconv2
-(``fea_up4``, read at x8), and the bilinear down-resizes to h/2
-(``fea_up0``) and h/4 (``fea_up-1``); ``fea_up8`` and the image head
-(``out``), which no ported flow reads, are not computed.  ``forward`` is
+(``fea_up4``, read at x8 and x16), nearest-up x8 of that one's LeakyReLU
+through upconv3 (``fea_up8``, read at x16; ``fea_up16`` through upconv4
+likewise), and the bilinear down-resizes to h/2 (``fea_up0``) and h/4
+(``fea_up-1``); a map past the deepest one asked for, and the image head
+(``out``), are not computed.  ``forward`` is
 the registry model's ``apply``: with ``no_upsampling=True`` the trunk
-features, else the generator at ``scale`` 4 or 8: nearest x2 -> upconv1
--> lrelu -> nearest x4 -> upconv2 -> lrelu [-> nearest x8 -> upconv3 ->
-lrelu] -> HRconv -> lrelu -> conv_last.  The TPU layouts of the trunk
-(batch-to-space, scatter, space-to-depth) and its remat are not ported:
-they compute the same sums.
+features, else the generator at ``scale`` 4, 8 or 16: nearest x2 ->
+upconv1 -> lrelu -> nearest x4 -> upconv2 -> lrelu [-> nearest x8 ->
+upconv3 -> lrelu [-> nearest x16 -> upconv4 -> lrelu]] -> HRconv -> lrelu
+-> conv_last (``bfsr_tpu/models/rrdb.py:rrdb_apply_steps``).  The TPU
+layouts of the trunk (batch-to-space, scatter, space-to-depth) and its
+remat are not ported: they compute the same sums.
 
 ``kernels=True`` runs every dense-block conv on ``conv3x3_cat`` (the K3
 kernel for a CUDA tensor) over the block's implicit concat, as
@@ -32,8 +35,8 @@ stay ``fnn.conv2d``.
 
 ``state_dict`` keys are the reference's: ``conv_first``,
 ``RRDB_trunk.{i}.RDB{1,2,3}.conv{1..5}``, ``trunk_conv``, and with the
-head ``upconv1``, ``upconv2``, at x8 ``upconv3``, ``HRconv``,
-``conv_last``.
+head ``upconv1``, ``upconv2``, from x8 ``upconv3``, at x16 ``upconv4``,
+``HRconv``, ``conv_last``.
 """
 
 import torch
@@ -46,9 +49,11 @@ from bfsr_tpu_torch.ops.cuda import TWINS, check_layouts, stamp_layouts
 from bfsr_tpu_torch.ops.interp import resize_bilinear, resize_nearest
 from bfsr_tpu_torch.registry import register
 
-HEAD_SCALES = (4, 8)
+HEAD_SCALES = (4, 8, 16)
+# the head's upsampled maps, upconv1-4's outputs in turn
+UP_MAPS = ("fea_up2", "fea_up4", "fea_up8", "fea_up16")
 # the maps ``steps`` computes besides the block taps
-STEP_MAPS = ("fea_up1", "fea_up2", "fea_up4", "fea_up0", "fea_up-1")
+STEP_MAPS = ("fea_up1", *UP_MAPS, "fea_up0", "fea_up-1")
 
 
 class RRDB(nn.Module):
@@ -79,8 +84,8 @@ class RRDBNet(Model):
                  no_upsampling=True, scale=4):
         super().__init__()
         if scale not in HEAD_SCALES:
-            raise ValueError(f"the RRDB's head upsamples x4 or x8 (x16's "
-                             f"upconv4: ROADMAP.md queue 1), got x{scale}")
+            raise ValueError(f"the RRDB's head upsamples x{HEAD_SCALES}, "
+                             f"got x{scale}")
         self.args = dict(in_nc=in_nc, out_nc=out_nc, nf=nf, nb=nb, gc=gc,
                          no_upsampling=no_upsampling, scale=scale)
         self.no_upsampling = no_upsampling
@@ -92,8 +97,10 @@ class RRDBNet(Model):
         if not no_upsampling:
             self.upconv1 = nn.Conv2d(nf, nf, 3, padding=1)
             self.upconv2 = nn.Conv2d(nf, nf, 3, padding=1)
-            if scale == 8:
+            if scale >= 8:
                 self.upconv3 = nn.Conv2d(nf, nf, 3, padding=1)
+            if scale >= 16:
+                self.upconv4 = nn.Conv2d(nf, nf, 3, padding=1)
             self.HRconv = nn.Conv2d(nf, nf, 3, padding=1)
             self.conv_last = nn.Conv2d(nf, out_nc, 3, padding=1)
         self.reset_parameters(seeded(0))
@@ -134,14 +141,20 @@ class RRDBNet(Model):
         """``rrdb_encode``: the trunk features (B, h, w, nf)."""
         return self._trunk(x, (), kernels, conv)[0]
 
+    def _ups(self):
+        """The head's upconvs, x2 each: upconv1 ... upconv{log2 scale}."""
+        return [getattr(self, f"upconv{i}")
+                for i in range(1, self.scale.bit_length())]
+
     def steps(self, x, keys, block_idxs=(), kernels=True, conv=None):
         """``rrdb_apply_steps`` for the maps ``keys`` (of ``STEP_MAPS``)
         that SRFlow's conditioning reads: x (B, h, w, 3) -> dict of
         ``block_{i}`` taps and those maps: ``fea_up1`` (the trunk output),
         ``fea_up2`` (upconv1 of its nearest-up x2), ``fea_up4`` (upconv2 of
-        the nearest-up x4 of lrelu(``fea_up2``)), ``fea_up0`` / ``fea_up-1``
-        (its bilinear down-resizes to h/2 / h/4).  A map no key needs is
-        not computed."""
+        the nearest-up x4 of lrelu(``fea_up2``)), ``fea_up8`` / ``fea_up16``
+        (upconv3 / upconv4 of the nearest-up x8 / x16 of the one before's
+        LeakyReLU), ``fea_up0`` / ``fea_up-1`` (its bilinear down-resizes
+        to h/2 / h/4).  A map no key needs is not computed."""
         bad = set(keys) - set(STEP_MAPS)
         if bad:
             raise ValueError(f"RRDB steps computes {STEP_MAPS}, not "
@@ -150,13 +163,14 @@ class RRDBNet(Model):
         h, w = x.shape[1], x.shape[2]
         if "fea_up1" in keys:
             res["fea_up1"] = last
-        if "fea_up2" in keys or "fea_up4" in keys:
-            up2 = _conv(resize_nearest(last, (h * 2, w * 2)), self.upconv1)
-            if "fea_up2" in keys:
-                res["fea_up2"] = up2
-            if "fea_up4" in keys:
-                res["fea_up4"] = _conv(resize_nearest(
-                    fnn.leaky_relu(up2), (h * 4, w * 4)), self.upconv2)
+        depth = max((i + 1 for i, k in enumerate(UP_MAPS) if k in keys),
+                    default=0)
+        f = last
+        for i, up in enumerate(self._ups()[:depth]):
+            f = _conv(resize_nearest(fnn.leaky_relu(f) if i else f,
+                                     (h << (i + 1), w << (i + 1))), up)
+            if UP_MAPS[i] in keys:
+                res[UP_MAPS[i]] = f
         for key, div in (("fea_up0", 2), ("fea_up-1", 4)):
             if key in keys:
                 res[key] = resize_bilinear(last, (h // div, w // div))
@@ -172,11 +186,8 @@ class RRDBNet(Model):
             return fea
         h, w = x.shape[1], x.shape[2]
         lrelu = fnn.leaky_relu
-        ups = [self.upconv1, self.upconv2]
-        if self.scale == 8:
-            ups.append(self.upconv3)
         f = fea
-        for i, up in enumerate(ups):
+        for i, up in enumerate(self._ups()):
             f = lrelu(_conv(resize_nearest(f, (h << (i + 1), w << (i + 1))),
                             up))
         return _conv(lrelu(_conv(f, self.HRconv)), self.conv_last)

@@ -17,6 +17,10 @@ and at L=4 (scale 8, SRFlow's 8x model) splits at levels 1 and 2:
   level 3: squeeze(12->48)  ...
   level 4: squeeze(48->192) ...  final z 192 channels at H/16
 
+The 16x model is the same plan at L=4 (``LEVEL_NAMES[16]`` stops at level
+4): K5 at the same C = 12, 24, 48 and 192, its levels on ``fea_up8``,
+``fea_up4``, ``fea_up2`` and ``fea_up1``.
+
 ``LEVEL_NAMES[scale][level]`` names the RRDB map each level reads.
 
 ``layers`` holds one module per plan entry, so the ``state_dict`` keys are
@@ -80,6 +84,7 @@ from bfsr_tpu_torch.ops.cuda.flow_step import (flow_step_forward,
                                                pack_step, pack_step_bf16)
 
 LEVEL_NAMES = {
+    16: {0: "fea_up16", 1: "fea_up8", 2: "fea_up4", 3: "fea_up2", 4: "fea_up1"},
     8: {0: "fea_up8", 1: "fea_up4", 2: "fea_up2", 3: "fea_up1", 4: "fea_up0"},
     4: {0: "fea_up4", 1: "fea_up2", 2: "fea_up1", 3: "fea_up0", 4: "fea_up-1"},
 }

@@ -8,11 +8,14 @@ as ``'srflow'``:
   ``stack_blocks`` to every conditioning map (64 + 4 * 64 = 320 channels
   at the flagship; ``nf`` without the stack);
 * the configurations: scale 4 at L 3 (the flagship) or L 4 (the last
-  level on ``fea_up-1``, ``fea_upm1``), and scale 8 at L 4 (SRFlow's 8x
+  level on ``fea_up-1``, ``fea_upm1``), scale 8 at L 4 (SRFlow's 8x
   model: levels on ``fea_up4``, ``fea_up2``, ``fea_up1``, ``fea_up0``, two
-  splits, a 192-channel final latent).  Scale 16 and a level whose map is
+  splits, a 192-channel final latent) and scale 16 at L 4 (levels on
+  ``fea_up8``, ``fea_up4``, ``fea_up2``, ``fea_up1``: ``build_plan`` gives
+  the 8x model's widths, C = 12, 24, 48 and 192).  A level whose map is
   switched off (``fea_up0`` / ``fea_upm1``, which the JAX model meets
-  with a ``KeyError``) raise at construction;
+  with a ``KeyError``) and a level past ``LEVEL_NAMES`` raise at
+  construction;
 * ``precompute_ft`` builds every conditional step's record once per batch
   (``differentiable=True``: records autograd differentiates, the
   trainer's);
@@ -50,6 +53,7 @@ from bfsr_tpu_torch.models.srflow.flow_upsampler import (LEVEL_NAMES,
                                                          FlowUpsamplerNet,
                                                          build_plan)
 from bfsr_tpu_torch.ops import flows
+from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.interp import resize_nearest
 from bfsr_tpu_torch.registry import register
 
@@ -58,7 +62,10 @@ def rrdb_preprocess(rrdb, lr, block_idxs, keys, kernels=True, conv=None,
                     concat=True):
     """RRDB taps + the pyramid maps ``keys``, with (``concat`` and blocks
     to stack) the nearest-resized stack of the blocks ``block_idxs``
-    appended to each (``conv``: as ``RRDBNet.forward``)."""
+    appended to each (``conv``: as ``RRDBNet.forward``).  The JAX
+    function appends it to every map it computes (``fea_up8`` and
+    ``fea_up16`` too at 16x); here only the maps the flow reads are
+    computed, each with the stack."""
     res = rrdb.steps(lr, keys, block_idxs, kernels, conv)
     if not (block_idxs and concat):
         return res
@@ -70,13 +77,8 @@ def rrdb_preprocess(rrdb, lr, block_idxs, keys, kernels=True, conv=None,
 
 
 def check_config(scale, L, fea_up0, fea_upm1):
-    """Refuse what the port does not run: scale 16 (ROADMAP queue 1), a
-    scale or level with no conditioning map, and a level whose map is
-    switched off."""
-    if scale == 16:
-        raise NotImplementedError(
-            "SRFlow at 16x (K5 at C = 384, the RRDB's upconv4) is not "
-            "ported yet: ROADMAP.md queue 1")
+    """Refuse what the port does not run: a scale or level with no
+    conditioning map, and a level whose map is switched off."""
     if scale not in LEVEL_NAMES:
         raise ValueError(f"SRFlow runs at scale {tuple(LEVEL_NAMES)}, got "
                          f"{scale}")
@@ -259,13 +261,16 @@ class SRFlowNet(Model):
     def normal_flow_nll(self, gt, cache, noise=None, generator=None):
         """(epses, nll, logdet) of gt (B, H, W, 3) on the unfused log-det
         encode.  gt gets the quantisation noise ``noise`` (B, H, W, 3) or,
-        if None, ``(U - 0.5) / quant`` with U drawn from ``generator``, and
+        if None, ``(U - 0.5) / quant`` with U drawn from ``generator`` (in
+        a data-parallel step the global batch's draw, this rank's rows:
+        ``fnn.global_rows``), and
         the log-det ``-log(quant) * H W``; nll is ``-(logdet + log
         N(z_final)) / (log 2 * H W)`` per image."""
         pixels = gt.shape[1] * gt.shape[2]
         if noise is None:
-            noise = (torch.rand(gt.shape, generator=generator,
-                                device=gt.device) - 0.5) / self.quant
+            noise = fnn.global_rows(lambda n: (torch.rand(
+                (n, *gt.shape[1:]), generator=generator, device=gt.device)
+                - 0.5) / self.quant, gt.shape[0])
         logdet = torch.full((gt.shape[0],), -math.log(self.quant) * pixels,
                             device=gt.device)
         epses, logdet = self.flowUpsamplerNet.encode_logdet(gt + noise, cache,

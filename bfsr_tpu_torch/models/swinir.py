@@ -92,13 +92,15 @@ def attn_mask(H, W, ws, shift, device=None):
 def drop_path(x, rate, generator):
     """timm's DropPath: each sample's ``x`` kept with probability 1 - rate
     and then scaled by 1 / (1 - rate), else zeroed; the keep draws are
-    uniforms from ``generator`` (on ``x``'s device).  The identity at rate
+    uniforms from ``generator`` (on ``x``'s device), for the global batch
+    in a data-parallel step (``fnn.global_rows``).  The identity at rate
     0 or without a generator."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
-                   device=x.device)
+    u = fnn.global_rows(lambda n: torch.rand(
+        (n,) + (1,) * (x.dim() - 1), generator=generator, device=x.device),
+        x.shape[0])
     return x * (u < keep).to(x.dtype) / keep
 
 

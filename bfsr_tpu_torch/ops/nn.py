@@ -8,7 +8,11 @@ The counterpart of ``bfsr_tpu/ops/nn.py``.  Conventions:
   reference checkpoint loads as it is;
 * batch norm is the eval form over running statistics, or, for the
   trainer, the batch-statistics form, which also returns the batch's
-  statistics for the running-stat update.
+  statistics for the running-stat update.  Inside ``data_parallel(group,
+  index, count)`` (a data-parallel step's trainable part) the statistics
+  are the global batch's, over ``group``, as GSPMD computes them for the
+  JAX step, and ``global_rows`` gives a per-sample random draw's rows of
+  the global batch (``swinir.drop_path``).
 
 Precision modes, as ``bfsr_tpu/ops/nn.py`` defines them (a TPU computes
 them so):
@@ -37,6 +41,7 @@ refuted on the TPU and are not ported: a policy naming them raises.
 import os
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 torch.backends.cudnn.allow_tf32 = False
@@ -58,6 +63,8 @@ def _parse_mode(mode):
 
 _MODE = _parse_mode(os.environ.get("BFSR_PRECISION", "high"))
 _STAGE = None
+# (dp group, this rank's index, dp size) inside ``data_parallel``
+_DP = None
 
 
 def set_default_precision(mode):
@@ -234,6 +241,75 @@ def max_pool2d(x, window=2):
     return nchw_to_nhwc(F.max_pool2d(nhwc_to_nchw(x), window))
 
 
+class data_parallel:
+    """``with data_parallel(group, index, count):`` scopes the trainable
+    part of a data-parallel step: this rank holds batch shard ``index`` of
+    ``count`` (equal shards) and ``group`` is the dp group.  BatchNorm then
+    takes the global batch's statistics over ``group``, and a per-sample
+    draw (``global_rows``) is drawn for the global batch and sliced.  The
+    enclosing scope comes back on exit, also on an exception."""
+
+    def __init__(self, group, index, count):
+        self.dp = (group, index, count)
+
+    def __enter__(self):
+        global _DP
+        self.saved, _DP = _DP, self.dp
+        return self
+
+    def __exit__(self, *exc):
+        global _DP
+        _DP = self.saved
+        return False
+
+
+def global_rows(draw, n):
+    """``draw(n)`` for this rank's ``n`` samples: inside
+    ``data_parallel`` ``draw(n * count)`` (every rank draws the global
+    batch from the same generator state) sliced to this rank's shard,
+    else ``draw(n)``."""
+    if _DP is None:
+        return draw(n)
+    _, index, count = _DP
+    return draw(n * count)[index * n:(index + 1) * n]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x, group):
+    """The sum of ``x`` over ``group``, on every rank; its gradient is the
+    sum over ranks of the gradients of ``x``'s uses (the all-reduce's
+    adjoint), so that each rank's backward sees every rank's loss."""
+    return _AllReduceSum.apply(x, group)
+
+
+def _global_stats(x, group):
+    """(mean, biased var, unbiased var) over (B, H, W) of the global batch:
+    two-pass, as the single-process form (and GSPMD's global reduction)
+    computes them; each pass one all-reduce of partial sums, which autograd
+    differentiates."""
+    n_local = x.shape[0] * x.shape[1] * x.shape[2]
+    s = all_reduce_sum(torch.cat([x.sum(dim=(0, 1, 2)),
+                                  x.new_full((1,), float(n_local))]), group)
+    n = s[-1]
+    mean = s[:-1] / n
+    var = all_reduce_sum(((x - mean) ** 2).sum(dim=(0, 1, 2)), group) / n
+    return mean, var, var * (n / torch.clamp(n - 1, min=1))
+
+
 def batch_norm(x, bn, training=False, eps=1e-5):
     """BatchNorm over the last (channel) axis of an NHWC tensor.  ``bn``:
     an ``nn.BatchNorm2d`` (its running stats and affine).  Eval mode
@@ -241,15 +317,21 @@ def batch_norm(x, bn, training=False, eps=1e-5):
     the batch's mean and biased variance over (B, H, W) and returns
     ``(y, (mean, unbiased var))``: torch folds the unbiased (n / (n - 1))
     variance into ``running_var``, as ``bfsr_tpu/ops/nn.py:batch_norm``
-    returns it for ``apply_bn_updates``."""
+    returns it for ``apply_bn_updates``.  Inside ``data_parallel`` the
+    batch is the global one (``_global_stats``; ``nn.SyncBatchNorm`` takes
+    CUDA inputs only)."""
     if not training:
         return ((x - bn.running_mean) * torch.rsqrt(bn.running_var + eps)
                 * bn.weight + bn.bias)
-    mean = x.mean(dim=(0, 1, 2))
-    var = ((x - mean) ** 2).mean(dim=(0, 1, 2))
+    if _DP is not None:
+        mean, var, unbiased = _global_stats(x, _DP[0])
+    else:
+        mean = x.mean(dim=(0, 1, 2))
+        var = ((x - mean) ** 2).mean(dim=(0, 1, 2))
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        unbiased = var * (n / max(n - 1, 1))
     y = (x - mean) * torch.rsqrt(var + eps) * bn.weight + bn.bias
-    n = x.shape[0] * x.shape[1] * x.shape[2]
-    return y, (mean, var * (n / max(n - 1, 1)))
+    return y, (mean, unbiased)
 
 
 def fold_bn(bn, conv_bias=None, eps=1e-5):

@@ -38,6 +38,10 @@ axes off row 0 and column 0 (``bfsr_tpu/pipelines/linf_eval.py:
 106-107``), so at coords that are not a grid the JAX ``eval_psnr``
 predicts queries other than those of its ``gt``.
 
+``predict_sharded`` is the query-sharded (sp) predict of one image, and
+``predict_dp`` / ``dp_psnr`` the dp-sharded eval of a batch (see
+``parallel/mesh.py``).
+
 ``predict`` scopes its steps as the JAX predictor does, for the
 precision modes (``ops/nn.py``): ``encoder`` (1), ``head`` (2-3),
 ``prior`` (5) and ``addback`` (6-7; the flows read no mode).  Both paths
@@ -136,6 +140,73 @@ class LINFPredictor:
             return model.query_rgb(inp, feat, coord, cell, temperature, zmap,
                                    generator, info=info, kernels=kernels,
                                    grid=on_grid)
+
+
+    @torch.inference_mode()
+    def predict_sharded(self, mesh, inp, coord, cell, gt_lr_up=None,
+                        axis="sp"):
+        """The query-sharded predict of one image (``tests/
+        test_sharded.py``'s sp predict): ``coord`` (1, H / sp, W, 2) and
+        ``gt_lr_up`` this rank's rows of the HR grid, in the rank order of
+        ``mesh``'s ``axis``; ``inp`` and ``cell`` whole.  The encoder runs
+        on every rank; K2 and the flow forward (K1) on the rank's rows;
+        with a prior, z is gathered over ``axis`` (a plain ``all_gather``)
+        and the latent module runs on the whole grid, as the single
+        predict's does, and the flow inverse and the add-back on the
+        rank's rows.  Returns the rank's rows of the prediction (1, H /
+        sp, W, 3), those of ``predict`` on the whole grid."""
+        from bfsr_tpu_torch.parallel.collective import gather_rows
+
+        model, kernels = self.model, self.kernels
+        B, Hl, W, _ = coord.shape
+        if B != 1 or model.patch_size != 1 or not is_grid(coord):
+            raise ValueError("the query-sharded predict takes one pixel "
+                             "model's image, its rows of a regular grid")
+        with fnn.stage("encoder"):
+            feat = model.gen_feat(inp, kernels=kernels)
+        with fnn.stage("head"):
+            cy, cx = grid_axes(coord)
+            info = model.affine_info_grid(feat, cy, cx, cell,
+                                          kernels=kernels)
+        zmap = None
+        if self.prior is not None and gt_lr_up is not None:
+            fwd = (linf_flow.flow_forward if kernels
+                   else linf_flow.flow_forward_plain)
+            d = model.dim
+            z = fwd(model.imnet.w, model.imnet.b,
+                    gt_lr_up.reshape(Hl * W, d).contiguous(), info)
+            z = gather_rows(z.reshape(1, Hl, W, d), mesh.group(axis))
+            with fnn.stage("prior"):
+                zmap = self.prior(z, inp, kernels=kernels)
+            i = mesh.index(axis)
+            zmap = zmap[:, i * Hl:(i + 1) * Hl].contiguous()
+        with fnn.stage("addback"):
+            return model.query_rgb(inp, feat, coord, cell, 0.0, zmap,
+                                   info=info, kernels=kernels)
+
+
+def predict_dp(predictor, inp, coord, cell, gt_lr_up=None):
+    """This rank's images of a dp-sharded batch (``tests/test_sharded.py``'s
+    dp predict, ``bench.py --multichip``): each of its B / dp images
+    through ``predictor.predict`` at batch 1 (its grid's info on K2), the
+    result (B / dp, H, W, 3) kept on the rank."""
+    return torch.cat([predictor.predict(
+        inp[i:i + 1], coord[i:i + 1], cell[i:i + 1],
+        None if gt_lr_up is None else gt_lr_up[i:i + 1])
+        for i in range(inp.shape[0])])
+
+
+def dp_psnr(mesh, pred01, gt01, axis="dp"):
+    """The PSNR of a dp-sharded eval's images (this rank's ``pred01`` and
+    ``gt01``, (n, H, W, 3) in [0, 1]) over all ranks' pixels: each rank's
+    squared-error and pixel-count sums, one all-reduce
+    (``parallel.collective.distributed_psnr``)."""
+    from bfsr_tpu_torch.parallel.collective import distributed_psnr
+
+    se = ((pred01 - gt01).float() ** 2).reshape(pred01.shape[0], -1)
+    n = torch.full((pred01.shape[0],), float(se.shape[1]),
+                   device=pred01.device)
+    return distributed_psnr(mesh, se.sum(1), n, axis)
 
 
 def is_grid(coord):

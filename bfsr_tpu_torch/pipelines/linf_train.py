@@ -45,6 +45,26 @@ backward; under ``default`` every conv and linear that reads the mode
 does, the frozen encoder on the bf16 K3.  K1, K2 and K4 read no mode and
 stay f32.
 
+With a ``mesh`` (``parallel/mesh.py``: axes ``dp`` and / or ``sp``) the
+step is one rank's part of the sharded step that
+``tests/test_sharded.py`` runs under GSPMD.  The rank's batch is its
+shard (``shard_batch`` with ``batch_specs_linf``): B / dp crops, and of
+each the HR query rows H / sp (``coord``, ``gt``, ``gt_lr_up``,
+``gt_pixel``, ``gt_patch``, ``interpolate_coord``).  The frozen encoder
+runs on the rank's crops; K2 and the flow forward (K1 or K4) on its
+rows; then a plain ``all_gather`` over sp of the frozen values the
+trainable part reads (z, the info, the coords and the HR), which need no
+backward, and the trainable part on the whole grid, the same on every sp
+rank, so its gradient needs no reduction over sp (``parallel.dp`` takes
+its mean over sp all the same, so that the card's non-reproducible
+backward sums leave no two replicas a bit apart).  Over dp the
+BatchNorms take the global batch's statistics (``fnn.data_parallel``:
+GSPMD's logical-shape statistics), stochastic depth draws for the global
+batch and keeps the rank's rows, and the gradients are averaged over the
+dp group before the optimizer's step: every rank takes the same step.
+The metrics are their mean over dp.  A global batch that dp does not
+divide, or rows that sp does not, raises in ``shard_batch``.
+
 ``kernels=False`` runs the same step with every plain twin, on any
 device.  With ``kernels=True`` a CUDA batch launches the kernels or
 raises, and a CPU batch runs the twins, as each kernel wrapper does.
@@ -57,6 +77,8 @@ from bfsr_tpu_torch.models.linf import grid_axes
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.cuda import linf_flow
 from bfsr_tpu_torch.ops.interp import grid_sample_bilinear
+from bfsr_tpu_torch.parallel.collective import gather_rows
+from bfsr_tpu_torch.parallel.dp import DataParallel
 from bfsr_tpu_torch.pipelines.losses import l1_loss
 
 DEFAULT_NORM = {"inp": {"sub": [0.5], "div": [0.5]},
@@ -98,7 +120,7 @@ def patch_grid_axes(coord, window_hw, ps):
 
 def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
                     latent_weight=0.0, data_norm=None, kernels=True,
-                    scheduler=None, marks=None, generator=None):
+                    scheduler=None, marks=None, generator=None, mesh=None):
     """``step(batch) -> {'loss', 'vgg_l', 'latent_l'}`` (floats, one host
     fetch), which updates the prior, its optimizer and its BatchNorm
     running stats in place; ``step.loss_and_grads(batch) -> (metrics
@@ -118,7 +140,9 @@ def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
     tensors.  ``marks``: None, or a callable that
     takes the name of each stage as the step enters it ('frozen',
     'prior', 'decode', 'vgg', 'backward', 'update', then 'end'), for
-    timing them.
+    timing them.  ``mesh``: None, or this rank's mesh (axes ``dp`` and
+    optionally ``sp``), the batch then the rank's shard (see the module
+    docstring); the metrics and gradients are the global step's.
     """
     if linf.imnet.w_inv is None:
         raise ValueError("freeze() the LINF model before training its prior")
@@ -137,6 +161,7 @@ def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
     flow, d, ps = linf.imnet, linf.dim, linf.patch_size
     latent_key = "gt_pixel" if ps == 1 else "gt_patch"
     mark = marks or (lambda name: None)
+    dp = DataParallel(mesh)
 
     def encode(target, info):
         B, H, W, _ = target.shape
@@ -166,14 +191,32 @@ def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
         return {"inp": inp, "feat": feat, "info": info, "z_lr": z_lr,
                 "z_hr": z_hr}
 
+    def gather_sp(batch, fz):
+        """The frozen values and the batch's row-sharded keys on the whole
+        grid: each gathered over sp (no gradient)."""
+        g = mesh.group("sp")
+        info = fz["info"]
+        z = fz["z_lr"]
+        rows = info.T.reshape(*z.shape[:3], info.shape[0])
+        info = gather_rows(rows, g).reshape(-1, info.shape[0]).T.contiguous()
+        fz = dict(fz, info=info, z_lr=gather_rows(z, g),
+                  z_hr=(None if fz["z_hr"] is None
+                        else gather_rows(fz["z_hr"], g)))
+        batch = dict(batch, **{k: gather_rows(batch[k], g) for k in
+                               ("coord", "gt", "interpolate_coord")
+                               if k in batch})
+        return batch, fz
+
     def losses(batch, fz=None):
         mark("frozen")
         if fz is None:
             fz = frozen_part(batch)
+        if mesh is not None and mesh.size("sp") > 1:
+            batch, fz = gather_sp(batch, fz)
         inp, feat, info = fz["inp"], fz["feat"], fz["info"]
         coord, cell = batch["coord"], batch["cell"]
         mark("prior")
-        with fnn.stage("prior"):
+        with fnn.stage("prior"), dp.scope():
             z_learned, bn_stats = prior(fz["z_lr"], inp, training=True,
                                         generator=generator)
         zero = torch.zeros((), device=device)
@@ -200,8 +243,8 @@ def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
         params = dict(prior.named_parameters())
         mets, bn_stats = losses(batch, frozen)
         grads = torch.autograd.grad(mets["loss"], list(params.values()))
-        return ({k: v.detach() for k, v in mets.items()},
-                dict(zip(params, grads)), bn_stats)
+        dp.average(grads)
+        return dp.metric_tensors(mets), dict(zip(params, grads)), bn_stats
 
     def step(batch):
         batch = to_device(batch, device)
@@ -209,14 +252,14 @@ def make_train_step(linf, prior, vgg, optimizer, vgg_weight=1.0,
         mark("backward")
         optimizer.zero_grad(set_to_none=True)
         mets["loss"].backward()
+        dp.average_grads(prior.parameters())
         mark("update")
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
         prior.apply_bn_updates(bn_stats)
         mark("end")
-        values = torch.stack([mets[k].detach() for k in mets]).tolist()
-        return dict(zip(mets, values))
+        return dp.metrics(mets)
 
     step.loss_and_grads = loss_and_grads
     step.frozen = lambda batch: frozen_part(to_device(batch, device))

@@ -146,6 +146,21 @@ class SRFlowLPPredictor:
         return torch.clamp(sr[0], 0.0, 1.0)[: h * s, : w * s]
 
 
+class SRFlowSpatialPredictor:
+    """The JAX package's one image sharded over its width
+    (``bfsr_tpu/pipelines/srflow_eval.py:SRFlowSpatialPredictor``): not
+    ported.  Under GSPMD XLA inserts a halo exchange at every conv (the
+    RRDB's 345 K3 convs, the towers inside K5, the prior's convs and
+    pools); here that is a design of its own, ``ROADMAP.md`` slice 7b."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SRFlowSpatialPredictor (one image's width sharded over the "
+            "ranks, a halo exchange at each conv) is not ported: ROADMAP.md "
+            "queue 1, slice 7b. Serve one image a rank with "
+            "SRFlowLPPredictor (the dp predict)")
+
+
 def lr_multiple(model):
     """The LR multiple a flow of scale s and L levels decodes: its final
     latent is at s h / 2^L (at least 2, the protocol's pad)."""

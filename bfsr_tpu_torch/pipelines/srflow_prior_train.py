@@ -32,6 +32,14 @@ backward, and the frozen part stays f32; under ``default`` every stage
 is bf16: the RRDB on the bf16 K3, the records on rounded operands and K5
 in the one-pass form the flow was frozen with (the decode's too).
 
+With a ``mesh`` (axis ``dp``) the step is one rank's part of the
+dp-sharded prior step of ``tests/test_sharded.py``: the rank's batch is
+its B / dp pairs; the frozen RRDB (K3) and both encodes (K5) run on
+them; the prior's BatchNorms take the global batch's statistics
+(``fnn.data_parallel``), its gradients are averaged over dp before the
+optimizer's step, and the metrics are their mean over dp (each rank's
+share is equal, so the mean of the ranks' losses is the global loss).
+
 ``kernels=False`` runs the same step with every plain twin (``TWINS``: K3's
 in the RRDB, K5's in both encodes and the decode), on any device.  With
 ``kernels=True`` a CUDA batch launches the kernels or raises, and a CPU
@@ -45,6 +53,7 @@ from bfsr_tpu_torch.models.srflow.srflow_net import standardize_epses
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.cuda import TWINS
 from bfsr_tpu_torch.ops.interp import resize_bilinear
+from bfsr_tpu_torch.parallel.dp import DataParallel
 from bfsr_tpu_torch.pipelines.linf_train import to_device
 from bfsr_tpu_torch.pipelines.losses import l1_loss
 from bfsr_tpu_torch.pipelines.srflow_eval import check_prior_flow
@@ -54,7 +63,7 @@ BATCH_KEYS = ("GT", "LQ")
 
 def make_srflow_prior_train_step(model, prior, optimizer, eps_weight=1.0,
                                  image_weight=0.0, kernels=True,
-                                 scheduler=None, marks=None):
+                                 scheduler=None, marks=None, mesh=None):
     """``step(batch) -> {'eps_l' and/or 'img_l', 'loss'}`` (floats, one
     host fetch), which updates the prior, its optimizer and its BatchNorm
     running stats in place; ``step.loss_and_grads(batch, frozen=None) ->
@@ -73,6 +82,8 @@ def make_srflow_prior_train_step(model, prior, optimizer, eps_weight=1.0,
     a callable that takes the name of each stage as the step enters it
     ('rrdb', 'precompute_ft', 'encode_lr', 'prior', 'encode_gt',
     'decode', 'backward', 'update', then 'end'), for timing them.
+    ``mesh``: None, or this rank's mesh (axis ``dp``), the batch then the
+    rank's shard; the metrics and gradients are the global step's.
     """
     if eps_weight <= 0 and image_weight <= 0:
         raise ValueError("at least one of eps_weight / image_weight must be "
@@ -83,6 +94,7 @@ def make_srflow_prior_train_step(model, prior, optimizer, eps_weight=1.0,
     check_prior_flow(model)
     device = next(prior.parameters()).device
     mark = marks or (lambda name: None)
+    dp = DataParallel(mesh)
     s = model.scale
     path = True if kernels else TWINS
 
@@ -119,7 +131,7 @@ def make_srflow_prior_train_step(model, prior, optimizer, eps_weight=1.0,
         else:
             cache, eps_in = fz["cache"], fz["eps_in"]
         mark("prior")
-        with fnn.stage("prior"):
+        with fnn.stage("prior"), dp.scope():
             learned, bn_stats = prior(eps_in, training=True)
         mets = {}
         if eps_weight > 0:
@@ -144,8 +156,8 @@ def make_srflow_prior_train_step(model, prior, optimizer, eps_weight=1.0,
         params = dict(prior.named_parameters())
         mets, bn_stats = losses(batch, frozen)
         grads = torch.autograd.grad(mets["loss"], list(params.values()))
-        return ({k: v.detach() for k, v in mets.items()},
-                dict(zip(params, grads)), bn_stats)
+        dp.average(grads)
+        return dp.metric_tensors(mets), dict(zip(params, grads)), bn_stats
 
     def step(batch):
         batch = to_device(batch, device, BATCH_KEYS)
@@ -153,14 +165,14 @@ def make_srflow_prior_train_step(model, prior, optimizer, eps_weight=1.0,
         mark("backward")
         optimizer.zero_grad(set_to_none=True)
         mets["loss"].backward()
+        dp.average_grads(prior.parameters())
         mark("update")
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
         prior.apply_bn_updates(bn_stats)
         mark("end")
-        values = torch.stack([mets[k].detach() for k in mets]).tolist()
-        return dict(zip(mets, values))
+        return dp.metrics(mets)
 
     step.loss_and_grads = loss_and_grads
     step.frozen = lambda batch: frozen_part(to_device(batch, device,

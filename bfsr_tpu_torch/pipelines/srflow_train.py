@@ -44,6 +44,16 @@ optax's zero gradients.
 The step is the same at every flow the model takes: at x8 (L 4) the NLL
 reads the last of three epses, and the encode crosses two splits.
 
+With a ``mesh`` (axis ``dp``) the step is one rank's part of the
+dp-sharded step of ``tests/test_sharded.py``: the rank's batch is its
+B / dp pairs (``shard_batch`` with ``batch_specs_srflow``); the
+quantisation noise is drawn for the global batch from the same generator
+state on every rank and each keeps its rows (``fnn.global_rows``, as
+JAX draws one global array and shards it), so the sharded step computes
+the single-process step's loss; the gradients are averaged over dp
+before the optimizer's step and the metrics are their mean over dp.
+Adam's shared count (``share_step_count``) is unchanged.
+
 ``kernels=False`` runs the frozen form's RRDB on K3's twin (``TWINS``) on
 any device; with ``kernels=True`` a CUDA batch launches K3 or raises, a
 CPU batch runs the twin.
@@ -52,6 +62,7 @@ CPU batch runs the twin.
 import torch
 
 from bfsr_tpu_torch.ops.cuda import TWINS
+from bfsr_tpu_torch.parallel.dp import DataParallel
 from bfsr_tpu_torch.pipelines.linf_train import to_device
 from bfsr_tpu_torch.pipelines.losses import l1_loss
 from bfsr_tpu_torch.train.optim import share_step_count
@@ -62,7 +73,7 @@ BATCH_KEYS = ("GT", "LQ")
 def make_srflow_train_step(model, optimizer, weight_fl=1.0, weight_l1=0.0,
                            rrdb_unfreeze_step=None, freeze_rrdb=False,
                            kernels=True, scheduler=None, marks=None,
-                           generator=None):
+                           generator=None, mesh=None):
     """``step(batch, it=0, noise=None) -> {'nll_loss' and/or 'l1_loss',
     'loss'}`` (floats, one host fetch), which updates the model and the
     optimizer in place; ``step.loss_and_grads(batch, it=0, noise=None) ->
@@ -78,12 +89,15 @@ def make_srflow_train_step(model, optimizer, weight_fl=1.0, weight_l1=0.0,
     quantisation noise added to GT (B, H, W, 3), else ``(U - 0.5) /
     quant`` drawn from ``generator``.  ``marks``: None, or a callable that takes the name of
     each stage as the step enters it ('rrdb', 'precompute_ft', 'encode',
-    'decode', 'backward', 'update', then 'end').
+    'decode', 'backward', 'update', then 'end').  ``mesh``: None, or this
+    rank's mesh (axis ``dp``), the batch then the rank's shard; the
+    metrics and gradients are the global step's.
     """
     if weight_fl <= 0 and weight_l1 <= 0:
         raise ValueError("at least one of weight_fl / weight_l1 must be > 0")
     device = next(model.parameters()).device
     mark = marks or (lambda name: None)
+    dp = DataParallel(mesh)
     rrdb_params = set(model.RRDB.parameters())
 
     def conditioning(lq):
@@ -102,7 +116,8 @@ def make_srflow_train_step(model, optimizer, weight_fl=1.0, weight_l1=0.0,
         mets = {}
         if weight_fl > 0:
             mark("encode")
-            _, nll, _ = model.normal_flow_nll(gt, cache, noise, generator)
+            with dp.scope():
+                _, nll, _ = model.normal_flow_nll(gt, cache, noise, generator)
             mets["nll_loss"] = nll.mean() * weight_fl
         if weight_l1 > 0:
             mark("decode")
@@ -127,7 +142,8 @@ def make_srflow_train_step(model, optimizer, weight_fl=1.0, weight_l1=0.0,
             if g is None or (masked(it) and p in rrdb_params):
                 g = torch.zeros_like(p)
             out[name] = g
-        return {k: v.detach() for k, v in mets.items()}, out
+        dp.average(out.values())
+        return dp.metric_tensors(mets), out
 
     def step(batch, it=0, noise=None):
         batch = to_device(batch, device, BATCH_KEYS)
@@ -138,14 +154,14 @@ def make_srflow_train_step(model, optimizer, weight_fl=1.0, weight_l1=0.0,
         if masked(it):
             for p in rrdb_params:
                 p.grad = None
+        dp.average_grads(model.parameters())
         mark("update")
         share_step_count(optimizer)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
         mark("end")
-        values = torch.stack([mets[k].detach() for k in mets]).tolist()
-        return dict(zip(mets, values))
+        return dp.metrics(mets)
 
     step.loss_and_grads = loss_and_grads
     return step

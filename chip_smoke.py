@@ -225,7 +225,29 @@ fails (non-zero exit, no result line) if any phase fails:
    profile; the base trainer at B 12 of 160^2 GT (a frozen step, K3 345,
    and a live step, held as phase 14 holds them; ms/step, peak memory)
    and ``validate`` on 2 pairs (K3 345, K5 768 reverse).  It prints the
-   phase's seconds.
+   phase's seconds;
+17. SRFlow at 16x (``run_srflow_x16``: ``bfsr_tpu_torch/configs/
+   srflow_df2k_16x.yml``, the 8x model's widths at scale 16, K5 at C = 12,
+   24, 48 and 192 on the 8x sample's level shapes): ``sample_sr`` at LR
+   32^2 -> 512^2 and 25x21 -> 400x336, heat 0 and 0.8, in high and
+   default, held as phase 16 holds the 8x sample (K3 345 and K5 64
+   reverse a sample); ms per image, HR MP/s, stages, idle share, peak
+   memory; ``validate`` on the primed weights; the base step at B 12 of
+   160^2 GT over 10^2 LQ frozen and live, as phase 14 holds them.  Then
+   the sharded steps and predicts at the flagship widths
+   (``run_parallel``): the LINF-LP pixel step (B 16 of 48^2), the
+   SRFlow-LP prior step and the SRFlow base frozen step (B 12 of 160^2)
+   on one process (the reference), through the dp wrappers on NCCL at
+   world 1 in this process, and on two gloo ranks sharing the card
+   (``parallel.mesh.spawn``; NCCL refuses two ranks on one GPU), the
+   LINF-LP step also sp 2; each step's loss and gradients held to the
+   reference with the limits phase 10 holds the kernel path to the twin
+   path (``hold_par``) and each rank's launches (PAR_LAUNCHES); the sp
+   LINF-LP predict at 128^2 -> 512^2 (each rank's rows) and the dp
+   SRFlow-LP predict of 2 LR images, one a rank, each within 1e-5 of the
+   single predict; ms per step for each world size beside a line that
+   says both ranks share one card.  It prints the phase's seconds and
+   the run's.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -3799,11 +3821,12 @@ def x8_decode(model, lr, heat, kernels):
                             kernels=True if kernels else TWINS)
 
 
-def check_x8_sample(model, img, label, mode):
+def check_x8_sample(model, img, label, mode, tag="x8"):
     """``sample_sr`` of one LR image at each of X8_HEATS in ``mode``, the
     launch counters reset first (X8_SAMPLE_LAUNCHES), against the twin path
     on the same draws (``x8_decode`` on the twins, clipped and cropped as
-    ``sample_sr`` does): under high the clipped image within
+    ``sample_sr`` does; ``tag`` names the model, at its scale): under high
+    the clipped image within
     TOL['srflow_image'] and the unclipped one within
     TOL['srflow_unclipped_rel'] of the largest value; under default the
     image within TOL['srflow_default_twin_db'] of the twin path.  Returns
@@ -3817,6 +3840,7 @@ def check_x8_sample(model, img, label, mode):
     from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
 
     h, w = img.shape[:2]
+    sc = model.scale
     want = X8_SAMPLE_LAUNCHES[mode]
     x = pad_to_multiple(img, lr_multiple(model))
     images = {}
@@ -3827,12 +3851,12 @@ def check_x8_sample(model, img, label, mode):
             out = sample_sr(model, img, heat, X8_SEED)
             launches = _launched()
             sr, sr_ref = (x8_decode(model, x, heat, k) for k in (True, False))
-            ref = torch.clamp(sr_ref[0], 0.0, 1.0)[: 8 * h, : 8 * w]
+            ref = torch.clamp(sr_ref[0], 0.0, 1.0)[: sc * h, : sc * w]
             torch.cuda.synchronize()
-            if (launches != want or out.shape != (8 * h, 8 * w, 3)
+            if (launches != want or out.shape != (sc * h, sc * w, 3)
                     or not torch.isfinite(out).all()
                     or not torch.isfinite(sr).all()):
-                raise RuntimeError(f"x8 sample {label} {mode} heat {heat:g}: "
+                raise RuntimeError(f"{tag} sample {label} {mode} heat {heat:g}: "
                                    f"launches {launches} (expected {want}), "
                                    f"shape {tuple(out.shape)}")
             err = float((out - ref).abs().max())
@@ -3851,13 +3875,13 @@ def check_x8_sample(model, img, label, mode):
                         f"{TOL['srflow_default_twin_db']:g}), max abs "
                         f"{err:.3e}; unclipped {rel:.3e} relative "
                         "(reported)")
-            log(f"x8 sample {label} {mode} heat {heat:g}: shape "
+            log(f"{tag} sample {label} {mode} heat {heat:g}: shape "
                 f"{tuple(out.shape)}, finite, launches {json.dumps(launches)};"
                 f" {held}; {100 * float(((sr_ref > 0) & (sr_ref < 1)).float().mean()):.1f}% "
                 f"of the unclipped twin image inside (0, 1), max |twin| "
                 f"{float(sr_ref.abs().max()):.3f}")
             if not ok:
-                raise RuntimeError(f"x8 sample {label} {mode} heat {heat:g}: "
+                raise RuntimeError(f"{tag} sample {label} {mode} heat {heat:g}: "
                                    f"the kernel path disagrees with the twin "
                                    f"path: {held}")
             images[heat] = out
@@ -4004,6 +4028,292 @@ def run_srflow_x8(dev):
     torch.cuda.empty_cache()
     log(f"x8: phase 16 in {time.perf_counter() - t0:.1f} s")
     return checks, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: SRFlow at 16x, and the dp / sp steps and predicts
+# ---------------------------------------------------------------------------
+
+# 16x: the sampler at LR 32^2 -> HR 512^2 and at a ragged LR (padded to
+# even), K5's level shapes those of the 8x sample at LR 64^2, which phase 16
+# holds K5 at; the base trainer at B 12 of 160^2 GT over 10^2 LQ
+X16_LR, X16_RAGGED_LR = (32, 32), (25, 21)
+# the sharded steps (the LINF-LP pixel step, B 16 of 48^2; the SRFlow-LP
+# prior step with the eps loss and the SRFlow base model's frozen step, B
+# 12 of 160^2), the sp predict at 128^2 -> 512^2 and the dp SRFlow-LP
+# predict of 2 LR images of 128^2, one a rank; their images against the
+# single predict's within PAR_IMAGE_TOL
+# (the step's options, the input its spread is taken under and the signs
+# of the nudge: phase 10's + for the LINF-LP step, phases 12 and 14's +-
+# for the SRFlow steps)
+PAR_STEPS = {
+    "linf": ({"vgg_weight": 1.0, "latent_weight": 0.0, "lr": 1e-4,
+              "reps": 3}, "gt_lr_up", (1,)),
+    "srflow_prior": ({"eps_weight": 1.0, "image_weight": 0.0, "reps": 3},
+                     "LQ", (1, -1)),
+    "srflow_nll": ({"freeze_rrdb": True, "noise_seed": 0, "reps": 3},
+                   "LQ", (1, -1))}
+PAR_IMAGE_TOL = 1e-5
+# a step's launches in each rank, whatever its share of the batch (the
+# encoder and the RRDB on its crops, K2 and K1's forward on its rows, K1's
+# inverse on the whole grid, K5 forward in both encodes at B / dp)
+PAR_LAUNCHES = {"linf": dict(TRAIN_LAUNCHES),
+                "srflow_prior": {"conv3x3_cat": 345, "flow_step_forward": 96},
+                "srflow_nll": dict(BASE_TRAIN_LAUNCHES)}
+
+
+def run_srflow_x16(dev):
+    """Phase 17 (first part): SRFlow at 16x (``bfsr_tpu_torch/configs/
+    srflow_df2k_16x.yml``: RRDB 64 x 23, K 16, L 4, hidden 64; K5 at C =
+    12, 24, 48 and 192) at full width, random live weights from seed 0:
+    ``sample_sr`` in high and default (K3 345, K5 64 reverse a sample),
+    timed, staged, profiled; the base step frozen and live; ``validate``.
+    Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch.entry import (build_srflow_x16,
+                                      example_srflow_train_batch)
+    from bfsr_tpu_torch.pipelines.srflow_eval import (lr_multiple,
+                                                      pad_to_multiple)
+
+    t0 = time.perf_counter()
+    model = build_srflow_x16(dev, seed=0)
+    widths = sorted({e["c"] for e in model.plan if e["kind"] == "step_cond"})
+    log(f"x16: model built from seed 0 in {time.perf_counter() - t0:.2f} s; "
+        f"levels on {model.cond_keys()}, conditional steps at C = {widths}, "
+        f"final latent {model.final_c} channels")
+    rng = np.random.default_rng(16)
+    img = torch.as_tensor(rng.random((*X16_LR, 3)), dtype=torch.float32,
+                          device=dev)
+    ragged = torch.as_tensor(rng.random((*X16_RAGGED_LR, 3)),
+                             dtype=torch.float32, device=dev)
+    tag = f"{X16_LR[0]}x{X16_LR[1]}->{16 * X16_LR[0]}x{16 * X16_LR[1]}"
+    rtag = (f"{X16_RAGGED_LR[0]}x{X16_RAGGED_LR[1]}->"
+            f"{16 * X16_RAGGED_LR[0]}x{16 * X16_RAGGED_LR[1]}")
+    launches = {}
+    for mode in ("high", "default"):
+        launches[f"srflow_x16_sample{'' if mode == 'high' else '_default'}"], \
+            _ = check_x8_sample(model, img, tag, mode, "x16")
+        check_x8_sample(model, ragged, rtag, mode, "x16")
+    x = pad_to_multiple(img, lr_multiple(model))
+    mp = 256 * X16_LR[0] * X16_LR[1] / 1e6
+    medians = time_paths(
+        {m: in_mode(m, lambda: x8_decode(model, x, X8_HEATS[1], True))
+         for m in ("high", "default")}, mp, f"x16 sample {tag} mode",
+        per_block=3)
+    for mode in ("high", "default"):
+        with precision(mode):
+            x8_stages(model, x, f"x16 sample {tag} {mode}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            x8_decode(model, x, X8_HEATS[1], True)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        log(f"x16 sample {tag} {mode}: peak memory {peak / 2**20:.1f} MiB "
+            f"({(peak - base) / 2**20:.1f} MiB above the "
+            f"{base / 2**20:.1f} MiB resident)")
+        profile_predict(in_mode(mode, lambda: x8_decode(
+            model, x, X8_HEATS[1], True)), medians[mode],
+            f"x16 sample {tag} {mode}", top=8, what="sample")
+
+    batch = example_srflow_train_batch(dev, 160, SRFLOW_TRAIN_BATCH,
+                                       SRFLOW_TRAIN_GT, 16)
+    model.prime_actnorms(batch["GT"], batch["LQ"])
+    noise = quant_noise(batch, 0)
+    label = f"x16 base train step B={SRFLOW_TRAIN_BATCH} {SRFLOW_TRAIN_GT}^2"
+    launches["srflow_x16_train"], frozen_twin = check_base_frozen_step(
+        model, batch, noise, f"{label} frozen")
+    check_base_live_step(model, batch, noise, frozen_twin, f"{label} live")
+    del frozen_twin
+    # validate on the primed weights, before the timed steps move them: a
+    # random flow's NLL climbs for its first steps, and after them samples
+    # at heat >= 0.75 overflow on the twin path as on the kernel path (at
+    # 8x too: profiling/validate_order_probe.py, PERF.md)
+    launches["srflow_x16_validate"] = check_validate(model, dev,
+                                                     "x16 validate")
+    for form in ("frozen", "live"):
+        step = base_train_step(model, form == "frozen")
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        time_steps({form: lambda s=step: losses.append(
+            s(batch)["loss"])}, f"{label} train", blocks=1, per_block=2)
+        peak = torch.cuda.max_memory_allocated()
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"{label} {form}: losses {losses}")
+        log(f"{label} {form}: peak memory {peak / 2**20:.1f} MiB; nll_loss "
+            f"over its {len(losses)} steps: {[round(v, 3) for v in losses]}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def par_inputs():
+    """The sharded checks' data (numpy, from seeds): the three steps'
+    global batches, the sp predict's inputs and the dp SRFlow-LP LRs."""
+    import numpy as np
+
+    from bfsr_tpu_torch.entry import (example_inputs, example_srflow_train_batch,
+                                      example_train_batch)
+
+    def host(d):
+        return {k: v.cpu().numpy() for k, v in d.items()}
+
+    steps = {"linf": host(example_train_batch("cpu", 170, TRAIN_BATCH,
+                                              TRAIN_INP, TRAIN_SCALE_MAX)),
+             "srflow_prior": host(example_srflow_train_batch(
+                 "cpu", 171, SRFLOW_TRAIN_BATCH, SRFLOW_TRAIN_GT)),
+             "srflow_nll": host(example_srflow_train_batch(
+                 "cpu", 172, SRFLOW_TRAIN_BATCH, SRFLOW_TRAIN_GT))}
+    sp = dict(zip(("inp", "coord", "cell", "gt_lr_up"),
+                  (t.numpy() for t in example_inputs("cpu", LR, HR, 0))))
+    lrs = np.random.default_rng(173).random((2, *LR, 3)).astype(np.float32)
+    return steps, sp, {"lr": lrs}
+
+
+def par_cases(steps, sp, lrs, mesh):
+    """``run_cases`` entries: the three steps on ``mesh`` (the LINF-LP
+    step both dp and sp where the mesh has two ranks), the sp and dp
+    predicts at two ranks."""
+    recipe = {"seed": 0}
+    cases = []
+    for kind, (opts, _, _) in PAR_STEPS.items():
+        r = dict(recipe, prime=True) if kind == "srflow_nll" else recipe
+        cases.append({"step": kind, "recipe": r, "batch": steps[kind],
+                      "mesh": mesh, "opts": opts})
+    if mesh == {"dp": 2}:
+        cases.append(dict(cases[0], mesh={"dp": 1, "sp": 2}))
+        cases.append({"predict": "linf_sp", "recipe": recipe, "inputs": sp,
+                      "mesh": {"sp": 2}})
+        cases.append({"predict": "srflow_dp", "recipe": recipe,
+                      "inputs": lrs, "mesh": {"dp": 2}})
+    return cases
+
+
+def run_parallel(dev):
+    """Phase 17 (second part): the dp / sp wrappers at the flagship widths
+    on the card.  The three steps on one process (the reference, and its
+    spread under its input nudged by 1 + GRAD_NUDGE); through the dp
+    wrappers on NCCL at world 1 in this process; and on two gloo ranks
+    sharing this card (``parallel.mesh.spawn``), with the LINF-LP step
+    also sp 2, the sp predict and the dp SRFlow-LP predict.  Each step's
+    loss and gradients held to the reference as phases 10, 12 and 14 hold
+    the kernel path to the twin path (``hold_par``); each predict's
+    images within PAR_IMAGE_TOL of the single predict's.  Returns {path:
+    launches}."""
+    import tempfile
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bfsr_tpu_torch.parallel.mesh import spawn
+    from bfsr_tpu_torch.parallel.sharded import (build, run_cases,
+                                                 run_predict, run_step)
+
+    t0 = time.perf_counter()
+    steps, sp, lrs = par_inputs()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    launches, refs, ms = {}, {}, {}
+    models = {}
+    for kind, (opts, key, signs) in PAR_STEPS.items():
+        recipe = {"seed": 0, "prime": kind == "srflow_nll"}
+        models[kind] = build(kind, recipe, "cuda", steps[kind])
+        single = run_step(kind, recipe, steps[kind], None, "cuda", opts,
+                          models=models[kind])
+        nudged = [run_step(kind, recipe, steps[kind], None, "cuda",
+                           dict(opts, nudge=(key, 1 + sg * GRAD_NUDGE),
+                                reps=0), models=models[kind])
+                  for sg in signs]
+        refs[kind] = (single, nudged,
+                      f"the larger of {key} x (1 +- {GRAD_NUDGE:g})"
+                      if len(signs) > 1 else f"{key} x {1 + GRAD_NUDGE:.9g}")
+        ms.setdefault(kind, {})["one process"] = single["ms"]
+    # NCCL, world 1: the dp wrappers in this process, on the same models
+    # (the replication from rank 0 leaves them as they are)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        for case in par_cases(steps, sp, lrs, {"dp": 1}):
+            got = run_step(case["step"], case["recipe"], case["batch"],
+                           case["mesh"], "cuda", case["opts"],
+                           models=models[case["step"]])
+            hold_par(f"dp nccl world 1 {case['step']} step", case["step"],
+                     [got], refs[case["step"]])
+            launches[f"dp_nccl1_{case['step']}"] = got["launches"]
+            ms[case["step"]]["nccl world 1"] = got["ms"]
+    finally:
+        dist.destroy_process_group()
+    del models
+    torch.cuda.empty_cache()
+    # gloo, world 2, both ranks on this card
+    t1 = time.perf_counter()
+    cases = par_cases(steps, sp, lrs, {"dp": 2})
+    ranks = spawn(run_cases, 2, "gloo", args=(cases, "cuda"), store_dir=tmp,
+                  init_timeout=120.0, join_timeout=300.0, threads=4,
+                  device="cuda:0")
+    log(f"par: gloo world 2 (two ranks sharing this card): spawned, ran "
+        f"{len(cases)} cases and joined in {time.perf_counter() - t1:.1f} s")
+    for i, case in enumerate(cases):
+        got = [r[i] for r in ranks]
+        if "step" in case:
+            where = "x".join(f"{k}{v}" for k, v in case["mesh"].items())
+            hold_par(f"{where} gloo world 2 {case['step']} step",
+                     case["step"], got, refs[case["step"]])
+            for r, g in enumerate(got):
+                launches[f"{where}_gloo2_rank{r}_{case['step']}"] = \
+                    g["launches"]
+            ms[case["step"]][f"gloo world 2 {where}"] = max(
+                g["ms"] for g in got)
+            continue
+        single = run_predict(case["predict"], case["recipe"], case["inputs"],
+                             None, "cuda")
+        axis = 1 if case["predict"] == "linf_sp" else 0
+        parts = np.split(single["out"], 2, axis=axis)
+        for r, (g, want) in enumerate(zip(got, parts)):
+            err = float(np.abs(g["out"] - want).max())
+            if g["out"].shape != want.shape or not err <= PAR_IMAGE_TOL:
+                raise RuntimeError(
+                    f"{case['predict']} rank {r}: shape {g['out'].shape} "
+                    f"(expected {want.shape}), max abs err {err:.3e} against "
+                    f"the single predict (tol {PAR_IMAGE_TOL:g})")
+            launches[f"{case['predict']}_gloo2_rank{r}"] = g["launches"]
+            log(f"par: {case['predict']} gloo world 2 rank {r}: its part "
+                f"{g['out'].shape} within {err:.3e} of the single predict's "
+                f"(tol {PAR_IMAGE_TOL:g}); launches "
+                f"{json.dumps(g['launches'])}; {g['ms']:.1f} ms (single "
+                f"{single['ms']:.1f} ms)")
+    log("par: the two gloo ranks share one card and the host's cores: the "
+        "ms below compare paths, not scaling (no scaling number is claimed)")
+    for kind, by in ms.items():
+        log(f"par: ms per step (loss and gradients) {kind}: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in by.items()))
+    log(f"par: phase 17's sharded part in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def hold_par(label, kind, ranks, ref):
+    """The ranks' results of a sharded step against the single-process
+    step's (``parallel.sharded.compare_steps``: the loss within 1e-5
+    relative, each gradient within twice the worst spread of the step
+    under its input nudged, at least 1e-3 and at most 0.5, as
+    ``hold_step`` holds the kernel path to the twin path; the ranks
+    alike), each rank's launches PAR_LAUNCHES[kind]."""
+    from bfsr_tpu_torch.parallel.sharded import compare_steps
+
+    single, nudged, nudge = ref
+    for r, got in enumerate(ranks):
+        if got["launches"] != PAR_LAUNCHES[kind]:
+            raise RuntimeError(f"par: {label}: rank {r} launches "
+                               f"{got['launches']}, expected "
+                               f"{PAR_LAUNCHES[kind]}")
+    log(compare_steps(single, ranks, f"par: {label}", nudged)
+        + f" (the spread under {nudge}); launches "
+        f"{json.dumps(ranks[0]['launches'])} a rank, "
+        + ", ".join(f"{g['ms']:.1f}" for g in ranks) + " ms")
 
 
 def main():
@@ -4204,6 +4514,13 @@ def main():
     # --- SRFlow at 8x: the L 4 flow, K5 at C = 48 and 192 ---
     x8_checks, x8_launches = run_srflow_x8(dev)
     launches.update(x8_launches)
+    torch.cuda.empty_cache()
+
+    # --- SRFlow at 16x; the dp / sp wrappers on NCCL and gloo ---
+    t17 = time.perf_counter()
+    launches.update(run_srflow_x16(dev))
+    launches.update(run_parallel(dev))
+    log(f"phase 17 in {time.perf_counter() - t17:.1f} s")
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
         "build included")
 

@@ -1529,3 +1529,44 @@ def test_swin_prior_step_kernel_path_matches_twin_path(dev):
     assert registry.lookup("swin_latent") is type(prior)
     assert not torch.equal(steps[0].loss_and_grads(batch)[0]["loss"],
                            kmets["loss"])
+
+
+def test_dp_wrappers_at_world_1_on_nccl(dev, tmp_path):
+    """The three dp steps (the LINF-LP pixel step, the SRFlow-LP prior
+    step, the SRFlow base model's frozen step) through the dp wrappers on
+    one NCCL rank on this card, at the flagship widths and small batches,
+    against the same steps on one process (``check_against_single``: the
+    loss within 1e-5, the gradients held as ``chip_smoke.py`` phase 17
+    holds them: twice the step's worst spread under a 1e-7 nudge of its
+    input, at least 1e-3); each rank's launches those of the single
+    step."""
+    from bfsr_tpu_torch.entry import (example_srflow_train_batch,
+                                      example_train_batch)
+    from bfsr_tpu_torch.parallel.mesh import spawn
+    from bfsr_tpu_torch.parallel.sharded import (check_against_single,
+                                                 run_cases)
+
+    def host(d):
+        return {k: v.numpy() for k, v in d.items()}
+
+    seed = {"seed": 0}
+    cases = [
+        {"step": "linf", "recipe": seed, "mesh": {"dp": 1},
+         "batch": host(example_train_batch("cpu", 1, 2, 16)),
+         "opts": {"vgg_weight": 1.0, "latent_weight": 1.0}},
+        {"step": "srflow_prior", "recipe": seed, "mesh": {"dp": 1},
+         "batch": host(example_srflow_train_batch("cpu", 2, 2, 64)),
+         "opts": {"eps_weight": 1.0, "image_weight": 1.0}},
+        {"step": "srflow_nll", "recipe": dict(seed, prime=True),
+         "mesh": {"dp": 1},
+         "batch": host(example_srflow_train_batch("cpu", 3, 2, 64)),
+         "opts": {"freeze_rrdb": True}}]
+    ranks = spawn(run_cases, 1, "nccl", args=(cases, "cuda"),
+                  store_dir=tmp_path,
+                  init_timeout=120.0, join_timeout=900.0, device="cuda:0")
+    for i, case in enumerate(cases):
+        got = ranks[0][i]
+        single = run_cases([dict(case, mesh=None)], "cuda")[0]
+        assert got["launches"] == single["launches"], case["step"]
+        print(check_against_single(case, [got], f"nccl world 1 "
+                                   f"{case['step']}", "cuda"))

@@ -290,12 +290,14 @@ def test_prior_paths_refuse_an_l4_flow():
 
 
 def test_configs_the_port_does_not_run_raise():
-    """Scale 16 names ROADMAP's queue; a level whose map is switched off
-    (``fea_up0: false`` at L 3, ``fea_upm1`` off at 4x L 4) raises a
-    ``ValueError`` where the JAX model meets a ``KeyError``; so does a
-    level no scale has."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.make(_spec({"scale": 16, "L": 4}))
+    """A level whose map is switched off (``fea_up0: false`` at L 3,
+    ``fea_upm1`` off at 4x L 4) raises a ``ValueError`` where the JAX
+    model meets a ``KeyError``; so do a level no scale has (16x stops at
+    L 4, as ``LEVEL_NAMES[16]`` does) and a scale with no maps."""
+    with pytest.raises(ValueError, match="levels"):
+        registry.make(_spec({"scale": 16, "L": 5}))
+    with pytest.raises(ValueError, match="scale"):
+        registry.make(_spec({"scale": 32, "L": 4}))
     with pytest.raises(ValueError, match="fea_up0"):
         registry.make(_spec({"fea_up0": False}))
     with pytest.raises(ValueError, match="fea_upm1"):

@@ -190,8 +190,10 @@ def test_cli_trains_an_epoch_and_resumes(tmp_path, monkeypatch):
 ])
 def test_cli_refuses_the_later_slices(tmp_path, capsys, monkeypatch, argv,
                                       loader, msg):
-    """An even patch size is refused, as ``train.py`` refuses it; the grain
-    loader waits for the multi-GPU slice."""
+    """An even patch size is refused, as ``train.py`` refuses it.  The
+    grain loader, which the multi-GPU slice ported, is no longer refused:
+    ``loader: grain`` trains an epoch on ``ShardedLoader`` (one shard
+    without a process group), and the old refusal ``msg`` is gone."""
     from bfsr_tpu_torch.cli import train as cli
 
     cfg = tmp_path / "none.yaml"
@@ -203,6 +205,12 @@ def test_cli_refuses_the_later_slices(tmp_path, capsys, monkeypatch, argv,
         conf["train_dataset"]["loader"] = loader
         cfg.write_text(yaml.safe_dump(conf))
         monkeypatch.chdir(tmp_path)
+        cli.cli(["--config", str(cfg), "--device", "cpu", "--name", "grain",
+                 "--allow_random_vgg", *argv])
+        log = (tmp_path / "save" / "grain" / "log.txt").read_text()
+        assert "epoch 1/1" in log
+        assert msg not in capsys.readouterr().err + log
+        return
     with pytest.raises(SystemExit) as e:
         cli.cli(["--config", str(cfg), "--device", "cpu", *argv])
     assert msg in capsys.readouterr().err + str(e.value.code)
