@@ -471,6 +471,17 @@ def dryrun_cases(n):
                   "adam": True}}]
 
 
+def dryrun_spatial_case(n):
+    """The spatial SRFlow predict of ``dryrun_multichip(n)``: one LR of 16
+    x 8n from ``np.random.default_rng(0)`` (the JAX dry run's shape) on
+    the tiny SRFlow and a ``srflow-unet`` prior of depth 2 and dim 8,
+    its width over sp n (``parallel.sharded.run_predict``'s
+    'srflow_sp')."""
+    lr = np.random.default_rng(0).random((16, 8 * n, 3)).astype(np.float32)
+    return {"predict": "srflow_sp", "recipe": {"seed": 0, "tiny": True},
+            "inputs": {"lr": lr}, "mesh": {"sp": n}}
+
+
 def dryrun_multichip(n, store_dir=None):
     """The twin of ``__graft_entry__.dryrun_multichip`` on ``n`` CPU ranks
     (``torch.distributed`` over gloo, ``parallel.mesh.spawn``, its store
@@ -480,29 +491,39 @@ def dryrun_multichip(n, store_dir=None):
     within 1e-5 relative, the gradients within 1e-5 relative L2 or twice
     the step's own spread under a 1e-7 nudge of its input, the parameters
     after Adam within 1e-3) where the JAX dry run checks for finite values
-    only.  The spatial SRFlow predict is not ported
-    (``pipelines.srflow_eval.SRFlowSpatialPredictor`` refuses: ROADMAP.md
-    slice 7b).  The two-process loader-fed run is
-    ``profiling.multiproc_dryrun``.  Prints each line and returns them;
-    raises on a mismatch."""
+    only; then the spatial SRFlow predict (``dryrun_spatial_case``), each
+    rank's SR strip within 1e-5 of one process's
+    (``parallel.sharded.compare_strips``).
+    The two-process loader-fed run is ``profiling.multiproc_dryrun``.
+    Prints each line and returns them; raises on a mismatch."""
     from bfsr_tpu_torch.parallel.mesh import spawn
-    from bfsr_tpu_torch.parallel.sharded import (check_against_single,
-                                                 run_cases)
+    from bfsr_tpu_torch.parallel.sharded import (STRIP_TOL,
+                                                 check_against_single,
+                                                 compare_strips, run_cases)
 
-    cases = dryrun_cases(n)
+    cases = dryrun_cases(n) + [dryrun_spatial_case(n)]
     ranks = spawn(run_cases, n, "gloo", args=(cases, "cpu"),
                   store_dir=store_dir)
     lines = []
-    for i, case in enumerate(cases):
+    for i, case in enumerate(cases[:-1]):
         mesh = "x".join(f"{k}{v}" for k, v in case["mesh"].items())
         lines.append(check_against_single(
             case, [r[i] for r in ranks],
             f"dryrun_multichip(n={n}, mesh={mesh}): {case['step']} step",
             "cpu"))
-    lines.append(f"dryrun_multichip(n={n}): the spatial SRFlow predict is not "
-                 "ported (SRFlowSpatialPredictor refuses: ROADMAP.md slice "
-                 "7b)")
+    label = f"dryrun_multichip(n={n}, mesh=sp{n}): spatial SRFlow predict"
+    got = [r[-1] for r in ranks]
+    single = run_cases([dict(cases[-1], mesh=None, opts={"sp": n})],
+                       "cpu")[0]
+    errs = compare_strips(single, got, label)
+    h, w = cases[-1]["inputs"]["lr"].shape[:2]
+    lines.append(
+        f"{label}: LR {h}x{w} -> SR {single['image'].shape[0]}x"
+        f"{single['image'].shape[1]}, {n} strips of "
+        f"{tuple(got[0]['out'].shape[1:3])}; each rank's strip within "
+        f"{max(errs):.3e} of one process (tol {STRIP_TOL:g}); "
+        f"{got[0]['exchanges']} halo exchanges, {got[0]['bytes']} bytes a "
+        "rank")
     for line in lines:
         print(line)
     return lines
-

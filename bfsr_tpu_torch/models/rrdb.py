@@ -173,6 +173,9 @@ class RRDBNet(Model):
                 res[UP_MAPS[i]] = f
         for key, div in (("fea_up0", 2), ("fea_up-1", 4)):
             if key in keys:
+                if w % div and fnn.width_shard():
+                    raise ValueError(f"width_sharded: {key} of a strip of "
+                                     f"width {w} is not its own columns")
                 res[key] = resize_bilinear(last, (h // div, w // div))
         return res
 

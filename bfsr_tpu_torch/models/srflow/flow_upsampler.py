@@ -242,7 +242,9 @@ class FlowUpsamplerNet(nn.Module):
         one batched pass per level; a list aligned with the plan (None for
         entries without one).  conds: {level: (B, h, w, C_cond)}.
         ``differentiable``: records that autograd differentiates (the
-        trainers'); by default computed without a graph."""
+        trainers'); by default computed without a graph.  Inside
+        ``ops.nn.width_sharded`` each record keeps the ``halo.STEP_HALO``
+        columns of each neighbour that its step reads."""
         by_level = {}
         for i, e in enumerate(self.plan):
             if e["kind"] == "step_cond":

@@ -164,10 +164,16 @@ class Down(nn.Module):
 
 
 def _upsample_to(x1, hw):
-    """Bilinear x2 (align_corners) then zero-pad to ``hw``, centered."""
+    """Bilinear x2 (align_corners) then zero-pad to ``hw``, centered.
+    Inside ``ops.nn.width_sharded`` the resize reads the whole image's
+    source columns (``ops/interp.py``), and a strip needs no pad in W."""
     x1 = resize_bilinear(x1, (x1.shape[1] * 2, x1.shape[2] * 2),
                          align_corners=True)
     dh, dw = hw[0] - x1.shape[1], hw[1] - x1.shape[2]
+    if dw and fnn.width_shard():
+        raise ValueError(f"width_sharded: a strip of width {x1.shape[2]} "
+                         f"would be padded to {hw[1]} (strips whose pools "
+                         "divide evenly need none)")
     return F.pad(x1, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
 
 

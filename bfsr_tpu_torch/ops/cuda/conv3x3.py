@@ -19,7 +19,11 @@ weight, which the kernels read in the layouts of ``kernel_weight`` and
 ``conv3x3_cat`` follows the precision of the current stage
 (``ops/nn.py``): bf16 operands where the stage is ``default``, f32
 elsewhere.  A CPU tensor runs the plain twin of that precision; a CUDA
-tensor launches that kernel or raises.
+tensor launches that kernel or raises.  Inside ``ops.nn.width_sharded``
+``conv3x3_cat``, ``conv3x3_cat_bf16`` and ``conv3x3_cat_twin`` run on the
+strip with one column of each neighbour on every input (one exchange,
+``ops/halo.py``) and crop it: the kernel's own SAME padding acts at
+the image's true edges.
 """
 
 import ctypes
@@ -31,6 +35,7 @@ from torch import nn
 from bfsr_tpu_torch.ops import cuda
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
+from bfsr_tpu_torch.ops import halo
 
 ACTS = {None: 0, "relu": 1, "lrelu": 2}
 MAX_INPUTS = 5
@@ -100,6 +105,9 @@ def conv3x3_cat_bf16_plain(inputs, weight, scale=None, bias=None, act=None,
 def conv3x3_cat_twin(inputs, weight, scale=None, bias=None, act=None,
                      slope=0.2):
     """The plain twin of the current stage's precision."""
+    if fnn.width_shard():
+        return halo.apply(lambda *xs: conv3x3_cat_twin(
+            xs, weight, scale, bias, act, slope), 1, inputs)
     plain = conv3x3_cat_bf16_plain if fnn.bf16_stage() else conv3x3_cat_plain
     return plain(list(inputs), weight, scale, bias, act, slope)
 
@@ -171,6 +179,9 @@ def conv3x3_cat_bf16(inputs, weight, scale=None, bias=None, act=None,
     batch times the Cout blocks of 64 at most 65535), its twin
     ``conv3x3_cat_bf16_plain`` on CPU.  ``kweight_bf16``:
     ``kernel_weight_bf16(weight)`` if the caller keeps it."""
+    if fnn.width_shard():
+        return halo.apply(lambda *xs: conv3x3_cat_bf16(
+            xs, weight, scale, bias, act, slope, kweight_bf16), 1, inputs)
     inputs = list(inputs)
     _check(inputs, weight, act)
     if inputs[0].device.type == "cpu":
@@ -200,6 +211,10 @@ def conv3x3_cat(inputs, weight, scale=None, bias=None, act=None, slope=0.2,
     ``kernel_weight_bf16(weight)`` if the caller keeps them, else they are
     laid out here.
     """
+    if fnn.width_shard():
+        return halo.apply(lambda *xs: conv3x3_cat(
+            xs, weight, scale, bias, act, slope, kweight, kweight_bf16), 1,
+            inputs)
     if fnn.bf16_stage():
         return conv3x3_cat_bf16(inputs, weight, scale, bias, act, slope,
                                 kweight_bf16)

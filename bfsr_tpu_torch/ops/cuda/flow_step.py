@@ -61,6 +61,13 @@ launch the image as the grid's z, and a batch-1 launch is the launch it
 was before.  ``FlowStepReverse`` is the reverse that autograd
 differentiates with respect to the state (the SRFlow-LP prior trainer's
 image loss): the kernel forward, the matching twin's gradient.
+
+Inside ``ops.nn.width_sharded`` ``flow_step_forward``,
+``flow_step_reverse`` and their ``_twin`` s take the strip's records with
+``halo.STEP_HALO`` = 2 columns of each neighbour (``precompute_ft`` keeps
+them), give the state the same 2 (one exchange) and crop the step's
+output: conv1 and conv3 are both 3x3, and each pads with zeros of its own
+input only at the image's true edges.
 """
 
 import torch
@@ -70,6 +77,7 @@ from bfsr_tpu_torch.ops import cuda
 from bfsr_tpu_torch.ops import nn as fnn
 from bfsr_tpu_torch.ops.flows import AFFINE_EPS, fold_actnorm_invconv
 from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
+from bfsr_tpu_torch.ops import halo
 
 # the flow levels' widths: 12 / 24 / 96 of the 4x model's L 3 flow, 12 /
 # 24 / 48 / 192 of the 8x model's L 4 flow
@@ -490,6 +498,9 @@ def flow_step_forward(x, cond, packed, hid, packed_bf16=None,
     frozen step's ``kpacked`` / ``kpacked_bf16``; the bf16 one, in
     ``step_form``, is needed in a bf16 stage only; the batch shares
     them).  Returns the next state (B, H, W, C)."""
+    if fnn.width_shard():
+        return halo.step(flow_step_forward, x, cond, packed, hid, packed_bf16,
+                         step_form)
     if fnn.bf16_stage():
         _check_form(step_form)
         name, plain = BF16_FORMS[step_form, False]
@@ -501,6 +512,9 @@ def flow_step_forward(x, cond, packed, hid, packed_bf16=None,
 def flow_step_reverse(x, cond, packed, hid, packed_bf16=None,
                       step_form="xla"):
     """K5 reverse at the stage's precision (see ``flow_step_forward``)."""
+    if fnn.width_shard():
+        return halo.step(flow_step_reverse, x, cond, packed, hid, packed_bf16,
+                         step_form)
     if fnn.bf16_stage():
         _check_form(step_form)
         name, plain = BF16_FORMS[step_form, True]
@@ -542,6 +556,9 @@ def flow_step_forward_twin(x, cond, packed, hid, packed_bf16=None,
                            step_form="xla"):
     """The plain twin of ``flow_step_forward`` at the stage's precision,
     on any device (no launch)."""
+    if fnn.width_shard():
+        return halo.step(flow_step_forward_twin, x, cond, packed, hid,
+                         packed_bf16, step_form)
     form = _stage_form(step_form)
     if form is None:
         return flow_step_forward_plain(x, cond, packed, hid)
@@ -583,6 +600,9 @@ def flow_step_reverse_twin(x, cond, packed, hid, packed_bf16=None,
     """The plain twin of ``flow_step_reverse`` at the stage's precision, on
     any device (no launch), differentiable with respect to x as
     ``FlowStepReverse`` differentiates the kernel."""
+    if fnn.width_shard():
+        return halo.step(flow_step_reverse_twin, x, cond, packed, hid,
+                         packed_bf16, step_form)
     return FlowStepReverse.apply(x, cond, packed, hid, packed_bf16,
                                  step_form, True)
 

@@ -27,6 +27,12 @@ record's conditioning-only ``sum log scale_ft``) and ``split2d_logdet``
 (the consumed half's Gaussian log-likelihood; in reverse its eps drawn
 from a ``torch.Generator`` times ``eps_std``, or zeros at heat 0 with no
 generator).  Every log-det sum is taken in f32.
+
+Inside ``ops.nn.width_sharded`` (``ops/halo.py``) the records of a
+strip are made from its conditioning with 2 ``halo.STEP_HALO`` columns of
+each neighbour (one exchange a level) and keep ``STEP_HALO`` of them;
+``cond_affine`` takes records that carry ``STEP_HALO`` and gives the
+state the same; ``squeeze2d`` is local and refuses an odd strip.
 """
 
 import math
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bfsr_tpu_torch.ops import nn as fnn
+from bfsr_tpu_torch.ops import halo
 
 AFFINE_EPS = 1e-4
 LOG2PI = math.log(2 * math.pi)
@@ -202,6 +209,9 @@ def an_invconv_fused(x, fold, reverse=False):
 
 def squeeze2d(x, factor=2):
     B, H, W, C = x.shape
+    if fnn.width_shard() and W % factor:
+        raise ValueError(f"width_sharded: a strip of width {W} does not "
+                         f"squeeze by {factor} on its own")
     x = x.reshape(B, H // factor, factor, W // factor, factor, C)
     x = x.permute(0, 1, 3, 5, 2, 4)  # B, H/f, W/f, C, fy, fx
     return x.reshape(B, H // factor, W // factor, C * factor * factor)
@@ -295,10 +305,17 @@ def cond_affine_cache_batched(ft, affines, differentiable=False):
     With ``differentiable=True`` autograd differentiates the records with
     respect to ft and the towers' weights (the trainers' records); by
     default they are computed under ``torch.no_grad()``.
+
+    Inside ``width_sharded`` ft is a strip, and each record keeps
+    ``halo.STEP_HALO`` columns of each neighbour (what a step reads); the
+    two chained 3x3 convs read 2 more (``halo.records``).
     """
     if not differentiable:
         with torch.no_grad():
             return cond_affine_cache_batched(ft, affines, True)
+    if fnn.width_shard():
+        return halo.records(lambda f: cond_affine_cache_batched(
+            f, affines, True), ft)
     rnd = fnn.round_bf16 if fnn.bf16_stage() else (lambda t: t)
     n = len(affines)
     B, h, w, c_ft = ft.shape
@@ -359,7 +376,12 @@ def cond_affine_logdet(x, rec, affine, logdet, reverse=False):
 
 
 def cond_affine(x, rec, affine, reverse=False):
-    """``cond_affine_logdet`` without the log-det."""
+    """``cond_affine_logdet`` without the log-det.  Inside
+    ``width_sharded`` ``rec`` carries ``halo.STEP_HALO`` columns of each
+    neighbour, and the state gets them too: the coupling's tower is two
+    chained 3x3 convs."""
+    if fnn.width_shard():
+        return halo.step(cond_affine, x, rec, affine, reverse)
     return cond_affine_logdet(x, rec, affine, None, reverse)[0]
 
 

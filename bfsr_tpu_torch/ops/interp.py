@@ -17,9 +17,20 @@ and training paths use:
   up path and the block-stack concat of the SRFlow conditioning.
 
 Coordinates follow the LINF convention: axis 0 of a coord is the height.
+
+Inside ``ops.nn.width_sharded`` (one image's width split over ranks)
+both resizes work in global column coordinates: each rank's output
+columns read the source columns the whole image's resize gives them,
+with the halo they reach (``ops/halo.py:global_columns``), so a
+rank's strip is the whole resize's columns, value for value.  The sizes
+the callers pass are the strip's: the whole image is ``count`` times as
+wide.
 """
 
 import torch
+
+from bfsr_tpu_torch.ops import nn as fnn
+from bfsr_tpu_torch.ops import halo
 
 
 def _unnormalize(coord, size):
@@ -114,12 +125,27 @@ def _resize_axis_weights(in_size, out_size, align_corners, device):
     return i0, torch.clamp(i0 + 1, max=in_size - 1), w1
 
 
+def _strip_columns(x, ow, axis_weights):
+    """(x, the W axis's (i0[, i1], w or None) for output width ``ow``):
+    ``axis_weights(in, out)`` on x's own width, or inside ``width_sharded``
+    on the whole image's, cut to this rank's columns (x with the halo
+    they reach)."""
+    sp = fnn.width_shard()
+    if sp is None:
+        return x, axis_weights(x.shape[2], ow)
+    _, index, count = sp
+    *idx, wt = axis_weights(count * x.shape[2], count * ow)
+    x, idx = halo.global_columns(x, ow, idx)
+    return x, (*idx, None if wt is None else wt[index * ow:(index + 1) * ow])
+
+
 def resize_bilinear(x, out_hw, align_corners=False):
     """F.interpolate(mode='bilinear') on NHWC: (B, H, W, C) -> (B, h, w, C)."""
-    _, H, W, _ = x.shape
+    _, H, _, _ = x.shape
     oh, ow = out_hw
     y0, y1, wy = _resize_axis_weights(H, oh, align_corners, x.device)
-    x0, x1, wx = _resize_axis_weights(W, ow, align_corners, x.device)
+    x, (x0, x1, wx) = _strip_columns(x, ow, lambda n, m: _resize_axis_weights(
+        n, m, align_corners, x.device))
     top = x[:, y0]
     xh = top + (x[:, y1] - top) * wy[None, :, None, None]
     left = xh[:, :, x0]
@@ -135,7 +161,7 @@ def _nearest_index(in_size, out_size, device):
 
 def resize_nearest(x, out_hw):
     """F.interpolate(mode='nearest') on NHWC: (B, H, W, C) -> (B, h, w, C)."""
-    _, H, W, _ = x.shape
-    iy = _nearest_index(H, out_hw[0], x.device)
-    ix = _nearest_index(W, out_hw[1], x.device)
+    iy = _nearest_index(x.shape[1], out_hw[0], x.device)
+    x, (ix, _) = _strip_columns(x, out_hw[1], lambda n, m: (
+        _nearest_index(n, m, x.device), None))
     return x[:, iy][:, :, ix]

@@ -12,7 +12,10 @@ The counterpart of ``bfsr_tpu/ops/nn.py``.  Conventions:
   index, count)`` (a data-parallel step's trainable part) the statistics
   are the global batch's, over ``group``, as GSPMD computes them for the
   JAX step, and ``global_rows`` gives a per-sample random draw's rows of
-  the global batch (``swinir.drop_path``).
+  the global batch (``swinir.drop_path``).  Inside ``width_sharded(group,
+  index, count)`` (one image's width split over the ranks; ``ops/halo.py``)
+  a SAME conv wider than 1x1 exchanges halos with the neighbouring strips
+  and the pool refuses a strip it would pair across its edge.
 
 Precision modes, as ``bfsr_tpu/ops/nn.py`` defines them (a TPU computes
 them so):
@@ -43,6 +46,10 @@ import os
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from bfsr_tpu_torch.ops import halo
+# the width-sharded scope lives with the exchange it drives
+from bfsr_tpu_torch.ops.halo import width_shard, width_sharded  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -190,9 +197,18 @@ def conv2d_nchw(x, weight, bias=None, stride=1, padding=0):
 
 def conv2d(x, weight, bias=None, stride=1, padding=None):
     """x: (B, H, W, Cin); weight: (Cout, Cin, kh, kw).  ``padding=None`` is
-    SAME for odd kernels at stride 1.  Follows the stage's precision."""
+    SAME for odd kernels at stride 1.  Follows the stage's precision.
+    Inside ``width_sharded`` a SAME conv wider than 1x1 runs on the strip
+    with its neighbours' kw // 2 columns and crops them."""
+    r = weight.shape[-1] // 2
     if padding is None:
-        padding = weight.shape[-1] // 2
+        padding = r
+    if r and width_shard():
+        if stride != 1 or padding != r:
+            raise NotImplementedError(
+                "under width_sharded a conv wider than 1x1 must be SAME at "
+                f"stride 1; got stride {stride}, padding {padding}")
+        return halo.apply(lambda h: conv2d(h, weight, bias), r, [x])
     return nchw_to_nhwc(conv2d_nchw(nhwc_to_nchw(x), weight, bias, stride,
                                     padding))
 
@@ -237,7 +253,12 @@ def leaky_relu(x, negative_slope=0.2):
 
 
 def max_pool2d(x, window=2):
-    """NHWC max pool, stride = window, VALID."""
+    """NHWC max pool, stride = window, VALID.  Inside ``width_sharded``
+    it is local, and a strip whose width the window does not divide
+    raises."""
+    if width_shard() and x.shape[2] % window:
+        raise ValueError(f"width_sharded: a strip of width {x.shape[2]} does "
+                         f"not pool by {window} on its own")
     return nchw_to_nhwc(F.max_pool2d(nhwc_to_nchw(x), window))
 
 

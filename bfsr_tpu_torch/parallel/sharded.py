@@ -12,14 +12,19 @@ imports this module there; it imports neither jax nor the JAX package).
   batch.  It returns the step's metrics, the gradients, the launches of
   each kernel, the step's milliseconds and, with ``opts['adam']``, the
   parameters after one step of Adam.
-* ``run_predict(kind, recipe, inputs, mesh_axes, device)``: 'linf_sp'
-  (the query-sharded LINF-LP predict: this rank's rows of the HR grid),
-  'linf_dp' (B / dp images a rank, and the dp PSNR) and 'srflow_dp' (one
-  LR a rank through ``SRFlowLPPredictor``).
+* ``run_predict(kind, recipe, inputs, mesh_axes, device, opts)``:
+  'linf_sp' (the query-sharded LINF-LP predict: this rank's rows of the
+  HR grid), 'linf_dp' (B / dp images a rank, and the dp PSNR),
+  'srflow_dp' (one LR a rank through ``SRFlowLPPredictor``) and
+  'srflow_sp' (one LR whose width is split over sp,
+  ``SRFlowSpatialPredictor``: this rank's SR strip, the halo exchanges'
+  count and bytes).
 * ``run_cases(cases, device)``: a list of either, in turn, in one rank:
   one spawn runs several.
 * ``compare_steps`` / ``check_against_single``: the ranks' results of a
-  step held against the same step on one process.
+  step held against the same step on one process; ``compare_strips``:
+  the ranks' SR strips of a 'srflow_sp' predict against the single
+  predict's columns.
 
 Every entry point takes the device it runs on: nothing here picks one.
 
@@ -41,7 +46,7 @@ from bfsr_tpu_torch.parallel.mesh import (batch_specs_linf,
                                           replicate, shard_batch)
 
 STEPS = ("linf", "srflow_nll", "srflow_prior")
-PREDICTS = ("linf_sp", "linf_dp", "srflow_dp")
+PREDICTS = ("linf_sp", "linf_dp", "srflow_dp", "srflow_sp")
 
 
 def state_of(module):
@@ -64,7 +69,8 @@ def _load(entry, device):
 def build(kind, recipe, device, batch=None):
     """The models of ``kind`` on ``device``: 'linf' / 'linf_sp' / 'linf_dp'
     -> (frozen LINF, prior, VGG or None); 'srflow_nll' -> (SRFlowNet,);
-    'srflow_prior' / 'srflow_dp' -> (frozen SRFlowNet, prior)."""
+    'srflow_prior' / 'srflow_dp' / 'srflow_sp' -> (frozen SRFlowNet,
+    prior)."""
     from bfsr_tpu_torch import entry
 
     seed, tiny = recipe.get("seed"), recipe.get("tiny", False)
@@ -92,14 +98,15 @@ def build(kind, recipe, device, batch=None):
             model.prime_actnorms(*(torch.as_tensor(batch[k], device=device)
                                    for k in ("GT", "LQ")))
         return (model,)
-    if "seed" in recipe and kind == "srflow_dp":
+    predict = kind in ("srflow_dp", "srflow_sp")
+    if "seed" in recipe and predict:
         return entry.build_srflow_lp(device, seed, tiny)
     if "seed" in recipe:
         model, prior = entry.build_srflow_prior_trainer(device, seed, tiny)
     else:
         model = _load(recipe["srflow"], device).eval().freeze()
         prior = _load(recipe["prior"], device).train()
-    if kind == "srflow_dp":
+    if predict:
         prior.eval().freeze()
     return model, prior
 
@@ -226,21 +233,33 @@ def run_step(kind, recipe, batch, mesh_axes, device, opts=None, local=False,
     return result
 
 
-def run_predict(kind, recipe, inputs, mesh_axes, device):
+def run_predict(kind, recipe, inputs, mesh_axes, device, opts=None,
+                models=None):
     """A sharded predict (see the module docstring), or, without
     ``mesh_axes``, the single predict of the whole input.  ``inputs``:
     'linf_sp' {inp (1, h, w, 3), coord (1, H, W, 2), cell (1, 2),
     gt_lr_up (1, H, W, 3)} (the whole grid; a rank keeps its rows);
     'linf_dp' the same with a batch of B and gt (B, H, W, 3); 'srflow_dp'
-    {lr (B, h, w, 3)}.  Returns {'out' (the rank's part), 'launches', 'ms'
-    [, 'psnr']}."""
+    {lr (B, h, w, 3)}; 'srflow_sp' {lr (h, w, 3)} (one image; a rank
+    keeps its strip).  ``models``: ``build``'s, if the caller has them;
+    ``opts`` (srflow_sp): ``kernels`` (as ``SRFlowLPPredictor``),
+    ``mode`` (a precision mode for the predict), ``reps`` (predicts timed
+    after the first: 'ms' is their median), ``stages`` (names of
+    ``srflow_eval.STAGES`` whose outputs the first predict returns under
+    'stages', for ``stage_errors``) and, without a mesh, ``sp`` (the
+    strips whose padding the single predict takes).  Returns {'out'
+    (the rank's part: for srflow_sp its SR strip of the padded image,
+    unclipped; the whole padded SR without a mesh), 'launches', 'ms' [,
+    'psnr'] [, 'image' (srflow_sp: the whole SR image, clipped and
+    cropped), 'exchanges', 'bytes' (the first predict's halo exchanges
+    and this rank's bytes in them)]}."""
     from bfsr_tpu_torch.pipelines.linf_eval import (LINFPredictor,
                                                     dp_psnr, predict_dp)
     from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowLPPredictor
 
     if kind not in PREDICTS:
         raise ValueError(f"kind {kind!r}: one of {PREDICTS}")
-    models = build(kind, recipe, device)
+    models = models or build(kind, recipe, device)
     mesh = None
     if mesh_axes:
         mesh = make_mesh(mesh_axes)
@@ -249,6 +268,9 @@ def run_predict(kind, recipe, inputs, mesh_axes, device):
                 replicate(m)
                 m.freeze()
     data = _tensors(inputs, device)
+    if kind == "srflow_sp":
+        return _spatial_predict(models, data["lr"], mesh, device,
+                                dict(opts or {}))
     if mesh is not None:
         # sp: the HR rows of the queries and the residual; dp: the images
         specs = ({"coord": (None, "sp"), "gt_lr_up": (None, "sp")}
@@ -279,11 +301,90 @@ def run_predict(kind, recipe, inputs, mesh_axes, device):
     return result
 
 
+def _spatial_predict(models, img, mesh, device, opts):
+    """'srflow_sp' of ``run_predict``: with a mesh this rank's strip
+    through ``SRFlowSpatialPredictor`` and the gathered image, without one
+    ``SRFlowLPPredictor.run`` on the same padded LR."""
+    from bfsr_tpu_torch.ops import nn as fnn
+    from bfsr_tpu_torch.ops import halo
+    from bfsr_tpu_torch.pipelines.srflow_eval import (SRFlowLPPredictor,
+                                                      SRFlowSpatialPredictor,
+                                                      pad_strips,
+                                                      strip_multiple)
+
+    model, prior = models
+    kernels = opts.get("kernels", True)
+    h, w = img.shape[:2]
+    if mesh is not None:
+        pred = SRFlowSpatialPredictor(model, prior, mesh, "sp", kernels)
+        lr = pred.strip(pred.pad(img))
+
+        def image(out):
+            return pred.gather(out, h, w)
+    else:
+        pred = SRFlowLPPredictor(model, prior, kernels)
+        lr = pad_strips(img, strip_multiple(opts.get("sp", 1), prior))
+
+        def image(out):
+            s = model.scale
+            return torch.clamp(out[0], 0.0, 1.0)[: h * s, : w * s]
+    saved = fnn.precision_mode()
+    fnn.set_default_precision(opts.get("mode", saved))
+    try:
+        _sync(device)
+        cuda.reset_launch_counts()
+        halo.reset_exchange_counts()
+        stages, keep = {}, opts.get("stages", ())
+
+        def mark(stage, made):
+            if stage in keep:
+                made = ([made[k] for k in model.cond_keys()]
+                        if stage == "rrdb" else made)
+                stages[stage] = [t.detach().cpu().numpy() for t in (
+                    made if isinstance(made, list) else [made])]
+
+        t0 = time.perf_counter()
+        out = pred.run(lr, mark)
+        launches = _launched(device)
+        moved = dict(halo.EXCHANGES)
+        times = [(time.perf_counter() - t0) * 1e3]
+        for _ in range(opts.get("reps", 0)):
+            t0 = time.perf_counter()
+            pred.run(lr)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        whole = image(out)
+    finally:
+        fnn.set_default_precision(saved)
+    return {"out": out.detach().cpu().numpy(),
+            "image": whole.detach().cpu().numpy(), "launches": launches,
+            "ms": float(np.median(times[1:] or times)), "stages": stages,
+            **moved}
+
+
+def stage_errors(strip_stages, whole_stages, index, count):
+    """{stage: the max abs difference of a rank's stage outputs (its
+    strips; 'stages' of a 'srflow_sp' result) from the same columns of
+    the single predict's}: where along the chain a strip leaves the
+    whole image."""
+    out = {}
+    for stage, parts in strip_stages.items():
+        errs = []
+        for got, whole in zip(parts, whole_stages[stage]):
+            w = whole.shape[2] // count
+            want = whole[:, :, index * w:(index + 1) * w]
+            errs.append(float(np.abs(got - want).max())
+                        if got.shape == want.shape else float("inf"))
+        out[stage] = max(errs)
+    return out
+
+
 def run_cases(cases, device):
     """Each of ``cases`` (dicts: 'step' or 'predict' naming the kind,
     'recipe', 'batch' / 'inputs', 'mesh', 'opts') in turn; their results
     as a list.  Steps of one kind and recipe that take no Adam step share
-    one build of the models."""
+    one build of the models, and so do the spatial predicts of one seed
+    recipe."""
     out, built = [], {}
     for c in cases:
         if "step" in c:
@@ -298,8 +399,15 @@ def run_cases(cases, device):
             out.append(run_step(c["step"], c["recipe"], c["batch"],
                                 c.get("mesh"), device, opts, models=models))
         else:
+            models = None
+            if c["predict"] == "srflow_sp" and "seed" in c["recipe"]:
+                key = (c["predict"], repr(sorted(c["recipe"].items())))
+                if key not in built:
+                    built[key] = build(c["predict"], c["recipe"], device)
+                models = built[key]
             out.append(run_predict(c["predict"], c["recipe"], c["inputs"],
-                                   c.get("mesh"), device))
+                                   c.get("mesh"), device, c.get("opts"),
+                                   models))
     return out
 
 
@@ -403,6 +511,33 @@ def compare_steps(single, ranks, label, nudged=()):
             + (f", parameters after Adam worst max abs {worst_p:.3e}"
                if "params" in single else "")
             + f"; {len(ranks)} ranks agree")
+
+
+# a rank's SR strip of the spatial predict against the single predict's
+# columns of the same padded LR (the CPU tests, the dry run, the card's
+# kernel path): the sums take another order at a strip's width
+STRIP_TOL = 1e-5
+
+
+def compare_strips(single, ranks, label, tol=STRIP_TOL):
+    """Each of ``ranks`` ('srflow_sp' results: one image's ``len(ranks)``
+    strips, in order) against the same columns of ``single`` (the single
+    predict of the same padded LR, ``run_predict`` without a mesh): its
+    shape, and its max abs difference within ``tol`` (0: bitwise).
+    Raises past it; returns the ranks' max abs differences."""
+    parts = np.split(single["out"], len(ranks), axis=2)
+    errs = []
+    for r, (got, want) in enumerate(zip(ranks, parts)):
+        if got["out"].shape != want.shape:
+            raise AssertionError(f"{label}: rank {r} strip "
+                                 f"{got['out'].shape}, expected {want.shape}")
+        errs.append(float(np.abs(got["out"] - want).max()))
+        if not errs[-1] <= tol:
+            raise AssertionError(
+                f"{label}: rank {r} strip max abs err {errs[-1]:.3e} > "
+                f"{tol:g} against the single predict ({got['exchanges']} "
+                "exchanges)")
+    return errs
 
 
 def check_against_single(case, ranks, label, device):

@@ -12,6 +12,10 @@ model's device; ``validate``'s NLL runs on the unfused log-det encode
 (``normal_flow_nll``: K5 drops the log-det).  ``kernels=False`` or
 ``TWINS`` runs the same on the twins.
 
+``SRFlowSpatialPredictor`` runs the same chain on one image whose width
+is split over ranks, each rank's strip with its neighbours' columns at
+every op with a spatial extent (``ops.nn.width_sharded``).
+
 The predictor, per LR image (batch 1):
 
 1. pad H and W to a multiple of ``pad_multiple`` (the protocol's 2 at
@@ -59,6 +63,7 @@ from bfsr_tpu_torch.ops.cuda import TWINS
 from bfsr_tpu_torch.ops.interp import resize_bilinear
 from bfsr_tpu_torch.pipelines.linf_train import to_device
 from bfsr_tpu_torch.ops.nn import nchw_to_nhwc, nhwc_to_nchw
+from bfsr_tpu_torch.parallel.collective import gather_rows
 
 STAGES = ("rrdb", "precompute_ft", "encode", "prior", "decode")
 
@@ -91,7 +96,13 @@ def pad_to_multiple(lr_img01, multiple=2):
             x = nchw_to_nhwc(F.pad(nhwc_to_nchw(x), (0, w % 2, 0, h % 2),
                                    mode="reflect"))
         return x
-    hp, wp = -(-h // m) * m, -(-w // m) * m
+    return pad_symmetric(x, -(-h // m) * m, -(-w // m) * m)
+
+
+def pad_symmetric(x, hp, wp):
+    """(B, h, w, C) -> (B, hp, wp, C), padded at the bottom and right with
+    the image's mirror, edge included (numpy's 'symmetric'; pads up to
+    the image's size)."""
     x = torch.cat([x, x.flip(1)], 1)[:, :hp]
     return torch.cat([x, x.flip(2)], 2)[:, :, :wp].contiguous()
 
@@ -111,24 +122,25 @@ class SRFlowLPPredictor:
     @torch.inference_mode()
     def run(self, lr, mark=None):
         """lr: (1, h, w, 3) with h, w even (``pad_to_multiple``) -> the SR image (1, 4h, 4w, 3),
-        unclipped.  ``mark(stage)``, if given, is called after each of
-        ``STAGES``."""
+        unclipped.  ``mark(stage, out)``, if given, is called after each of
+        ``STAGES`` with what it made (the RRDB's maps, the records, the
+        epses, the learned epses, the SR image)."""
         model, k = self.model, self.kernels
-        mark = mark or (lambda stage: None)
+        mark = mark or (lambda stage, out: None)
         s = model.scale
         h, w = lr.shape[1], lr.shape[2]
         lr_up = resize_bilinear(lr, (h * s, w * s))
         lr_enc = model.rrdb_preprocess(lr, kernels=k)
-        mark("rrdb")
+        mark("rrdb", lr_enc)
         cache = model.precompute_ft(lr_enc)
-        mark("precompute_ft")
+        mark("precompute_ft", cache)
         epses = model.normal_flow(lr_up, cache, kernels=k)
-        mark("encode")
+        mark("encode", epses)
         with fnn.stage("prior"):
             learned = self.prior(standardize_epses(epses), kernels=k)
-        mark("prior")
+        mark("prior", learned)
         sr = model.reverse_flow(learned, cache, kernels=k)
-        mark("decode")
+        mark("decode", sr)
         return sr
 
     @torch.inference_mode()
@@ -147,18 +159,83 @@ class SRFlowLPPredictor:
 
 
 class SRFlowSpatialPredictor:
-    """The JAX package's one image sharded over its width
-    (``bfsr_tpu/pipelines/srflow_eval.py:SRFlowSpatialPredictor``): not
-    ported.  Under GSPMD XLA inserts a halo exchange at every conv (the
-    RRDB's 345 K3 convs, the towers inside K5, the prior's convs and
-    pools); here that is a design of its own, ``ROADMAP.md`` slice 7b."""
+    """One LR image's width split over the ranks of a mesh axis: the
+    counterpart of ``bfsr_tpu/pipelines/srflow_eval.py:
+    SRFlowSpatialPredictor``, whose partitioner puts a halo exchange at
+    every conv; here ``ops.nn.width_sharded`` and ``ops/halo.py`` do
+    (the module docstring of ``ops/nn.py`` lists the sites).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SRFlowSpatialPredictor (one image's width sharded over the "
-            "ranks, a halo exchange at each conv) is not ported: ROADMAP.md "
-            "queue 1, slice 7b. Serve one image a rank with "
-            "SRFlowLPPredictor (the dp predict)")
+    ``mesh``: a ``parallel.mesh`` mesh; ``axis``: the axis whose ranks
+    share the image (an axis of size 1, or absent, is one strip).
+    ``predict`` pads H to a multiple of 2 and W to a multiple of
+    ``multiple`` = ``count * max(8, 2 ** (prior.depth + 1))``, both with
+    the image's mirror (numpy's 'symmetric', as the JAX ``predict``), so
+    that the strips are equal and every squeeze, pool and x2 upsample of
+    the prior divides a strip evenly: 8 per rank, as the JAX predictor
+    pads, up to a prior of depth 2; 16 at the flagship's depth 3, so that
+    its third pool still halves an even strip.  ``run`` takes this
+    rank's LR strip and returns its SR strip (unclipped), the chain of
+    ``SRFlowLPPredictor.run`` under the scope; ``predict`` gathers the
+    strips, clips and crops (every rank returns the whole image).  L != 3
+    raises (``check_prior_flow``)."""
+
+    def __init__(self, model, prior_model, mesh, axis="sp", kernels=True):
+        self.single = SRFlowLPPredictor(model, prior_model, kernels)
+        self.model = model
+        self.count, self.index = mesh.size(axis), mesh.index(axis)
+        self.group = mesh.group(axis) if self.count > 1 else None
+        self.multiple = strip_multiple(self.count, prior_model)
+
+    def pad(self, lr_img01):
+        """``pad_strips`` at ``multiple``."""
+        return pad_strips(lr_img01, self.multiple)
+
+    def strip(self, x):
+        """This rank's columns of a whole-width (B, H, W, C) tensor."""
+        w = x.shape[2] // self.count
+        return x[:, :, self.index * w:(self.index + 1) * w].contiguous()
+
+    @torch.inference_mode()
+    def run(self, lr_strip, mark=None):
+        """This rank's strip (1, h, w, 3) of the padded LR -> its SR strip
+        (1, 4h, 4w, 3), unclipped (``mark`` as ``SRFlowLPPredictor.run``)."""
+        with fnn.width_sharded(self.group, self.index, self.count):
+            return self.single.run(lr_strip, mark)
+
+    @torch.inference_mode()
+    def gather(self, sr_strip, h, w):
+        """The ranks' SR strips side by side, clipped to [0, 1] and cropped
+        to the unpadded (s h, s w, 3)."""
+        if self.group is not None:
+            sr_strip = gather_rows(sr_strip, self.group, dim=2)
+        s = self.model.scale
+        return torch.clamp(sr_strip[0], 0.0, 1.0)[: h * s, : w * s]
+
+    def predict(self, lr_img01):
+        """lr_img01: (h, w, 3) [0, 1] image (a tensor, or a numpy array,
+        which goes to the model's device), the same on every rank.
+        Returns the SR image (4h, 4w, 3), clipped."""
+        if isinstance(lr_img01, np.ndarray):
+            dev = next(self.model.parameters()).device
+            lr_img01 = torch.as_tensor(lr_img01, dtype=torch.float32,
+                                       device=dev)
+        h, w = lr_img01.shape[:2]
+        return self.gather(self.run(self.strip(self.pad(lr_img01))), h, w)
+
+
+def strip_multiple(count, prior):
+    """The LR width multiple of ``count`` strips under the two-branch
+    prior ``prior`` (``SRFlowSpatialPredictor``)."""
+    return count * max(8, 2 ** (prior.depth + 1))
+
+
+def pad_strips(lr_img01, multiple):
+    """(h, w, 3) -> (1, h', w', 3): h' even, w' a multiple of
+    ``multiple``, mirrored at the bottom and right (``pad_symmetric``), as
+    the JAX spatial predictor pads."""
+    h, w = lr_img01.shape[:2]
+    return pad_symmetric(lr_img01[None].float(), -(-h // 2) * 2,
+                         -(-w // multiple) * multiple)
 
 
 def lr_multiple(model):

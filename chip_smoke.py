@@ -223,9 +223,9 @@ fails (non-zero exit, no result line) if any phase fails:
    (``TOL['srflow_image']`` / ``TOL['srflow_default_twin_db']``); ms per
    image, HR MP/s, the stages (RRDB, records, decode), peak memory and a
    profile; the base trainer at B 12 of 160^2 GT (a frozen step, K3 345,
-   and a live step, held as phase 14 holds them; ms/step, peak memory)
-   and ``validate`` on 2 pairs (K3 345, K5 768 reverse).  It prints the
-   phase's seconds;
+   and a live step, held as phase 14 holds them), ``validate`` on 2 pairs
+   on those primed weights (K3 345, K5 768 reverse), then the two steps
+   timed (ms/step, peak memory).  It prints the phase's seconds;
 17. SRFlow at 16x (``run_srflow_x16``: ``bfsr_tpu_torch/configs/
    srflow_df2k_16x.yml``, the 8x model's widths at scale 16, K5 at C = 12,
    24, 48 and 192 on the 8x sample's level shapes): ``sample_sr`` at LR
@@ -246,8 +246,19 @@ fails (non-zero exit, no result line) if any phase fails:
    LINF-LP predict at 128^2 -> 512^2 (each rank's rows) and the dp
    SRFlow-LP predict of 2 LR images, one a rank, each within 1e-5 of the
    single predict; ms per step for each world size beside a line that
-   says both ranks share one card.  It prints the phase's seconds and
-   the run's.
+   says both ranks share one card.  Then the spatial SRFlow-LP predict
+   (``SRFlowSpatialPredictor``: one LR's width over the ranks, a halo
+   exchange at every op with a spatial extent): K3 (f32, bf16) and K5
+   (f32, the served one-pass form) against their twins at a strip's
+   shapes with its halo; at LR 128^2 -> 512^2 in ``high`` and ``default``
+   and the ragged 101x85 in ``high``, kernel path and twin path, at NCCL
+   world 1 (each strip bitwise the single predict's, no exchange) and on
+   the two gloo ranks (each rank's kernel-path strip within 1e-5 of the
+   single predict's columns of the same padded LR, its twin path's as
+   ``check_srflow_predict`` holds a path, its kernel path against its
+   twin path likewise, its launches the single predict's: K3 363, K5 48
+   + 48); each rank's ms, exchanges and bytes.  It prints the phase's
+   seconds and the run's.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -261,7 +272,8 @@ K4, both K3s and K5 (f32 and the served one-pass form) also carry
 ``train_checks``, phases 10-12's checks at the trainers' shapes, K1's and
 K4's inverse with ``FlowInverse``'s gradient, K5's reverse with
 ``FlowStepReverse``'s; K5 carries ``x8_checks``, phase 16's checks at
-the 8x flow's four widths; ``launches_by_path`` gives a step's launches on
+the 8x flow's four widths; both K3s and K5 (f32, served one-pass) carry
+``strip_checks``, phase 17's checks at a spatial strip's shapes; ``launches_by_path`` gives a step's launches on
 each trainer and mode, and an image's or a val batch's on the evaluation
 entry points);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
@@ -1321,7 +1333,7 @@ def profile_srflow_stages(model, prior, lr_img, label, reps=3):
     for _ in range(reps):
         marks = []
 
-        def mark(stage):
+        def mark(stage, _=None):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks.append((stage, ev))
@@ -4008,6 +4020,9 @@ def run_srflow_x8(dev):
     check_base_live_step(model, batches[0], noise, frozen_twin,
                          "x8 base train step live")
     del frozen_twin
+    # validate on the primed weights, before the timed steps move them, as
+    # phase 17 does (profiling/validate_order_probe.py, PERF.md)
+    launches["srflow_x8_validate"] = check_validate(model, dev, "x8 validate")
     shape = f"x8 B={SRFLOW_TRAIN_BATCH} {SRFLOW_TRAIN_GT}^2"
     it = iter(range(10 ** 9))
     for form in ("frozen", "live"):
@@ -4023,7 +4038,6 @@ def run_srflow_x8(dev):
         log(f"{shape} {form} step: peak memory {peak / 2**20:.1f} MiB; "
             f"nll_loss over its {len(losses)} timed steps: "
             f"{[round(v, 3) for v in losses]}")
-    launches["srflow_x8_validate"] = check_validate(model, dev, "x8 validate")
     del model, batches
     torch.cuda.empty_cache()
     log(f"x8: phase 16 in {time.perf_counter() - t0:.1f} s")
@@ -4060,6 +4074,21 @@ PAR_IMAGE_TOL = 1e-5
 PAR_LAUNCHES = {"linf": dict(TRAIN_LAUNCHES),
                 "srflow_prior": {"conv3x3_cat": 345, "flow_step_forward": 96},
                 "srflow_nll": dict(BASE_TRAIN_LAUNCHES)}
+
+
+# the spatial SRFlow-LP predict (parallel.sharded 'srflow_sp': one LR's
+# width over sp ranks, a halo exchange at every op with a spatial extent):
+# the flagship at LR 128^2 -> 512^2 under high and default and the ragged
+# LR 101x85 (W padded to 96) under high, each on the kernel path and the
+# twin path (kernels=False, the reference check_srflow_predict holds the
+# kernel path to); every rank's kernel-path strip within
+# parallel.sharded.STRIP_TOL of the single predict's columns of the same
+# padded LR (bitwise at NCCL world 1, kernel path only; hold_spatial holds
+# the twin path's); a rank's launches those of the single predict.  Where
+# a strip leaves the whole image: profiling/spatial_stages.py
+PAR_SPATIAL = (("128x128->512x512", LR, "high"),
+               ("101x85->404x340", SRFLOW_RAGGED_LR, "high"),
+               ("128x128->512x512", LR, "default"))
 
 
 def run_srflow_x16(dev):
@@ -4172,6 +4201,33 @@ def par_inputs():
     return steps, sp, {"lr": lrs}
 
 
+def spatial_inputs():
+    """{tag: the LR image (numpy)} of the spatial predicts (PAR_SPATIAL)."""
+    import numpy as np
+
+    rng = np.random.default_rng(174)
+    imgs = {}
+    for tag, hw, _ in PAR_SPATIAL:
+        if tag not in imgs:
+            imgs[tag] = rng.random((*hw, 3)).astype(np.float32)
+    return imgs
+
+
+def spatial_cases(imgs, mesh):
+    """``run_cases`` entries of the spatial predicts on ``mesh`` (each
+    with its ``tag``): each of PAR_SPATIAL on the kernel path (timed: 2
+    predicts after the first) and the twin path."""
+    cases = []
+    for tag, _, mode in PAR_SPATIAL:
+        for kernels in (True, False):
+            opts = {"kernels": kernels, "mode": mode,
+                    "reps": 2 if kernels else 0}
+            cases.append({"predict": "srflow_sp", "recipe": {"seed": 0},
+                          "inputs": {"lr": imgs[tag]}, "mesh": mesh,
+                          "opts": opts, "tag": tag})
+    return cases
+
+
 def par_cases(steps, sp, lrs, mesh):
     """``run_cases`` entries: the three steps on ``mesh`` (the LINF-LP
     step both dp and sp where the mesh has two ranks), the sp and dp
@@ -4197,11 +4253,14 @@ def run_parallel(dev):
     spread under its input nudged by 1 + GRAD_NUDGE); through the dp
     wrappers on NCCL at world 1 in this process; and on two gloo ranks
     sharing this card (``parallel.mesh.spawn``), with the LINF-LP step
-    also sp 2, the sp predict and the dp SRFlow-LP predict.  Each step's
-    loss and gradients held to the reference as phases 10, 12 and 14 hold
-    the kernel path to the twin path (``hold_par``); each predict's
-    images within PAR_IMAGE_TOL of the single predict's.  Returns {path:
-    launches}."""
+    also sp 2, the sp predict, the dp SRFlow-LP predict and the spatial
+    SRFlow-LP predict (PAR_SPATIAL, its two strips on the two ranks; at
+    world 1 its one strip, the kernel path alone, untimed).  Each step's loss and gradients held to the
+    reference as phases 10, 12 and 14 hold the kernel path to the twin
+    path (``hold_par``); each predict's images within PAR_IMAGE_TOL of
+    the single predict's (``hold_spatial`` for the spatial one, after K3
+    and K5 are held to their twins at its strips' shapes).  Returns
+    ({path: launches}, the strip checks {kernel: [results]})."""
     import tempfile
     from datetime import timedelta
 
@@ -4210,13 +4269,25 @@ def run_parallel(dev):
     import torch.distributed as dist
 
     from bfsr_tpu_torch.parallel.mesh import spawn
-    from bfsr_tpu_torch.parallel.sharded import (build, run_cases,
-                                                 run_predict, run_step)
+    from bfsr_tpu_torch.parallel.sharded import (build, compare_strips,
+                                                 run_cases, run_predict,
+                                                 run_step)
+    from bfsr_tpu_torch.pipelines.srflow_eval import strip_multiple
 
     t0 = time.perf_counter()
     steps, sp, lrs = par_inputs()
+    imgs = spatial_inputs()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     launches, refs, ms = {}, {}, {}
+    # the spatial predict: K3 and K5 at a strip's shapes, and the single
+    # predicts every strip is held to
+    sp_models = build("srflow_sp", {"seed": 0}, "cuda")
+    strip_checks = check_spatial_kernels(
+        sp_models[0], imgs[PAR_SPATIAL[0][0]],
+        strip_multiple(2, sp_models[1]))
+    sp_singles = spatial_singles(sp_models, imgs)
+    log(f"par: spatial set-up (the inputs, the models, K3 / K5 at the "
+        f"strips, the single predicts) in {time.perf_counter() - t0:.1f} s")
     models = {}
     for kind, (opts, key, signs) in PAR_STEPS.items():
         recipe = {"seed": 0, "prime": kind == "srflow_nll"}
@@ -4245,18 +4316,47 @@ def run_parallel(dev):
                      [got], refs[case["step"]])
             launches[f"dp_nccl1_{case['step']}"] = got["launches"]
             ms[case["step"]]["nccl world 1"] = got["ms"]
+        # the spatial predict's one strip: the single predict's code
+        # path (no exchange), so bitwise; the kernel path alone
+        t1 = time.perf_counter()
+        for c in spatial_cases(imgs, {"sp": 1}):
+            tag, o = c["tag"], c["opts"]
+            if not o["kernels"]:
+                continue
+            got = run_predict("srflow_sp", c["recipe"], c["inputs"],
+                              c["mesh"], "cuda", dict(o, reps=0),
+                              models=sp_models)
+            single = sp_singles[tag, o["mode"], True]
+            label = f"par: spatial nccl world 1 {tag} {o['mode']}"
+            compare_strips(single, [got], label, tol=0.0)
+            if got["exchanges"] or got["launches"] != single["launches"]:
+                raise RuntimeError(f"{label}: {got['exchanges']} exchanges, "
+                                   f"launches {got['launches']} (the single "
+                                   f"predict's {single['launches']})")
+            launches[f"srflow_sp_nccl1_rank0_{tag}_{o['mode']}"] = \
+                got["launches"]
+            log(f"{label}: its one strip {got['out'].shape[1]}x"
+                f"{got['out'].shape[2]} bitwise the single predict's, 0 "
+                f"exchanges, launches {json.dumps(got['launches'])}")
+        log(f"par: spatial nccl world 1 in {time.perf_counter() - t1:.1f} s")
     finally:
         dist.destroy_process_group()
-    del models
+    del models, sp_models
     torch.cuda.empty_cache()
     # gloo, world 2, both ranks on this card
     t1 = time.perf_counter()
     cases = par_cases(steps, sp, lrs, {"dp": 2})
-    ranks = spawn(run_cases, 2, "gloo", args=(cases, "cuda"), store_dir=tmp,
-                  init_timeout=120.0, join_timeout=300.0, threads=4,
-                  device="cuda:0")
+    sp_cases = spatial_cases(imgs, {"sp": 2})
+    ranks = spawn(run_cases, 2, "gloo", args=(cases + sp_cases, "cuda"),
+                  store_dir=tmp, init_timeout=120.0, join_timeout=400.0,
+                  threads=4, device="cuda:0")
     log(f"par: gloo world 2 (two ranks sharing this card): spawned, ran "
-        f"{len(cases)} cases and joined in {time.perf_counter() - t1:.1f} s")
+        f"{len(cases) + len(sp_cases)} cases and joined in "
+        f"{time.perf_counter() - t1:.1f} s")
+    log_spatial("par: spatial gloo world 2",
+                [[r[len(cases) + i] for r in ranks]
+                 for i in range(len(sp_cases))], sp_cases, sp_singles,
+                launches)
     for i, case in enumerate(cases):
         got = [r[i] for r in ranks]
         if "step" in case:
@@ -4292,7 +4392,184 @@ def run_parallel(dev):
         log(f"par: ms per step (loss and gradients) {kind}: "
             + ", ".join(f"{k} {v:.1f}" for k, v in by.items()))
     log(f"par: phase 17's sharded part in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, strip_checks
+
+
+def log_spatial(label, results, cases, singles, launches):
+    """``hold_spatial`` of each PAR_SPATIAL case's ranks (``results``: per
+    case of ``cases``, the ranks' results), its kernel path beside its
+    twin path; each rank's launches into ``launches``."""
+    by = {}
+    for case, got in zip(cases, results):
+        o = case["opts"]
+        by[case["tag"], o["mode"], o["kernels"]] = got
+    for tag, _, mode in PAR_SPATIAL:
+        ranks = by[tag, mode, True]
+        log(hold_spatial(label, tag, mode, ranks, by[tag, mode, False],
+                         singles[tag, mode, True], singles[tag, mode, False]))
+        for r, got in enumerate(ranks):
+            launches[f"srflow_sp_gloo2_rank{r}_{tag}_{mode}"] = \
+                got["launches"]
+
+
+def check_spatial_kernels(model, img, multiple):
+    """K3 (f32 and bf16) at the RRDB's conv4 and conv5 and K5 (f32 and the
+    served one-pass form, both ways) at each flow level, at the shapes a
+    strip gives them: rank 0's LR strip of ``img`` padded for two ranks
+    (``multiple``), with its one column of halo for K3 and its two for
+    K5, on the first conditional step of each level and its record.
+    Returns {kernel: [results]}."""
+    import torch
+
+    from bfsr_tpu_torch.ops.cuda import flow_step as k5
+    from bfsr_tpu_torch.ops.halo import STEP_HALO
+    from bfsr_tpu_torch.pipelines.srflow_eval import pad_strips
+
+    lr = pad_strips(torch.as_tensor(img, device="cuda"), multiple)
+    w = lr.shape[2] // 2
+    strip = lr[:, :, :w + 1]
+    results = {}
+    for label, *case in rrdb_k3_cases(model, strip):
+        label = (f"{label.rsplit(' @', 1)[0]} @{strip.shape[1]}x"
+                 f"{strip.shape[2]} (a strip with its halo)")
+        results.setdefault("conv3x3_cat", []).append(check_k3(label, *case))
+        results.setdefault("conv3x3_cat_bf16", []).append(
+            check_k3_bf16(label, *case))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for e, step, rec in first_steps(model, lr):
+        c, hid = e["c"], step.hidden
+        rec = rec[:, :, :rec.shape[2] // 2 + STEP_HALO].contiguous()
+        b, h, w = rec.shape[:3]
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        where = f" strip level {e['level']} ({b}, {h}, {w}, {c})"
+        for form, buf, mode, peak in (
+                (None, step.kpacked, "high", PEAK_F32_FLOPS),
+                (step.step_form, step.kpacked_bf16, "default",
+                 PEAK_BF16_FLOPS)):
+            flops, n_bytes = k5_work(c, hid, (h, w), buf)
+            with precision(mode), torch.inference_mode():
+                if form is None:
+                    fwd = ("flow_step_forward", k5.flow_step_forward_plain)
+                    rev = ("flow_step_reverse", k5.flow_step_reverse_plain)
+                else:
+                    fwd, rev = (k5.BF16_FORMS[form, False],
+                                k5.BF16_FORMS[form, True])
+                y = fwd[1](x, rec, buf, hid)
+                for (name, plain), fn, inp in (
+                        (fwd, k5.flow_step_forward, x),
+                        (rev, k5.flow_step_reverse, y)):
+                    r = compare(
+                        name, lambda: fn(inp, rec, step.kpacked, hid,
+                                         step.kpacked_bf16, step.step_form),
+                        lambda: plain(inp, rec, buf, hid), TOL[name], flops,
+                        f" {form or 'f32'}{where}", n_bytes, peak=peak)
+                    results.setdefault(name, []).append(
+                        dict(r, width=c, shape=[b, h, w]))
+    return results
+
+
+def spatial_singles(models, imgs):
+    """{(tag, mode, kernels): ``run_predict``'s 'srflow_sp' on one process
+    (``SRFlowLPPredictor.run`` on the LR padded for two ranks, which the
+    flagship's 16 columns a rank pad as for one)} of each spatial case;
+    the kernel path's launches held to a predict's (K3 363, K5 48 + 48
+    in the mode's forms)."""
+    from bfsr_tpu_torch.parallel.sharded import run_predict
+    from bfsr_tpu_torch.pipelines.srflow_eval import strip_multiple
+
+    for tag, img in imgs.items():
+        w = img.shape[1]
+        pads = {n: -(-w // strip_multiple(n, models[1]))
+                * strip_multiple(n, models[1]) for n in (1, 2)}
+        if pads[1] != pads[2]:
+            raise ValueError(f"spatial {tag}: one rank pads W to {pads[1]}, "
+                             f"two to {pads[2]}: world 1 has no single "
+                             "predict to match")
+
+    n_cond = sum(e["kind"] == "step_cond" for e in models[0].plan)
+    want = {"high": {"conv3x3_cat": 363, "flow_step_forward": n_cond,
+                     "flow_step_reverse": n_cond},
+            "default": {"conv3x3_cat_bf16": 363,
+                        "flow_step_bf16_forward": n_cond,
+                        "flow_step_bf16_reverse": n_cond}}
+    out = {}
+    for case in spatial_cases(imgs, None):
+        o, tag = case["opts"], case["tag"]
+        single = run_predict("srflow_sp", case["recipe"], case["inputs"],
+                             None, "cuda", dict(o, sp=2), models=models)
+        if o["kernels"] and single["launches"] != want[o["mode"]]:
+            raise RuntimeError(f"spatial single {tag} {o['mode']}: launches "
+                               f"{single['launches']}, expected "
+                               f"{want[o['mode']]}")
+        out[tag, o["mode"], o["kernels"]] = single
+    return out
+
+
+def hold_spatial(label, tag, mode, ranks, twins, single, twin_single):
+    """The spatial predict's ranks (``ranks``: the kernel path's results,
+    ``twins``: the twin path's) against the single predict's
+    (``parallel.sharded.compare_strips``): each rank's kernel-path strip
+    within STRIP_TOL of its columns, its twin-path strip within the limits
+    below, its launches the single predict's, and its kernel path against
+    its twin path at ``check_srflow_predict``'s limits (under default,
+    ``check_srflow_default``'s PSNR floor).  Returns a log line."""
+    import numpy as np
+    import torch
+
+    from bfsr_tpu_torch.parallel.sharded import STRIP_TOL, compare_strips
+    from bfsr_tpu_torch.profiling.mode_agreement import agreement_db
+
+    label = f"{label} {tag} {mode}"
+    errs = compare_strips(single, ranks, f"{label} kernel path")
+    # the twin path's strips: its convs all run on cuDNN, whose sums at a
+    # strip's width may take another order than at the whole image's (the
+    # ragged strips' prior moved 1.5e-8, the decode took it to 1.8e-5,
+    # PERF.md §6), so they are held as check_srflow_predict holds a
+    # path whose sums differ: clipped TOL['srflow_image'], unclipped
+    # TOL['srflow_unclipped_rel'] of the largest value
+    twin_tol = TOL["srflow_unclipped_rel"] * float(
+        np.abs(twin_single["out"]).max())
+    twin_errs = compare_strips(twin_single, twins, f"{label} twin path",
+                               twin_tol)
+
+    def clipped(res):
+        return dict(res, out=np.clip(res["out"], 0, 1))
+
+    compare_strips(clipped(twin_single), [clipped(t) for t in twins],
+                   f"{label} twin path clipped", TOL["srflow_image"])
+    paths = []
+    for r, (got, twin) in enumerate(zip(ranks, twins)):
+        if got["launches"] != single["launches"]:
+            raise RuntimeError(f"{label}: rank {r} launches "
+                               f"{got['launches']}, the single predict's "
+                               f"{single['launches']}")
+        k, t = torch.as_tensor(got["out"]), torch.as_tensor(twin["out"])
+        kc, tc = k.clamp(0, 1), t.clamp(0, 1)
+        if mode == "default":
+            db = agreement_db(kc, tc)
+            ok, vs = db >= TOL["srflow_default_twin_db"], (
+                f"{db:.3f} dB (floor {TOL['srflow_default_twin_db']:g})")
+        else:
+            err = float((kc - tc).abs().max())
+            rel = float((k - t).abs().max()) / float(t.abs().max())
+            ok = (err <= TOL["srflow_image"]
+                  and rel <= TOL["srflow_unclipped_rel"])
+            vs = (f"max abs {err:.3e} (tol {TOL['srflow_image']:g}), "
+                  f"unclipped rel {rel:.3e} (tol "
+                  f"{TOL['srflow_unclipped_rel']:g})")
+        if not (ok and torch.isfinite(k).all()):
+            raise RuntimeError(f"{label}: rank {r} kernel path vs twin path "
+                               f"{vs}")
+        paths.append(f"rank {r}: {got['ms']:.1f} ms, {got['exchanges']} "
+                     f"exchanges, {got['bytes']} bytes; kernel vs twin "
+                     f"path {vs}")
+    return (f"{label}: {len(ranks)} strips of "
+            f"{ranks[0]['out'].shape[1]}x{ranks[0]['out'].shape[2]}, each "
+            f"within {max(errs):.3e} of the single predict's columns (tol "
+            f"{STRIP_TOL:g}; single {single['ms']:.1f} ms), the twin path's "
+            f"within {max(twin_errs):.3e} of its single predict's (tol "
+            f"{twin_tol:.3e}); launches "
+            f"{json.dumps(ranks[0]['launches'])} a rank; " + "; ".join(paths))
 
 
 def hold_par(label, kind, ranks, ref):
@@ -4519,7 +4796,8 @@ def main():
     # --- SRFlow at 16x; the dp / sp wrappers on NCCL and gloo ---
     t17 = time.perf_counter()
     launches.update(run_srflow_x16(dev))
-    launches.update(run_parallel(dev))
+    par_launches, strip_checks = run_parallel(dev)
+    launches.update(par_launches)
     log(f"phase 17 in {time.perf_counter() - t17:.1f} s")
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
         "build included")
@@ -4570,6 +4848,14 @@ def main():
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}
                 for r in x8_checks[name]]
+        if name in strip_checks:
+            # phase 17: K3 (both forms) and K5 (f32 and the served one-pass
+            # form) at the shapes of the spatial predict's strips with
+            # their halos (rank 0 of two at 512^2)
+            kernels[-1]["strip_checks"] = [
+                {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in strip_checks[name]]
     log(f"plain convs (no K3 takes their Cout): {json.dumps(plain_convs)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

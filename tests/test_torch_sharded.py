@@ -59,7 +59,6 @@ from bfsr_tpu_torch.entry import dryrun_multichip, srflow_specs
 from bfsr_tpu_torch.parallel.mesh import spawn
 from bfsr_tpu_torch.parallel.sharded import (check_against_single, run_cases,
                                              state_of)
-from bfsr_tpu_torch.pipelines.srflow_eval import SRFlowSpatialPredictor
 from bfsr_tpu_torch.profiling import multiproc_dryrun
 
 from test_torch_predictor import _models as linf_predict_models
@@ -319,20 +318,15 @@ def test_srflow_dp_predict_one_lr_a_rank(runs):
     np.testing.assert_allclose(got, ref, atol=5e-3, rtol=0)
 
 
-def test_spatial_predictor_refuses_by_name():
-    """One image sharded over its width (GSPMD's halo exchanges in the JAX
-    package) is ROADMAP's slice 7b."""
-    with pytest.raises(NotImplementedError, match="7b"):
-        SRFlowSpatialPredictor(None, None)
-
-
 def test_dryrun_multichip_2(tmp_path):
     """The three sharded steps at n = 2 against one process each, then the
-    spatial predict's refusal."""
+    spatial SRFlow predict (one LR of 16 x 16 over sp 2) against one
+    process."""
     lines = dryrun_multichip(2, store_dir=tmp_path)
     assert len(lines) == 4 and "dp2xsp1" in lines[0]
     assert all("2 ranks agree" in line for line in lines[:3])
-    assert "7b" in lines[3]
+    assert "spatial SRFlow predict" in lines[3] and "sp2" in lines[3]
+    assert "of one process (tol 1e-05)" in lines[3]
 
 
 def test_multiproc_dryrun(tmp_path):
