@@ -4,7 +4,10 @@
 
 Prints the torch and CUDA versions and the state of the kernel library
 (``ops.cuda.library()``: built from ``bfsr_tpu_torch/csrc`` at first use,
-and its build seconds), then runs a small LINF-LP learned-prior predict
+and its build seconds) and of the native host library (``native.library()``,
+built from ``csrc/host`` at first use on either device: the data wrappers'
+residuals run on it; a failed build fails the check) with one residual
+against its numpy twin, then runs a small LINF-LP learned-prior predict
 (LR 8^2 -> HR 32^2) and a small SRFlow encode / decode roundtrip (GT 16^2
 over LQ 4^2, max abs error under 1e-2, as the JAX selfcheck holds it).
 The models are the smallest the kernels take (K2's hidden 128, K3's Cout
@@ -31,6 +34,7 @@ SRFLOW_SPEC = {"name": "srflow", "args": {
     "nf": 8, "nb": 2, "gc": 8, "K": 2, "L": 3, "hidden_channels": 64,
     "stack_blocks": (0, 1)}}
 ROUNDTRIP_TOL = 1e-2
+NATIVE_TOL = 5e-6  # tests/test_native.py's limit on the residual
 
 
 def main(argv=None):
@@ -46,7 +50,8 @@ def main(argv=None):
                            "(torch.cuda.is_available() is false); pass "
                            "--device cpu to check the plain twins")
 
-    from bfsr_tpu_torch import registry
+    from bfsr_tpu_torch import native, registry
+    from bfsr_tpu_torch.data.wrappers import residuals, residuals_np
     from bfsr_tpu_torch.entry import build_linf
     from bfsr_tpu_torch.models.base import seeded
     from bfsr_tpu_torch.ops import cuda
@@ -62,6 +67,15 @@ def main(argv=None):
     cuda.reset_launch_counts()
 
     rng = np.random.default_rng(0)
+    native.library()
+    lr = rng.random((8, 8, 3)).astype(np.float32)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(
+        residuals(lr, (32, 32)), residuals_np(lr, (32, 32))))
+    if not err <= NATIVE_TOL:
+        raise RuntimeError(f"native residual: {err:.3e} from its numpy twin")
+    print(f"native host library: built and loaded in "
+          f"{native.build_seconds:.2f} s; a residual within {err:.1e} of "
+          "its numpy twin")
 
     def tensor(a):
         return torch.as_tensor(a.astype(np.float32), device=device)

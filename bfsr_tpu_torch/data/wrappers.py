@@ -58,6 +58,10 @@ without replacement); ``sr-implicit-downsampled-fast-patch`` keeps its
 queries laid out (``inp_size``, ``inp_size``) as a random subset of the
 HR grid, as ``sr-implicit-downsampled-fast`` does.
 
+Every wrapper computes its up-down-up residual with ``residuals``, on the
+native host library (``native.updownup_residual``), as the JAX wrappers
+do where their library is built; ``residuals_np`` is its numpy twin.
+
 ``batches(dataset)`` adds the batch axis, as the JAX package's loader does
 at batch size 1.
 """
@@ -67,6 +71,7 @@ import random
 
 import numpy as np
 
+from bfsr_tpu_torch import native
 from bfsr_tpu_torch.data.np_interp import resize_bilinear_np, resize_fn_pil
 from bfsr_tpu_torch.registry import register
 from bfsr_tpu_torch.utils.coords import make_cell, make_coord
@@ -81,7 +86,15 @@ def updownup_residual(img_lr, hr_hw):
 def residuals(crop_lr, hr_hw):
     """(lr_up, up-down-up residual) of an LR crop at the HR size: the LR
     normalised to [-1, 1], bilinear up to ``hr_hw``, and its difference
-    from its up-down-up copy; float32."""
+    from its up-down-up copy; float32, from the native host library
+    (``native.updownup_residual``)."""
+    return native.updownup_residual((crop_lr - 0.5) / 0.5, hr_hw)
+
+
+def residuals_np(crop_lr, hr_hw):
+    """``residuals``' plain numpy twin (three ``resize_bilinear_np``;
+    within ~3e-7 of it: the native code interpolates x first and may fuse
+    multiply-adds)."""
     lr_up = resize_bilinear_np((crop_lr - 0.5) / 0.5, hr_hw)
     lr_up_down = resize_bilinear_np(lr_up, crop_lr.shape[:2])
     return (lr_up.astype(np.float32),

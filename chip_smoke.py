@@ -16,7 +16,8 @@ K 16 / L 3 / hidden 64, two-branch UNet prior depth 3 / dim 64) — and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. a CUDA device must be present; prints the card's name and power limit;
-2. builds every kernel from ``bfsr_tpu_torch/csrc`` (prints the seconds);
+2. builds every kernel from ``bfsr_tpu_torch/csrc`` (prints the seconds),
+   then runs phase 18, the native host library, before phase 3;
 3. holds each kernel against its plain PyTorch twin on the card at the
    main path's shapes (K1 forward/inverse, K2 at 128^2 -> 512^2 and a
    ragged shape, K3 at the encoder's and the UNet's full-resolution
@@ -97,8 +98,10 @@ fails (non-zero exit, no result line) if any phase fails:
    0.5 (``TRAIN_TOL``); runs 20 steps (finite
    losses, every parameter moved; the first and last loss printed, not
    gated: the VGG is random); times steps on resident batches (kernel and
-   twin paths interleaved) and fed by the port's ``DataLoader``, splits a
-   step into its stages, profiles one and prints its peak memory;
+   twin paths interleaved) and fed by the port's ``DataLoader`` (the
+   samples' residuals from the native host library, then from its numpy
+   twin, each beside the resident rate), splits a step into its stages,
+   profiles one and prints its peak memory;
 11. the LINF-LP patch trainer (``train.py --patch 3``: the patch model of
    phase 6, its UNet at in_chans 27, the VGG19 and Adam of phase 10) on
    batches of 16 synthetic samples in the crop-patch wrapper's layout (LR
@@ -110,8 +113,9 @@ fails (non-zero exit, no result line) if any phase fails:
    through the twin; one step's loss and gradients on both paths with the
    launch counters reset (K3 34, K2 1, K4 1 + 1; K4 forward 2 with the
    latent loss, a second check; K1 0), held as phase 10 holds them; 20
-   steps, steps/s resident and loader-fed, the stage split, a profile and
-   peak memory; then both trainers under ``mixed`` and ``default``: one
+   steps, steps/s resident and loader-fed (native residual and numpy
+   twin, as phase 10), the stage split, a profile and peak memory; then
+   both trainers under ``mixed`` and ``default``: one
    step each with the counters reset (the encoder's 34 convs on the f32 K3
    under ``mixed``, on the bf16 K3 under ``default``), its frozen part
    held launch by launch against the twins on the step's own values (each
@@ -156,7 +160,9 @@ fails (non-zero exit, no result line) if any phase fails:
    the patch model through ``sr-implicit-downsampled-fast-patch-test``;
    one DIV2K-size frame (HR 2040x1356, LR 510x339) on both paths (PSNR,
    and the image within ``TOL['image']``), its ms per image, HR MP/s and
-   peak memory; (b) validation: ``eval_psnr`` over 2 batches of 16 val
+   peak memory, and ``cli/test.py``'s seconds for it with the residual
+   from the native host library and from its numpy twin (PSNRs within
+   ``TOL['eval_psnr_db']``); (b) validation: ``eval_psnr`` over 2 batches of 16 val
    crops (``sr-implicit-downsampled-fast`` at ``inp_size`` 48), each
    query at its own coordinate, on both paths (PSNR, and the first
    batch's images within ``TOL['image']``), the seconds a batch; one
@@ -203,8 +209,9 @@ fails (non-zero exit, no result line) if any phase fails:
    memory; (B) the flagship with the ``swin_latent`` prior: the predict
    against the twin path (K3 34), timed and profiled, the cuDNN times of
    the 96-wide dense convs no K3 takes, and one step with stochastic depth
-   on both paths from the same generator state, held as phase 10 holds
-   its step; a loader-fed ``cli/train.py`` epoch of
+   on both paths from the same generator state, held as phase 12 holds
+   its step (the twin's spread the larger under gt_lr_up x (1 +- 1e-7));
+   a loader-fed ``cli/train.py`` epoch of
    ``train_rrdb-linf-LP.yaml`` as shipped over DF2K-size PNGs it writes
    (K3 345 a step); the SwinIR- and RDN-encoder LINFs and the flagship
    with ``edsr-baseline-latent`` (K3 34 + 42), each predict against the
@@ -258,7 +265,21 @@ fails (non-zero exit, no result line) if any phase fails:
    ``check_srflow_predict`` holds a path, its kernel path against its
    twin path likewise, its launches the single predict's: K3 363, K5 48
    + 48); each rank's ms, exchanges and bytes.  It prints the phase's
-   seconds and the run's.
+   seconds and the run's;
+18. (run after phase 2) the native host library (``bfsr_tpu_torch/
+   native.py``, built with ``g++ -fopenmp`` from ``csrc/host/
+   bfsr_native.cc``): the host CPU (``lscpu``) and cores, then at the
+   pixel trainer's crop (LR 48^2 -> 192^2), the patch trainer's (144^2 ->
+   576^2) and a DIV2K frame (510x339 -> 2040x1356) the up-down-up
+   residual against ``wrappers.residuals_np`` (lr_up 3e-6, the residual
+   5e-6), the bilinear resize with and without ``align_corners`` against
+   ``resize_bilinear_np`` (2e-6) and the bicubic down against the float64
+   ``imresize`` (1e-5; ``NATIVE_TOL``), each with its host ms beside the
+   twin's; then the loader profile (``profiling/loader_times.py``): one
+   crop sample of each trainer's real wrapper split into its host stages,
+   and ``DataLoader`` batches/s with the residual from the native library
+   and from its numpy twin.  Nothing of it enters the ``{"kernels":
+   ...}`` line.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -429,6 +450,16 @@ MODE_TRAIN_TOL = {"vs_high_rel": 1e-2, "loss_rel": 2.0 ** -10}
 # over 36,864 queries; the info at each query's own coords is plain torch,
 # no K2) and the srflow_test.py twin's
 EVAL_HR, EVAL_SCALE, EVAL_DIV2K_HR = (192, 256), 4, (1356, 2040)
+# phase 18: the native host library (bfsr_tpu_torch/native.py) at the
+# pixel trainer's crop, the patch trainer's and a DIV2K frame (LR -> HR),
+# held to its twins within tests/test_native.py's limits: the bilinear
+# resize and lr_up against resize_bilinear_np, the residual against
+# wrappers.residuals_np, the bicubic against the float64 imresize
+NATIVE_SHAPES = [("pixel crop", (48, 48), (192, 192)),
+                 ("patch crop", (144, 144), (576, 576)),
+                 ("div2k frame", (339, 510), (1356, 2040))]
+NATIVE_TOL = {"bilinear": 2e-6, "lr_up": 3e-6, "residual": 5e-6,
+              "bicubic": 1e-5}
 VAL_BATCH, VAL_BATCHES, VAL_INP = 16, 2, 48
 EVAL_LAUNCHES = {
     "test": {"conv3x3_cat": 43, "linf_info": 1, "linf_flow_forward": 1,
@@ -1497,6 +1528,79 @@ def check_patch_eval(model, prior):
 
 
 # ---------------------------------------------------------------------------
+# the native host library
+# ---------------------------------------------------------------------------
+
+
+def host_ms(fn, reps):
+    """Median host ms of ``reps`` calls of ``fn`` after one warm-up."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def run_native():
+    """Phase 18: the native host library against its twins at
+    ``NATIVE_SHAPES`` (max abs error and host ms of each), then the loader
+    profile (``profiling/loader_times.py``)."""
+    import numpy as np
+
+    from bfsr_tpu_torch import native
+    from bfsr_tpu_torch.data.np_interp import resize_bilinear_np
+    from bfsr_tpu_torch.data.wrappers import residuals, residuals_np
+    from bfsr_tpu_torch.ops.imresize import imresize
+    from bfsr_tpu_torch.profiling import loader_times
+
+    t0 = time.perf_counter()
+    native.library()
+    cpu, cores = loader_times.host_cpu()
+    log(f"native: {native.SOURCE.relative_to(ROOT)} built and loaded in "
+        f"{native.build_seconds:.2f} s; host CPU {cpu!r}, {cores} logical "
+        "cores")
+    rng = np.random.default_rng(0)
+    bad = []
+    for label, lr_hw, hr_hw in NATIVE_SHAPES:
+        lr = rng.random((*lr_hw, 3)).astype(np.float32)
+        hr = rng.random((*hr_hw, 3)).astype(np.float32)
+        reps = 3 if hr_hw[0] * hr_hw[1] > 1e6 else 10
+        cases = [
+            ("residual", lambda: residuals(lr, hr_hw),
+             lambda: residuals_np(lr, hr_hw), ("lr_up", "residual")),
+            ("bilinear up", lambda: native.bilinear_resize(lr, hr_hw),
+             lambda: resize_bilinear_np(lr, hr_hw), ("bilinear",)),
+            ("bilinear up align_corners",
+             lambda: native.bilinear_resize(lr, hr_hw, True),
+             lambda: resize_bilinear_np(lr, hr_hw, True), ("bilinear",)),
+            ("bicubic down", lambda: native.bicubic_resize(hr, lr_hw),
+             lambda: imresize(hr.astype(np.float64), output_shape=lr_hw),
+             ("bicubic",))]
+        for name, fn, twin, keys in cases:
+            got, ref = fn(), twin()
+            got, ref = ((got,), (ref,)) if len(keys) == 1 else (got, ref)
+            errs = []
+            for k, g, r in zip(keys, got, ref):
+                err = (float(np.abs(g - r).max()) if g.shape == r.shape
+                       and g.dtype == np.float32 else float("inf"))
+                errs.append(err)
+                if not (np.isfinite(g).all() and err <= NATIVE_TOL[k]):
+                    bad.append(f"{label} {name} {k}: {err:.3e}")
+            log(f"native {label} {lr_hw} <-> {hr_hw} {name}: max abs err "
+                + ", ".join(f"{k} {e:.3e} (tol {NATIVE_TOL[k]:g})"
+                            for k, e in zip(keys, errs))
+                + f"; host {host_ms(fn, reps):.3f} ms, twin "
+                f"{host_ms(twin, 1 if name == 'bicubic down' else reps):.3f}"
+                " ms")
+    if bad:
+        raise RuntimeError(f"native: disagrees with its twins: {bad}")
+    loader_times.run(reps=5, log=log)
+    log(f"native: phase 18 in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # the LINF-LP trainer
 # ---------------------------------------------------------------------------
 
@@ -1906,6 +2010,7 @@ def exercise_trainer(linf, prior, vgg, batches, tag, shape, patch=False):
 
     from bfsr_tpu_torch.data.loader import DataLoader
     from bfsr_tpu_torch.pipelines.linf_train import make_train_step
+    from bfsr_tpu_torch.profiling.loader_times import residual_path
     from bfsr_tpu_torch.train.optim import make_optimizer
 
     opt = make_optimizer({"name": "adam", "args": {"lr": 1e-4}},
@@ -1932,17 +2037,24 @@ def exercise_trainer(linf, prior, vgg, batches, tag, shape, patch=False):
     medians = time_steps({k: (lambda s=s: s(batches[next(it) % 4]))
                           for k, s in steps.items()},
                          f"{tag} {shape} resident")
-    loader = DataLoader(SyntheticCrops(10 * TRAIN_BATCH, patch=patch),
-                        TRAIN_BATCH, shuffle=True, num_workers=4, seed=0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in loader:
-        steps["kernel"](b)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    log(f"time {tag} B={TRAIN_BATCH} loader-fed kernel path: 10 steps in "
-        f"{wall * 1e3:.3f} ms, {10 / wall:.3f} steps/s ({wall * 100:.3f} "
-        f"ms/step; the DataLoader's 4 threads making the batches)")
+    # loader-fed: the samples' residuals from the native host library (as
+    # every wrapper computes them), then from its numpy twin
+    for residual in ("native", "numpy"):
+        with residual_path(residual):
+            loader = DataLoader(SyntheticCrops(10 * TRAIN_BATCH, patch=patch),
+                                TRAIN_BATCH, shuffle=True, num_workers=4,
+                                seed=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in loader:
+                steps["kernel"](b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log(f"time {tag} B={TRAIN_BATCH} loader-fed kernel path, residual "
+            f"{residual}: 10 steps in {wall * 1e3:.3f} ms, {10 / wall:.3f} "
+            f"steps/s ({wall * 100:.3f} ms/step; the DataLoader's 4 threads "
+            f"making the batches); resident {1e3 / medians['kernel']:.3f} "
+            "steps/s")
     for k in ("kernel", "twin"):
         train_stages(lambda marks, k=k: make_train_step(
             linf, prior, vgg, opt, kernels=k == "kernel", marks=marks),
@@ -2694,6 +2806,45 @@ def eval_div2k_frame(tmp, dev, model, prior):
     fn, ms = time_eval_predict((model, prior), lr_dir, hr_dir, dev,
                                "eval div2k")
     profile_predict(fn, ms, "eval div2k 2040x1356", top=8)
+    time_div2k_cli(tmp, lr_dir, hr_dir)
+
+
+def time_div2k_cli(tmp, lr_dir, hr_dir):
+    """Phase 13 (a): ``cli/test.py``'s seconds for the DIV2K-size frame on
+    the kernel path (checkpoint load, PNG decode, wrapper, predict,
+    metrics), its residual from the native host library and from the numpy
+    twin, in the order native, twin, twin, native; the checkpoints and the
+    ``test-fast-div2k-4`` config ``eval_test_cli`` wrote, the config's
+    paths rewritten to the frame."""
+    import os
+
+    import yaml
+
+    from bfsr_tpu_torch.profiling.loader_times import residual_path
+
+    with open(os.path.join(tmp, "test-fast-div2k-4.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["test_dataset"]["dataset"]["args"].update(root_path_1=lr_dir,
+                                                  root_path_2=hr_dir)
+    path = os.path.join(tmp, "div2k-frame.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    argv = ["--config", path, "--model", os.path.join(tmp, "model.ckpt"),
+            "--prior_model", os.path.join(tmp, "prior.ckpt")]
+    secs, psnr = {"native": [], "numpy": []}, {}
+    for residual in ("native", "numpy", "numpy", "native"):
+        with residual_path(residual):
+            t0 = time.perf_counter()
+            psnr[residual] = run_test_cli(argv, True)
+            secs[residual].append(time.perf_counter() - t0)
+    log("time eval test.py div2k frame (1 image, kernel path): " + "; ".join(
+        f"residual {k} {statistics.mean(v):.3f} s an image (runs "
+        f"{[round(t, 3) for t in v]}), psnr {psnr[k]!r}"
+        for k, v in secs.items()))
+    if not abs(psnr["native"] - psnr["numpy"]) <= TOL["eval_psnr_db"]:
+        raise RuntimeError(f"eval test.py div2k frame: native residual "
+                           f"{psnr['native']} vs numpy twin {psnr['numpy']} "
+                           "dB")
 
 
 def eval_validation(tmp, dev, model, prior, launches):
@@ -3508,8 +3659,9 @@ def swin_step_check(linf, prior, vgg, batch, label):
     """One step of the Swin prior's trainer with stochastic depth: the
     kernel path and the twin path from the same generator state (the same
     keep masks), the loss finite and within TRAIN_TOL, the gradients
-    within the twin path's own spread under ``gt_lr_up`` nudged (drawn
-    from that state too).  Returns (launches, the generator)."""
+    within the twin path's own spread, the larger under ``gt_lr_up`` x (1
+    +- GRAD_NUDGE) (each drawn from that state too), as phase 12 holds its
+    step.  Returns (launches, the generator)."""
     import torch
 
     from bfsr_tpu_torch.pipelines.linf_train import make_train_step, to_device
@@ -3526,14 +3678,17 @@ def swin_step_check(linf, prior, vgg, batch, label):
         lambda: steps[True].loss_and_grads(batch))
     gen.set_state(state)
     ref, ref_grads, _ = steps[False].loss_and_grads(batch)
-    gen.set_state(state)
-    nudged = steps[False].loss_and_grads(dict(
-        batch, gt_lr_up=batch["gt_lr_up"] * (1 + GRAD_NUDGE)))
+    nudged = []
+    for sign in (1, -1):
+        gen.set_state(state)
+        nudged.append(steps[False].loss_and_grads(dict(
+            batch, gt_lr_up=batch["gt_lr_up"] * (1 + sign * GRAD_NUDGE)))[1])
     if launches != {k: v for k, v in TRAIN_LAUNCHES.items()}:
         raise RuntimeError(f"{label}: launches {launches}, expected "
                            f"{TRAIN_LAUNCHES}")
-    hold_step(label, mets, grads, ref, ref_grads, [nudged[1]],
-              f"gt_lr_up x {1 + GRAD_NUDGE:.9g}, the same keep masks")
+    hold_step(label, mets, grads, ref, ref_grads, nudged,
+              f"the larger of gt_lr_up x (1 +- {GRAD_NUDGE:g}), the same "
+              "keep masks")
     # a second draw gives other masks: the loss moves
     again = steps[True].loss_and_grads(batch)[0]["loss"]
     log(f"{label}: launches {launches}; loss {float(mets['loss'])!r}, with "
@@ -4631,6 +4786,9 @@ def main():
         for line in ptxas.read_text().splitlines():
             if any(k in line for k in ("entry function", "registers", "spill")):
                 log(f"ptxas: {line.strip()}")
+
+    # --- phase 18, run here: the native host library, the loader profile
+    run_native()
 
     # --- LINF-LP ---
     dev = torch.device("cuda")

@@ -182,6 +182,7 @@ def test_selfcheck_cpu(capsys):
     selfcheck.main(["--device", "cpu"])
     out = capsys.readouterr().out
     assert "roundtrip: OK" in out and "selfcheck passed" in out
+    assert "native host library: built" in out
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

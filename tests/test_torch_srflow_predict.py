@@ -111,7 +111,8 @@ def test_live_random_flow_is_live_and_stable():
 
 def test_port_imports_no_jax_with_jax_blocked():
     """Every module of bfsr_tpu_torch and chip_smoke.py import with jax and
-    bfsr_tpu made unimportable."""
+    bfsr_tpu made unimportable, and the native host library builds, loads
+    and computes a residual."""
     code = (
         "import pkgutil, sys, importlib\n"
         "for m in ('jax', 'jaxlib', 'bfsr_tpu'):\n"
@@ -133,6 +134,12 @@ def test_port_imports_no_jax_with_jax_blocked():
         "          'models.swin_latent', 'models.edsr_latent', 'models.rdn',\n"
         "          'models.mlp', 'data.image_folder'):\n"
         "    assert 'bfsr_tpu_torch.' + m in names, m\n"
+        "from bfsr_tpu_torch import native\n"
+        "import numpy as np\n"
+        "up, res = native.updownup_residual(np.ones((4, 3, 3), np.float32),\n"
+        "                                   (8, 6))\n"
+        "assert up.shape == res.shape == (8, 6, 3)\n"
+        "assert (up == 1).all() and (res == 0).all()\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.startswith('jax') or m.startswith('bfsr_tpu.'))]\n"
         "assert not bad, bad\n")
