@@ -108,6 +108,28 @@ def make_optimizer(spec, params):
     raise ValueError(spec["name"])
 
 
+def clip_by_global_norm(optimizer, max_norm):
+    """``optimizer``, each of whose steps first scales every gradient by
+    ``max_norm / max(norm, max_norm)``, the norm the global L2 norm over
+    every parameter that has a gradient, no epsilon: optax's
+    ``clip_by_global_norm`` (``(g / norm) * max_norm`` where norm >=
+    max_norm), up to the rounding of the one factor;
+    ``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``.  Below
+    the limit the factor is exactly 1.  A step pre-hook: the trainers and
+    ``lr_scheduler`` take the optimizer as before, and nothing waits on
+    the host for the norm."""
+    def clip(opt, args, kwargs):
+        grads = [p.grad for group in opt.param_groups
+                 for p in group["params"] if p.grad is not None]
+        if grads:
+            norm = torch.nn.utils.get_total_norm(grads)
+            torch._foreach_mul_(grads, max_norm / torch.clamp(norm,
+                                                              min=max_norm))
+
+    optimizer.register_step_pre_hook(clip)
+    return optimizer
+
+
 def share_step_count(optimizer):
     """Before ``optimizer.step()``: each parameter that has a gradient but
     no state yet gets zero moments and the step count of the others (the

@@ -279,7 +279,24 @@ fails (non-zero exit, no result line) if any phase fails:
    crop sample of each trainer's real wrapper split into its host stages,
    and ``DataLoader`` batches/s with the residual from the native library
    and from its numpy twin.  Nothing of it enters the ``{"kernels":
-   ...}`` line.
+   ...}`` line;
+19. the learning curves (``bfsr_tpu_torch/profiling/train_curve.py``,
+   ``srflow_train_curve.py``, ``prior_train_curve.py``) at full width on
+   the kernels, each on the synthetic but learnable task of
+   ``profiling/learnable_task.py`` (GT = the LR's bilinear-up plus a fixed
+   checker): the LINF-LP prior (B 16 of 48^2 LR x2, latent L1) for 800
+   steps, the SRFlow NLL (B 12 of 160^2 GT, the RRDB frozen on K3, Adam
+   behind ``clip_by_global_norm(10)``) and the SRFlow-LP prior (fresh
+   pairs each step, made on the card) for 200 each (``CURVE_STEPS``).
+   Held (``hold_curve``): every loss and held-out metric finite, every
+   step's launches those of a step of phases 10 (less the VGG term's K1
+   inverse), 14 and 12 (``CURVE_LAUNCHES``), and
+   ``tests/test_torch_convergence.py``'s margins (``CURVE_HOLDS``): the
+   loss's fall and the trained weights' held-out PSNR (and NLL) against
+   the initial weights and no prior.  It prints each curve's loss at the
+   JAX scripts' marks, ms a step, its held-out metrics beside the card's
+   name and power limit, and the phase's seconds.  Nothing of it enters
+   the ``{"kernels": ...}`` line.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 route, source, the TPU kernel it replaces, its launches in its paths'
@@ -4748,6 +4765,108 @@ def hold_par(label, kind, ranks, ref):
         + ", ".join(f"{g['ms']:.1f}" for g in ranks) + " ms")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the learning curves
+# ---------------------------------------------------------------------------
+
+# each curve's steps (the JAX curves had dropped ~10x / ~27 bits / ~2x by
+# step 100; the LINF prior's held-out PSNR passes no prior's only once its
+# loss leaves the plateau it holds from ~step 50 to ~500: against 19.94 dB
+# it read 18.39 after 300 steps, 20.37 after 600, 22.73 after 700 and
+# 24.63 after 800, PERF.md §6) and a step's launches: phase 10's step
+# with the latent loss less the VGG term's decode (K1's inverse), phase
+# 14's frozen step (BASE_TRAIN_LAUNCHES), phase 12's step with the image
+# loss
+CURVE_STEPS = {"linf": 800, "srflow": 200, "prior": 200}
+CURVE_LAUNCHES = {
+    "linf": {**{k: v for k, v in TRAIN_LAUNCHES.items()
+                if k != "linf_flow_inverse"}, "linf_flow_forward": 2},
+    "srflow": dict(BASE_TRAIN_LAUNCHES),
+    "prior": {"conv3x3_cat": 345, "flow_step_forward": 96,
+              "flow_step_reverse": 48}}
+# the earlier phases' counts of the same steps, where main() has them
+CURVE_EARLIER = {"srflow": "srflow_base_train",
+                 "prior": "srflow_train_image"}
+# tests/test_torch_convergence.py's holds on the mean of the last 10
+# losses against the first 5 (a ratio, or a drop in bits/dim for the NLL)
+# and on the trained weights' held-out margins over each baseline (PSNR in
+# dB above it, NLL in bits/dim below it)
+CURVE_HOLDS = {
+    "linf": {"ratio": 0.25, "psnr": {"no prior": 1.0, "init": 1.0}},
+    "srflow": {"drop": 1.0, "psnr": {"init": 1.0}, "nll": {"init": 1.0}},
+    "prior": {"ratio": 0.5, "psnr": {"no prior": 2.0, "init": 2.0}}}
+
+
+def hold_curve(name, curve, want):
+    """A curve's holds: every loss and held-out metric finite, every
+    step's launches ``want``, the loss's fall and each held-out margin of
+    CURVE_HOLDS.  Raises on the first that fails."""
+    import math
+
+    from bfsr_tpu_torch.profiling import learnable_task
+
+    losses = curve["losses"]
+    metrics = [v for vs in curve["held_out"].values() for v in vs.values()]
+    if not all(math.isfinite(v) for v in losses + metrics):
+        raise RuntimeError(f"curve {name}: a loss or held-out metric is not "
+                           f"finite: {curve['held_out']}")
+    off = [(i, n) for i, n in enumerate(curve["launches"]) if n != want]
+    if off:
+        raise RuntimeError(f"curve {name}: {len(off)} of {len(losses)} steps "
+                           f"launched other than {want} a step, first "
+                           f"{off[:3]}")
+    first, last = learnable_task.summary(losses, 5, 10)
+    hold = CURVE_HOLDS[name]
+    held = []
+    if "ratio" in hold:
+        held.append((f"last 10 / first 5 {last / first!r} < {hold['ratio']}",
+                     last < hold["ratio"] * first))
+    if "drop" in hold:
+        held.append((f"first 5 - last 10 {first - last!r} > {hold['drop']}",
+                     last < first - hold["drop"]))
+    for metric, sign in (("psnr", 1.0), ("nll", -1.0)):
+        values = curve["held_out"].get(metric, {})
+        for base, margin in hold.get(metric, {}).items():
+            gain = sign * (values["trained"] - values[base])
+            held.append((f"{metric} trained - {base} {sign * gain!r} "
+                         f"{'>' if sign > 0 else '<'} {sign * margin:g}",
+                         gain > margin))
+    failed = [what for what, ok in held if not ok]
+    if failed:
+        raise RuntimeError(f"curve {name}: {'; '.join(failed)}")
+    log(f"curve {name}: held: {len(losses)} steps of {want} launches each; "
+        + "; ".join(what for what, _ in held))
+
+
+def run_curves(dev, earlier=None):
+    """Phase 19: the three learning curves at full width on the kernels
+    (``bfsr_tpu_torch/profiling/*train_curve.py``), each held by
+    ``hold_curve``; ``earlier``: main()'s launches by path, whose steps of
+    phases 12 and 14 must have launched what a curve's step does."""
+    import torch
+
+    from bfsr_tpu_torch.profiling import (prior_train_curve,
+                                          srflow_train_curve, train_curve)
+
+    t19 = time.perf_counter()
+    for name, curve_module in (("linf", train_curve),
+                               ("srflow", srflow_train_curve),
+                               ("prior", prior_train_curve)):
+        want = CURVE_LAUNCHES[name]
+        key = CURVE_EARLIER.get(name)
+        if earlier and key in earlier and earlier[key] != want:
+            raise RuntimeError(f"curve {name}: the earlier phases' step "
+                               f"{key!r} launched {earlier[key]}, a curve "
+                               f"step expects {want}")
+        t0 = time.perf_counter()
+        curve = curve_module.run(CURVE_STEPS[name], dev, log=log)
+        hold_curve(name, curve, want)
+        log(f"curve {name}: {time.perf_counter() - t0:.1f} s")
+        del curve
+        torch.cuda.empty_cache()
+    log(f"phase 19 in {time.perf_counter() - t19:.1f} s")
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -4957,6 +5076,9 @@ def main():
     par_launches, strip_checks = run_parallel(dev)
     launches.update(par_launches)
     log(f"phase 17 in {time.perf_counter() - t17:.1f} s")
+
+    # --- the learning curves ---
+    run_curves(dev, launches)
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all, the kernels' "
         "build included")
 

@@ -3,9 +3,18 @@
 numpy twin and against the JAX package's ``bfsr_tpu.native`` on the same
 inputs, the wrappers that compute their residuals with it against the JAX
 wrappers, a concurrent build from an empty build directory, and a failing
-build, which raises instead of falling back to numpy."""
+build, which raises instead of falling back to numpy.
+
+The comparisons with ``bfsr_tpu.native`` build its source,
+``native/bfsr_native.cc``, with ``native/Makefile``'s flags into a
+directory of this process's own and point ``bfsr_tpu.native`` at that
+library (``jax_native``).  Its own loader rebuilds ``native/
+libbfsr_native.so`` in place whenever the file is missing or older than
+its sources, so that processes which load it at once (pytest's workers)
+can read it half written and take the library for missing."""
 
 import random
+import re
 import subprocess
 import sys
 import textwrap
@@ -32,9 +41,26 @@ BICUBIC_CASES = [((20, 24), (10, 12)), ((20, 24), (45, 50)),
                  ((33, 19), (11, 40)), ((17, 29), (51, 9))]
 JAX_TOL = 1e-6
 
-needs_jax_native = pytest.mark.skipif(
-    not jnative.available(), reason="the JAX package's native library did "
-    "not build")
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """``bfsr_tpu.native`` on a library built from ``native/bfsr_native.cc``
+    with ``native/Makefile``'s compiler and flags into this process's own
+    temporary directory; a failed build fails the test."""
+    make = (ROOT / "native" / "Makefile").read_text()
+    cxx = re.search(r"^CXX \?= (.+)$", make, re.M).group(1).split()
+    flags = re.search(r"^CXXFLAGS \?= (.+)$", make, re.M).group(1).split()
+    so = tmp_path_factory.mktemp("jax_native") / "libbfsr_native.so"
+    subprocess.run([*cxx, *flags, "-o", str(so),
+                    str(ROOT / "native" / "bfsr_native.cc")], check=True,
+                   capture_output=True, timeout=120)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_SO_PATH", str(so))
+        mp.setattr(jnative, "_stale", lambda: False)
+        mp.setattr(jnative, "_LIB", None)
+        mp.setattr(jnative, "_TRIED", False)
+        assert jnative.available()
+        yield jnative
 
 
 def _img(rng, hw, c=3):
@@ -75,32 +101,30 @@ def test_bicubic_matches_imresize(rng, in_hw, out_hw):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
-@needs_jax_native
 @pytest.mark.parametrize("align_corners", [False, True])
 @pytest.mark.parametrize("in_hw,out_hw", BILINEAR_CASES)
-def test_bilinear_matches_jax_native(rng, in_hw, out_hw, align_corners):
+def test_bilinear_matches_jax_native(jax_native, rng, in_hw, out_hw,
+                                     align_corners):
     x = _img(rng, in_hw)
     np.testing.assert_allclose(
         native.bilinear_resize(x, out_hw, align_corners),
-        jnative.bilinear_resize(x, out_hw, align_corners), rtol=0,
+        jax_native.bilinear_resize(x, out_hw, align_corners), rtol=0,
         atol=JAX_TOL)
 
 
-@needs_jax_native
 @pytest.mark.parametrize("lr_hw,hr_hw", RESIDUAL_CASES)
-def test_residual_matches_jax_native(rng, lr_hw, hr_hw):
+def test_residual_matches_jax_native(jax_native, rng, lr_hw, hr_hw):
     lr_norm = (_img(rng, lr_hw) - 0.5) / 0.5
     for got, ref in zip(native.updownup_residual(lr_norm, hr_hw),
-                        jnative.updownup_residual(lr_norm, hr_hw)):
+                        jax_native.updownup_residual(lr_norm, hr_hw)):
         np.testing.assert_allclose(got, ref, rtol=0, atol=JAX_TOL)
 
 
-@needs_jax_native
 @pytest.mark.parametrize("in_hw,out_hw", BICUBIC_CASES)
-def test_bicubic_matches_jax_native(rng, in_hw, out_hw):
+def test_bicubic_matches_jax_native(jax_native, rng, in_hw, out_hw):
     x = _img(rng, in_hw)
     np.testing.assert_allclose(native.bicubic_resize(x, out_hw),
-                               jnative.bicubic_resize(x, out_hw), rtol=0,
+                               jax_native.bicubic_resize(x, out_hw), rtol=0,
                                atol=JAX_TOL)
 
 

@@ -53,6 +53,7 @@ from bfsr_tpu_torch.pipelines import srflow_train
 from bfsr_tpu_torch.pipelines.srflow_eval import (lr_multiple, sample_sr,
                                                   validate)
 from bfsr_tpu_torch.train.optim import make_optimizer
+from bfsr_tpu_torch.utils import misc
 from bfsr_tpu_torch.utils.measure import psnr_uint8
 
 from test_torch_srflow_models import _np_tree, live_flow
@@ -363,6 +364,10 @@ def test_x16_conf_trainer_and_sampler_clis(tmp_path, monkeypatch, capsys):
     samples from that checkpoint without a prior, image by image the
     port's ``sample_sr``."""
     monkeypatch.chdir(tmp_path)
+    # the log path a CLI run earlier in this process left (relative to its
+    # own working directory): ``load_srflow`` logs before this run sets its
+    # own
+    monkeypatch.setattr(misc, "_log_path", None)
     rrdb = registry.make({"name": "rrdb", "args": {
         "nf": 8, "nb": 2, "gc": 4, "no_upsampling": False, "scale": 16}})
     assert "upconv4.weight" in rrdb.state_dict()
