@@ -304,9 +304,9 @@ full-size predicts (512^2; 516^2 for the patch model) and the trainer's
 step, its max abs error, its time beside the twin's and the one PyTorch
 call's that computes the same function, where there is one, and its
 bound: the least time the card could take for the same work, with the
-peak it is taken at in ``bound_rate``: K2's f32-grade products at
-3xTF32, three TF32 products each at the 495 TFLOP/s TF32 rate; K1, K2,
-K4, both K3s and K5 (f32 and the served one-pass form) also carry
+peak it is taken at in ``bound_rate``: the f32-grade products of K2
+and of the f32 K5 at C = 48 and 192 at 3xTF32, three TF32 products each
+at the 495 TFLOP/s TF32 rate; K1, K2, K4, both K3s and K5 (f32 and the served one-pass form) also carry
 ``train_checks``, phases 10-12's checks at the trainers' shapes, K1's and
 K4's inverse with ``FlowInverse``'s gradient, K5's reverse with
 ``FlowStepReverse``'s; K5 carries ``x8_checks``, phase 16's checks at
@@ -1057,6 +1057,13 @@ def k5_work(c, hid, hw, packed):
     flops = px * (2 * c * c + 2 * 9 * cn * hid + 2 * hid * hid
                   + 2 * 9 * hid * c)
     return flops, 4 * px * (c + (2 * c + hid) + c) + nbytes(packed)
+
+
+def k5_f32_peak(c):
+    """The peak rate of the f32 K5's products at width ``c``: 3xTF32
+    ``mma.sync`` at C = 48 and 192 (csrc/flow_step.cu, Wide<C>), SIMT f32
+    FMA at the other widths."""
+    return PEAK_3XTF32_FLOPS if c in (48, 192) else PEAK_F32_FLOPS
 
 
 def first_steps(model, lr):
@@ -2268,7 +2275,7 @@ def check_srflow_train_kernels(model, batch):
                 c, hid = e["c"], step.hidden
                 hw = rec.shape[1:3]
                 if mode == "high":
-                    pk, peak = step.kpacked, PEAK_F32_FLOPS
+                    pk, peak = step.kpacked, k5_f32_peak(c)
                     fwd = ("flow_step_forward", k5.flow_step_forward_plain)
                     rev = ("flow_step_reverse", k5.flow_step_reverse_plain)
                 else:
@@ -3947,9 +3954,9 @@ def check_k5_levels(model, lq, tag):
     twins at each level of the flow for ``lq`` (B, h, w, 3): the first
     conditional step of each level on its record (f32 and ``xla`` on the
     step's own buffers, ``pallas`` on one packed here), a random state of
-    the batch; the bound by ``k5_work`` over the batch, at the f32 or the
-    bf16 peak.  Returns {kernel: [results, each with its width and
-    shape]}."""
+    the batch; the bound by ``k5_work`` over the batch, at the peak of the
+    f32 form's products (``k5_f32_peak``) or the bf16 peak.  Returns
+    {kernel: [results, each with its width and shape]}."""
     import torch
 
     from bfsr_tpu_torch.ops.cuda import flow_step as k5
@@ -3961,7 +3968,7 @@ def check_k5_levels(model, lq, tag):
         b, h, w = rec.shape[:3]
         x = torch.randn((b, h, w, c), generator=gen, device="cuda")
         where = f" {tag} level {e['level']} ({b}, {h}, {w}, {c})"
-        forms = [(None, step.kpacked, "high", PEAK_F32_FLOPS)]
+        forms = [(None, step.kpacked, "high", k5_f32_peak(c))]
         for form in k5.STEP_FORMS:
             pb = (step.kpacked_bf16 if form == step.step_form else
                   k5.pack_step_bf16(step.actnorm, step.invconv, step.affine,
@@ -4615,7 +4622,7 @@ def check_spatial_kernels(model, img, multiple):
         x = torch.randn((b, h, w, c), generator=gen, device="cuda")
         where = f" strip level {e['level']} ({b}, {h}, {w}, {c})"
         for form, buf, mode, peak in (
-                (None, step.kpacked, "high", PEAK_F32_FLOPS),
+                (None, step.kpacked, "high", k5_f32_peak(c)),
                 (step.step_form, step.kpacked_bf16, "default",
                  PEAK_BF16_FLOPS)):
             flops, n_bytes = k5_work(c, hid, (h, w), buf)
@@ -5126,7 +5133,7 @@ def main():
             kernels[-1]["x8_checks"] = [
                 {k: r[k] for k in ("width", "shape", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}
+                                   "bound_rate", "library_ms")}
                 for r in x8_checks[name]]
         if name in strip_checks:
             # phase 17: K3 (both forms) and K5 (f32 and the served one-pass

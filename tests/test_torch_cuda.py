@@ -345,19 +345,24 @@ def random_record(hw, c, hid=64, seed=1):
                            g.standard_normal((1, *hw, hid))], -1)
 
 
-# the f32 K5's output tiles (csrc/flow_step.cu, Tile<C>): TY x TX
-K5_TILES = {12: (8, 16), 24: (16, 8), 96: (4, 8), 48: (4, 8), 192: (2, 4)}
+# the f32 K5's output tiles (csrc/flow_step.cu): TY x TX of a block
+# (Tile<C>) or, at C = 48 and 192, of a thread-block cluster (Wide<C>)
+K5_TILES = {12: (8, 16), 24: (16, 8), 96: (4, 8), 48: (8, 8), 192: (11, 7)}
+# at the wide levels, shapes of more tiles than the card holds clusters
+# (66 of 2 CTAs, 15 of 8), so that a cluster takes a second tile
+K5_MANY_TILES = {48: (100, 90), 192: (40, 47)}
 
 
 def _k5_tile_shapes():
     """At each C: two tiles each way exactly, one pixel more in H and W,
-    and (C = 12, 24) a 1-pixel row and a 1-pixel column."""
+    and (but C = 96) a 1-pixel row and a 1-pixel column; at C = 48 and
+    192, a ragged shape of more tiles than resident clusters."""
     out = []
     for c, (ty, tx) in K5_TILES.items():
         out += [(c, (2 * ty, 2 * tx)), (c, (2 * ty + 1, 2 * tx + 1))]
         if c != 96:
             out += [(c, (1, 2 * tx + 1)), (c, (2 * ty + 1, 1))]
-    return out
+    return out + list(K5_MANY_TILES.items())
 
 
 @pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
@@ -1135,13 +1140,16 @@ def _k5_batch(c, hw, batch, dev, seed=0):
 @pytest.mark.parametrize("c,hw,batch", [(12, (37, 29), 3), (24, (20, 13), 4),
                                         (96, (15, 9), 5), (96, (1, 3), 2),
                                         (12, (80, 80), 12), (48, (20, 20), 12),
-                                        (192, (10, 10), 12)])
+                                        (48, (13, 37), 5), (192, (10, 10), 12),
+                                        (192, (11, 9), 7)])
 def test_batched_k5_matches_twin_and_batch_1(dev, restore_mode, form, c, hw,
                                              batch):
-    """K5 at a batch (the image is the grid's z), f32 and both one-pass
-    forms, forward and reverse: against the twin (f32: 2e-4; one-pass: max
-    2e-2 and mean 1e-4, a tie flip) and each image bit for bit its own
-    batch-1 launch."""
+    """K5 at a batch (the image is the grid's z; at C = 48 and 192 the
+    batch's tiles shared out over the resident thread-block clusters), f32
+    and both one-pass forms, forward and reverse: against the twin (f32:
+    2e-4; one-pass: max 2e-2 and mean 1e-4, a tie flip), a second launch
+    bit for bit the first, and each image bit for bit its own batch-1
+    launch."""
     step = random_flow_step(c, seed=c)
     pt = step.kpacked.to(dev)
     pb = None if form is None else flow_step.pack_step_bf16(
@@ -1156,6 +1164,10 @@ def test_batched_k5_matches_twin_and_batch_1(dev, restore_mode, form, c, hw,
     assert kcuda.LAUNCHES[f"{name}_forward"] == 1, kcuda.LAUNCHES
     assert kcuda.LAUNCHES[f"{name}_reverse"] == 1, kcuda.LAUNCHES
     assert y.shape == back.shape == (batch, *hw, c)
+    assert torch.equal(y, flow_step.flow_step_forward(xt, rt, pt, 64, pb,
+                                                      form or "xla"))
+    assert torch.equal(back, flow_step.flow_step_reverse(y, rt, pt, 64, pb,
+                                                         form or "xla"))
     if form is None:
         torch.testing.assert_close(
             y, flow_step.flow_step_forward_plain(xt, rt, pt, 64),

@@ -47,7 +47,8 @@ from bfsr_tpu_torch.pipelines.srflow_prior_train import (
     make_srflow_prior_train_step)
 
 from test_torch_precision import restore_modes  # noqa: F401  (fixture)
-from test_torch_srflow_default import (_pallas_form_against_kernel,
+from test_torch_srflow_default import (_dyadic_case,
+                                       _pallas_form_against_kernel,
                                        _set_both, _xla_twin_against_unfused)
 from test_torch_srflow_models import _np_tree, live_flow
 from test_torch_srflow_step import _case, _np, port_step, record
@@ -172,13 +173,23 @@ def test_k5_twin_at_x8_widths_matches_jax_step(c, h, w):
 def test_k5_one_pass_twins_at_x8_widths(restore_modes, c, h, w):
     """Both one-pass forms' twins at C = 48 and 192: the ``pallas`` form
     against the JAX FlowStep kernel at passes=1 in interpret mode, the
-    ``xla`` form against the unfused step under ``default``."""
-    p, _, x, cache = _case(c, h, w, seed=c)
+    ``xla`` form against the unfused step under ``default``.
+
+    The ``pallas`` form runs on ``_dyadic_case``'s step and inputs, where
+    every sum that feeds one of its bf16 roundings is exact in f32 (conv1's
+    K = 864 at C = 192 included: its sums equal their float64 values), so
+    no sum order, thread count or library path of the process can move a
+    rounding: on random inputs a tie flip at one hidden value moves 9
+    pixels' outputs, and an xdist worker once read a mean error of 1.7e-4
+    there."""
+    p, x, cache = _dyadic_case(c, h, w, seed=c)
     _set_both("default")
     for got, ref in _pallas_form_against_kernel(p, x, cache, c, h, w):
         err = np.abs(got - ref)
         assert err.max() <= 2e-2, err.max()
         assert err.mean() <= 1e-4, err.mean()
+    # the xla form's check folds a live gain, which the dyadic step lacks
+    p, _, x, cache = _case(c, h, w, seed=c)
     step = port_step(p, c)
     with torch.no_grad():
         _xla_twin_against_unfused(step, torch.from_numpy(_np(x)),
