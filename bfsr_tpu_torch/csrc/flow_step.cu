@@ -145,6 +145,7 @@
 
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -939,53 +940,6 @@ __device__ __forceinline__ void copy_rows(float* dst, int ds,
       cp_async16(dst + r * ds + v, src + r * ss + v);
     } else {
       cp_async8(dst + r * ds + v, src + r * ss + v);
-    }
-  }
-}
-
-// the cluster: this CTA's rank, and a barrier of all its threads whose
-// shared-memory stores (remote ones too) the threads after it see
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// v to p in every CTA of the cluster (the same offset in each): float4
-// stores (N % 4 == 0, p 16-byte aligned) or float2 stores (p 8-byte
-// aligned) into distributed shared memory
-template <int NC, int N>
-__device__ __forceinline__ void st_cluster(float* p, const float (&v)[N]) {
-  const uint32_t a = smem_addr(p);
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    uint32_t ra;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(ra) : "r"(a), "r"(k));
-    if constexpr (N % 4 == 0) {
-#pragma unroll
-      for (int i = 0; i < N / 4; ++i) {
-        asm volatile(
-            "st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                ra + 16 * i),
-            "f"(v[4 * i]), "f"(v[4 * i + 1]), "f"(v[4 * i + 2]),
-            "f"(v[4 * i + 3])
-            : "memory");
-      }
-    } else {
-      static_assert(N % 2 == 0, "float2 stores");
-#pragma unroll
-      for (int i = 0; i < N / 2; ++i) {
-        asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(
-                         ra + 8 * i),
-                     "f"(v[2 * i]), "f"(v[2 * i + 1])
-                     : "memory");
-      }
     }
   }
 }

@@ -3,10 +3,12 @@
 // operands (round to nearest even) in some of its five products and every
 // sum in f32.  NHWC state (B, H, W, C) with C in {12, 24, 48, 96, 192}
 // (the 4x model's three flow levels and the 8x model's four), coupling
-// hidden width 64, any H and W, any batch: the image is blockIdx.z, the
-// state, its records and the output are offset by whole images and the
-// weights are shared, so a batch-1 launch is the launch it was before the
-// batch.  Two forms, a template flag:
+// hidden width 64, any H and W, any batch: the state, its records and the
+// output are offset by whole images and the weights are shared, so an
+// image of a batch gets the bits of its batch-1 launch.  Two kernels: C =
+// 12, 24 and 96 run flow_step_bf16_kernel (Tile<C>, the image blockIdx.z);
+// C = 48 and 192, the 8x model's wide levels, flow_step_bf16_wide_kernel
+// (BWide<C>, thread-block clusters).  Two forms, a template flag:
 //
 // XLA form (PALLAS = false; entries flow_step_bf16_forward / _reverse), the
 // form SRFlowLPPredictor serves under default.  It follows the JAX
@@ -44,25 +46,22 @@
 //
 // What bounds it on this card: bytes.  Per pixel a step moves (C + (2C +
 // 64) + C) * 4 bytes and does 2*C*C + 2*9*cn*64 + 2*64*64 + 2*9*64*C flops
-// (29 K at C = 12 to 193 K at C = 96): 65-232 flop/B, under the 295 flop/B
-// where the H100's bf16 rate and its memory rate balance.  Once the three
-// tower convs run on the tensor cores, what is left is the kernel's
-// skeleton: the halo reads of the state and the records, the weight copies
-// into shared memory (36 KB a block at C = 12, 213 KB at C = 96), the stage
-// barriers and the f32 folds (SIMT, C x C per pixel, the forward one on
-// the 2-pixel halo).  At C = 192 the fold (147 KB f32) does not fit beside
-// W1 (9 x 96 rows, 124 KB), W2 and the W3 ring: both folds are then read
-// from global memory (FS = 0; every block reads the same rows, which stay
-// in L2) and the state from global memory too (XS = 0).
+// (29 K at C = 12 to 414 K at C = 192): 65-124 flop/B; the tower on the
+// bf16 tensor cores and the folds at the rate of what runs them (f32 SIMT
+// at C = 12, 24, 96; TF32 at C = 48, 192) take less time than the bytes
+// (profiling/k5_times.py:k5_cost).  Once the three tower convs run on the
+// tensor cores, what is left is the kernel's skeleton: the halo reads of
+// the state and the records, the weight copies into shared memory (36 KB
+// a block at C = 12, 213 KB at C = 96), the stage barriers and the folds.
 //
-// Design.  A block of 256 threads (8 warps) owns a TY x TX tile of output
-// pixels.  At its start it copies the step's weights into shared memory
-// with 16-byte cp.async, in three groups: the fold this direction needs
-// (f32, C x C), the f32 vectors and (XS levels) the state on the window;
-// W2 and W1 (bf16, rows padded to 72 values so that ldmatrix reads them
-// without bank conflicts); W3 (bf16, 9 taps x 64 x N3 columns), whole or,
-// at C = 96, its first S3 taps, the rest streamed one tap a slot through
-// an S3-slot ring during conv3.
+// Design (C = 12, 24, 96).  A block of 256 threads (8 warps) owns a TY x
+// TX tile of output pixels.  At its start it copies the step's weights into
+// shared memory with 16-byte cp.async, in three groups: the fold this
+// direction needs (f32, C x C), the f32 vectors and (XS levels) the state
+// on the window; W2 and W1 (bf16, rows padded to 72 values so that
+// ldmatrix reads them without bank conflicts); W3 (bf16, 9 taps x 64 x N3
+// columns), whole or, at C = 96, its first S3 taps, the rest streamed one
+// tap a slot through an S3-slot ring during conv3.
 //   A. z1 on the (TY+4) x (TX+4) window (2-pixel halo: two stacked 3x3
 //      convs), rounded to bf16 once, zero outside the image.  Forward: the
 //      fold, f32 FMA from shared memory, in items of PX pixels x QA
@@ -107,17 +106,90 @@
 // the halo and the pads, ~11 us of the 29 at the rate mma.sync reaches
 // here) and the weight copies (~4 us); at C = 96 the halo recompute of
 // the forward fold and the weight copies (~210 KB a block).  The 8x
-// model's levels (k5_times.py --levels x8): 8 x 8 at C = 48 (64 blocks at
-// 64^2; 16 x 8 slower, 4 x 16 level; 4 x 8 would split its 6 n8 tiles of
-// W3 over 4 warps), 0.016 ms each way, 8% of the bound; 4 x 4 at C = 192
-// (64 blocks at 32^2; 4 x 8 and 8 x 4 slower), 0.055 / 0.033 ms forward /
-// reverse, 2 / 4%: latency, the folds read through L2 and, at 16 tile
-// pixels, W1 and the W3 ring copied into every block (~185 KB).
+// model's levels 3 and 4 ran this kernel until the wide kernel below took
+// them: 8 x 8 at C = 48, 0.016 ms each way, and 4 x 4 at C = 192, 0.055 /
+// 0.033 ms forward / reverse (2 / 4% of the bound).
+//
+// Design (C = 48, 192).  The wide levels' images are small (4,096 and
+// 1,024 pixels at B 1): a block of the kernel above got a tiny tile, copied
+// the step's weights for it and ran both folds as SIMT f32, from global
+// memory at C = 192, most of its time (stage clocks of that kernel on
+// the earlier tree).  Here a thread-block cluster of NC CTAs (8 at C =
+// 192, 2 at C = 48; 256 threads, one CTA a SM) owns a TY x TX output tile
+// (11 x 7, 8 x 8: 15 and 64 tiles at B 1) and its CTAs split the channels
+// as csrc/flow_step.cu's wide kernel does.  As many clusters run as the
+// card holds at once, each taking every ncl-th tile of the batch (at B 1
+// one tile each).  CTA r holds in shared memory 1/NC of the step's weights
+// (65 / 52 KB), copied for its first tile and kept for the others: its HC
+// = 64 / NC hidden channels of W1 and W2, the interleaved (scale, shift)
+// columns of W3 of its JC coupled channels, its rows of the fold of the
+// direction (JC z1 and JC za2 rows forward, DR = C / NC inverse-fold
+// rows), copied by 16-byte cp.async: what the first stage needs first, W3
+// (reverse: and the fold rows) under conv1's MMAs (LATE3: at C = 192, and
+// forward at C = 48) or with the first copies (reverse at C = 48).  Per
+// tile:
+//   A. forward: the state on the window (every CTA), the fold: the CTA's
+//      z1 rows on the window, its za2 rows on the tile; reverse: the
+//      CTA's 1/NC of the window's pixels of z1 (= x1), and t's first half,
+//      x1 / scale_ft - shift_ft, of its channels;
+//   B. conv1 (K = 9 cn in chunks of 8 channels, each within a tap: A by
+//      ldmatrix from the bf16 window) and conv2, the CTA's HC channels of
+//      the hidden region, a warp an m-fragment;
+//   C. conv3, the CTA's columns on the tile, a warp an m-fragment (the
+//      other warps fetch the coupling's inputs and, reverse, send t's
+//      first half), then the coupling by all threads;
+//   D. reverse: the inverse fold, the CTA's DR rows.
+// What crosses distributed shared memory: forward z1 on the window, h1
+// and h2 (bf16); reverse the z1 window, h1, h2 (bf16) and t (f32).  Each
+// CTA stores its share into the others with st.async, each store
+// completing its bytes on an mbarrier of the receiving CTA, which waits
+// for the bytes it expects: no cluster barrier between the stages (one,
+// forward at C = 192, before z1 lands over the state window), one between
+// a cluster's tiles (no CTA stores the next tile's maps into another
+// before that one is done with the last's), each barrier's phase a tile.
+// The folds run on TF32 mma.sync, fragments by ldmatrix: xla 3xTF32 on the
+// unrounded state and t (f32 grade: each K step's three products summed
+// from zero on the tensor cores, which truncate, that sum added in f32),
+// pallas one pass on its bf16 values (exact in TF32).
+//
+// Candidates (k5_times.py --levels x8, B 1, xla fwd / rev ms at 64^2 x 48
+// and at 32^2 x 192; NVIDIA H100 80GB HBM3, 700.00 W; the tile kernel
+// timed beside each: 0.0151-0.0154 / 0.0156-0.0159 and 0.0544-0.0553 /
+// 0.0331-0.0339):
+// persistent clusters, cluster barriers between the stages: 0.0168 /
+// 0.0153, 0.0263 / 0.0237; a cluster a tile, the coupling by all threads:
+// 0.0156 / 0.0143, 0.0272 / 0.0227 (4 CTAs of 4 x 8 at C = 192: 0.0361 /
+// 0.0329, not all 32 clusters resident; 1 CTA at C = 48: 0.0182 / 0.0170);
+// the windows by TMA multicast: 0.0161 / 0.0155, 0.0245 / 0.0238; W1-3 by
+// tensor-map TMA boxes too: 0.0164 / 0.0159, 0.0244 / 0.0238 (rows of 16
+// to 48 bytes: the copy engine slower than cp.async); back to cp.async,
+// the barriers replaced by st.async on mbarriers: 0.0132 / 0.0127, 0.0254
+// / 0.0215; the z1 window 1/NC a CTA, t's first half early: 0.0133 /
+// 0.0123, 0.0255 / 0.0204; W3 under conv1 at C = 192, t's first half sent
+// by conv3's idle warps, the folds' fragments by ldmatrix: 0.0133 /
+// 0.0121, 0.0243 / 0.0189; W3 under conv1 in the forward at C = 48 too:
+// 0.0130 / 0.0122-0.0123, 0.0243-0.0244 / 0.0189 (pallas 0.0126 /
+// 0.0121-0.0122, 0.0225-0.0227 / 0.0176-0.0177); the clusters persistent
+// (this kernel; the first tile's code compile-time, a runtime flag cost
+// B 1 up to 5%): B 1 the same, 0.0131 / 0.0124, 0.0242 / 0.0191, and
+// where tiles outnumber clusters 3-10% faster than a cluster a tile: B 12
+// of 20^2 x 48 0.0230-0.0231 / 0.0209 (0.0236-0.0237 / 0.0216-0.0217), a
+// 2048^2 sample's 256^2 x 48 0.1615-0.1616 / 0.1400-0.1402 (0.1778-0.1792
+// / 0.1544-0.1545) and 128^2 x 192 0.3388-0.3411 / 0.2510-0.2543
+// (0.3583-0.3610 / 0.2708-0.2734).  There at C = 48 the tile kernel was
+// faster, 0.1210-0.1216 / 0.1265-0.1270: two CTAs and their exchanges
+// for an 8 x 8 tile move fewer pixels an SM than its one block.
+// Rejected: conv3's K, or its n-tiles, over twice the warps at C = 48
+// (forward 0.0135, 0.0133-0.0134), the forward's state window by TMA
+// multicast (C = 48 0.0138, C = 192 0.0229).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "cluster.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -142,34 +214,45 @@ template <> struct Tile<24> {
   static constexpr int TY = 16, TX = 8, S3 = 9, PX = 1, QA = 12, PXD = 1,
                        QD = 6, XS = 1, MINB = 1, FS = 1;
 };
-template <> struct Tile<48> {
-  static constexpr int TY = 8, TX = 8, S3 = 9, PX = 2, QA = 6, PXD = 2,
-                       QD = 6, XS = 1, MINB = 1, FS = 1;
-};
 template <> struct Tile<96> {
   static constexpr int TY = 4, TX = 8, S3 = 2, PX = 4, QA = 6, PXD = 2,
                        QD = 6, XS = 1, MINB = 1, FS = 1;
-};
-template <> struct Tile<192> {
-  static constexpr int TY = 4, TX = 4, S3 = 2, PX = 2, QA = 12, PXD = 1,
-                       QD = 12, XS = 0, MINB = 1, FS = 0;
 };
 
 constexpr int rup128(int n) { return (n + 127) / 128 * 128; }
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
+// the one-pass buffer (bfsr_tpu_torch/ops/cuda/flow_step.py:_layout_bf16):
+// f32 words first, offsets in floats, the XLA form's gain G3 after b3; then
+// bf16 values, offsets in bf16 from the buffer's start
 template <int C, bool PALLAS>
-struct Geo {
-  using T = Tile<C>;
+struct Buf {
   static constexpr int CN = C / 2, CO = C - C / 2, R = 2 * C + kHid;
-  // W3's columns in the buffer, and conv3's n8 tiles (past 2co: zeros)
-  static constexpr int N3 = (2 * CO + 15) / 16 * 16, NT3 = (2 * CO + 7) / 8;
+  static constexpr int N3 = (2 * CO + 15) / 16 * 16;
+  static constexpr int K1 = 9 * CN, K1P = (K1 + 15) / 16 * 16;
+  static constexpr int BF = 0, AB = BF + C, AN1B = AB + C;
+  static constexpr int AN1E = AN1B + kHid, AN2B = AN1E + kHid;
+  static constexpr int AN2E = AN2B + kHid, B3 = AN2E + kHid, G3 = B3 + N3;
+  static constexpr int NVEC = PALLAS ? G3 : G3 + N3;
+  static constexpr int WF = NVEC, WI = WF + C * C;
+  static constexpr int NWORDS = (WI + C * C + 7) / 8 * 8;
+  static constexpr int W1 = 2 * NWORDS, W2 = W1 + K1P * kHid;
+  static constexpr int W3 = W2 + kHid * kHid;
+};
+
+template <int C, bool PALLAS>
+struct Geo : Buf<C, PALLAS> {
+  using T = Tile<C>;
+  using P = Buf<C, PALLAS>;
+  static constexpr int CN = P::CN, CO = P::CO, R = P::R, N3 = P::N3;
+  static constexpr int K1 = P::K1, K1P = P::K1P, NVEC = P::NVEC;
+  // conv3's n8 tiles (past 2co: zeros)
+  static constexpr int NT3 = (2 * CO + 7) / 8;
   static constexpr int TY = T::TY, TX = T::TX;
   static constexpr int HY = TY + 2, HX = TX + 2, NH = HY * HX;
   static constexpr int MH = (NH + 15) / 16;  // conv1 / conv2 M fragments
   static constexpr int WY = TY + 4, WX = TX + 4, NW = WY * WX;
   static constexpr int NO = TY * TX, MO = NO / 16;  // conv3 M fragments
-  static constexpr int K1 = 9 * CN, K1P = (K1 + 15) / 16 * 16;
   // conv3: warp = mg * NG3 + ng, NG3 N groups of NTW n8 tiles, MG3 M
   // groups of MFW fragments
   static constexpr int NG3 = MO >= kWarps ? 1 : kWarps / MO;
@@ -184,17 +267,6 @@ struct Geo {
   static constexpr int SZ = (CN / 2) % 2 ? CN : CN + 2;
   static constexpr int S2 = CO | 1, ST = C + 1;  // za2 / x2', t (f32)
   static constexpr int LD3 = N3 + 8;             // W3 row stride, bf16
-  // the buffer (bfsr_tpu_torch/ops/cuda/flow_step.py:_layout_bf16): f32
-  // words first, offsets in floats; the XLA form's gain G3 after b3
-  static constexpr int BF = 0, AB = BF + C, AN1B = AB + C;
-  static constexpr int AN1E = AN1B + kHid, AN2B = AN1E + kHid;
-  static constexpr int AN2E = AN2B + kHid, B3 = AN2E + kHid, G3 = B3 + N3;
-  static constexpr int NVEC = PALLAS ? G3 : G3 + N3;  // the vectors
-  static constexpr int WF = NVEC, WI = WF + C * C;
-  static constexpr int NWORDS = (WI + C * C + 7) / 8 * 8;
-  // then bf16 values, offsets in bf16 from the buffer's start
-  static constexpr int W1 = 2 * NWORDS, W2 = W1 + K1P * kHid;
-  static constexpr int W3 = W2 + kHid * kHid;
   // shared memory, in bytes: vectors | W2 | hidden map | za2 / x2' | W3
   // slots | fold | z1 window | W1 | (XS) the state on the window; reverse:
   // t over the z1 window and W1
@@ -884,6 +956,900 @@ int launch(const float* x, const float* cond, const __nv_bfloat16* wb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the wide levels, C = 48 and 192: one tile a thread-block cluster ----
+//
+// BWide<C>: the cluster's NC CTAs and its TY x TX output tile;
+// LATE3[reverse]: W3 (reverse: and the fold rows) copied under conv1's
+// MMAs, else with the first copies.  A pixel's sums, and so its bits, do
+// not depend on the tile's place or the batch.
+template <int C> struct BWide;
+template <> struct BWide<48> {
+  static constexpr int NC = 2, TY = 8, TX = 8;
+  static constexpr bool LATE3[2] = {true, false};
+};
+template <> struct BWide<192> {
+  static constexpr int NC = 8, TY = 11, TX = 7;
+  static constexpr bool LATE3[2] = {true, true};
+};
+
+// a compile-time flag passed by value
+template <bool V>
+struct Flag {
+  static constexpr bool value = V;
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
+// a bf16 row stride at or above n (n % 8 == 0) of an odd number of 16-byte
+// units: the 8 rows of an ldmatrix tile meet no bank conflict
+constexpr int odd8(int n) { return (n / 8) % 2 ? n : n + 8; }
+// an f32 row stride at or above n of an odd number of float4s: a TF32
+// fragment's 8 rows x 4 columns meet no bank conflict
+constexpr int odd4(int n) {
+  return ((n + 3) / 4) % 2 ? (n + 3) / 4 * 4 : (n + 3) / 4 * 4 + 4;
+}
+
+template <int C, bool PALLAS>
+struct WGeo {
+  using T = BWide<C>;
+  using P = Buf<C, PALLAS>;
+  static constexpr int NC = T::NC, CN = C / 2, CO = C - C / 2;
+  static constexpr int TY = T::TY, TX = T::TX, NO = TY * TX;
+  static constexpr int HY = TY + 2, HX = TX + 2, NH = HY * HX;
+  static constexpr int WY = TY + 4, WX = TX + 4, NW = WY * WX;
+  // a CTA's share: HC hidden channels (conv1's and conv2's columns), JC
+  // coupled channels (JC z1 and JC za2 rows of the fold; conv3's
+  // interleaved (scale, shift) columns of those channels, N3L of them), DR
+  // rows of the inverse fold
+  static constexpr int HC = kHid / NC, JC = CO / NC, DR = C / NC;
+  static constexpr int N3L = 2 * JC;
+  // m16 fragments over the hidden region, the tile and the window; n8
+  // tiles of conv1 / conv2, conv3, the fold (JC rows) and the inverse fold
+  static constexpr int MH = cdiv(NH, 16), MO = cdiv(NO, 16);
+  static constexpr int MZ = cdiv(NW, 16);
+  static constexpr int NT1 = HC / 8, NT3 = N3L / 8, NTF = cdiv(JC, 8);
+  static constexpr int NTD = DR / 8;
+  // conv1's k16 steps (K = 9 cn, in 8-channel chunks, each within a tap),
+  // and its accumulator sets (k steps dealt round robin: chains in flight)
+  static constexpr int K1 = 9 * CN, K1S = cdiv(K1, 16);
+  static constexpr int NA1 = NT1 >= 4 ? 1 : 4 / NT1;
+  // row strides: bf16 (W1 / W2, W3, the z1 window, the hidden maps) and
+  // f32 (the state window, the fold rows, t, za2, conv3's output)
+  static constexpr int L1 = odd8(HC), L3 = odd8(N3L), SZ = odd8(CN);
+  static constexpr int SH = odd8(kHid);
+  static constexpr int SX = odd4(C), SF = odd4(C), ST = odd4(CN);
+  static constexpr int SA = odd4(JC), SO = odd4(N3L);
+  // the fold rows: forward JC z1 rows then JC za2 rows (and the za2
+  // n-tiles' spare rows), reverse DR inverse-fold rows
+  static constexpr int FR = cmax(DR, JC + 8 * NTF);
+  // shared memory, bytes: the exchanges' mbarriers | vectors | W1 | W2 |
+  // W3 | fold rows; the maps: the z1 window (reverse: t's second half over
+  // it) | t's first half (reverse) | h1 | h2 | za2 (forward) | conv3's
+  // (scale, shift) | the coupling's inputs (reverse: x2, scale_ft and
+  // shift_ft of the second half, the CTA's channels); the forward's state
+  // window after them (ZX) or, where that does not fit, over them
+  static constexpr int O_V = 128, O_W1 = O_V + rup128(P::NVEC * 4);
+  static constexpr int O_W2 = O_W1 + rup128(P::K1P * L1 * 2);
+  static constexpr int O_W3 = O_W2 + rup128(kHid * L1 * 2);
+  static constexpr int O_F = O_W3 + rup128(9 * kHid * L3 * 2);
+  static constexpr int O_M = O_F + rup128(FR * SF * 4);
+  static constexpr int O_T1 = O_M + rup128(cmax(NW * SZ * 2, NO * ST * 4));
+  static constexpr int O_H1 = O_T1 + rup128(NO * ST * 4);
+  static constexpr int O_H2 = O_H1 + rup128(NH * SH * 2);
+  static constexpr int O_A2 = O_H2 + rup128(NH * SH * 2);
+  static constexpr int O_O = O_A2 + rup128(NO * SA * 4);
+  static constexpr int O_C = O_O + rup128(NO * SO * 4);
+  static constexpr int O_END = O_C + rup128(NO * 3 * JC * 4);
+  static constexpr int NX = NW * SX * 4;  // the state window's bytes
+  static constexpr bool ZX = O_END + NX <= 227 * 1024;
+  static constexpr int O_X = ZX ? O_END : O_M;
+  static constexpr int SMEM_F = cmax(O_X + NX, O_END);
+  static constexpr int SMEM_R = O_END;
+  static constexpr int smem(bool rev) { return rev ? SMEM_R : SMEM_F; }
+  static_assert(C % 16 == 0 && CO % NC == 0 && kHid % (8 * NC) == 0 &&
+                JC % 4 == 0 && N3L % 8 == 0 && DR % 8 == 0 && CN % 8 == 0,
+                "channel split");
+  static_assert(MH <= kWarps && MO < kWarps, "a warp an m-fragment");
+  static_assert(16 * K1S == P::K1P && N3L * NC == P::N3, "buffer rows");
+  static_assert(SMEM_F <= 227 * 1024 && SMEM_R <= 227 * 1024,
+                "shared memory");
+};
+
+// f32 tiles by ldmatrix, in the layout of TF32 mma.sync fragments: a row
+// of 4 floats is a row of 8 bf16, so a lane gets (row g, column t)
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_addr(p)));
+}
+// this lane's ldmatrix row of a fold's A (row lane & 15 at ar, K along
+// the row: ar points at the row) and of its B (n-tiles of 8 rows, bn
+// floats apart, K along the row)
+__device__ __forceinline__ int fold_a_col(int lane) { return 4 * (lane >> 4); }
+__device__ __forceinline__ int fold_b_off(int lane, int bn) {
+  return ((lane & 7) + 8 * (lane >> 4)) * bn + 4 * ((lane >> 3) & 1);
+}
+
+// acc[j] += one K step of 8 of A (16 rows, this lane's ldmatrix row at ar)
+// times n-tile j of B (this lane's ldmatrix row at br, n-tiles 8 rows of
+// bn floats apart), on TF32 mma.sync.  PASSES 3 splits both operands,
+// 3xTF32 (small * big, big * small, big * big, as csrc/flow_step.cu's wide
+// kernel, small rounded to TF32); PASSES 1 takes them as they are, for
+// bf16 values, exact in TF32.  RND rounds A to bf16 first.  The tensor
+// cores sum a step's products from zero, and acc adds that sum in f32:
+// their sums, which truncate, never carry the K steps'.
+template <int NT, int PASSES, bool RND>
+__device__ __forceinline__ void fold_k8(float (&acc)[NT][4], const float* ar,
+                                        const float* br, int bn) {
+  uint32_t ab[4], as[4], bb[NT][2], bs[NT][2];
+  ldsm_x4(ab, ar);
+  if constexpr (NT == 1) {
+    ldsm_x2(bb[0][0], bb[0][1], br);
+  } else {
+    static_assert(NT % 2 == 0, "n-tiles in pairs");
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t q[4];
+      ldsm_x4(q, br + 8 * j * bn);
+      bb[j][0] = q[0];
+      bb[j][1] = q[1];
+      bb[j + 1][0] = q[2];
+      bb[j + 1][1] = q[3];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v = __uint_as_float(ab[e]);
+    if constexpr (RND) v = round_bf16(v);
+    if constexpr (PASSES == 3) {
+      split_tf32_rn(v, ab[e], as[e]);
+    } else {
+      ab[e] = __float_as_uint(v);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (PASSES == 3) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        split_tf32_rn(__uint_as_float(bb[j][e]), bb[j][e], bs[j][e]);
+      }
+      mma_tf32(d, as, bb[j]);
+      mma_tf32(d, ab, bs[j]);
+    }
+    mma_tf32(d, ab, bb[j]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += d[e];
+  }
+}
+
+// rows x N bf16 (N % 8 == 0) from src (row stride sld) to dst (row stride
+// ld), 16-byte cp.async by nt threads, this one the t-th
+template <int N>
+__device__ __forceinline__ void copy_cols(__nv_bfloat16* dst, int ld,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          int sld, int rows,
+                                          int t = threadIdx.x,
+                                          int nt = kThreads) {
+  constexpr int V = N / 8;
+  for (int e = t; e < rows * V; e += nt) {
+    const int r = e / V, v = e % V;
+    cp_async16(dst + r * ld + 8 * v, src + r * sld + 8 * v);
+  }
+}
+
+// rows x C floats (rows C apart in src, ld in dst), 16-byte cp.async by nt
+// threads, this one the t-th
+template <int C>
+__device__ __forceinline__ void copy_f32_rows(float* dst, int ld,
+                                              const float* __restrict__ src,
+                                              int rows, int t = threadIdx.x,
+                                              int nt = kThreads) {
+  for (int e = t; e < rows * (C / 4); e += nt) {
+    const int r = e / (C / 4), v = e % (C / 4);
+    cp_async16(dst + r * ld + 4 * v, src + r * C + 4 * v);
+  }
+}
+
+template <int NA, int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[NA][NT][4]) {
+#pragma unroll
+  for (int s = 0; s < NA; ++s) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
+    }
+  }
+}
+
+// acc[0] += acc[1] + ... + acc[NA - 1], in that order
+template <int NA, int NT>
+__device__ __forceinline__ void sum_sets(float (&acc)[NA][NT][4]) {
+#pragma unroll
+  for (int s = 1; s < NA; ++s) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[0][j][e] += acc[s][j][e];
+    }
+  }
+}
+
+// acc[j] += A (16 x 16, bf16) * B (16 rows of n-tile j < NT: rows ld
+// apart from w + j ts, w at the k step's first row), B by ldmatrix.trans
+template <int NT>
+__device__ __forceinline__ void mma_k16(float (&acc)[NT][4],
+                                        const uint32_t (&a)[4],
+                                        const __nv_bfloat16* w, int ld,
+                                        int ts, int lane) {
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_nt = lane >> 4;
+#pragma unroll
+  for (int j = 0; j + 1 < NT; j += 2) {
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4_trans(b0, b1, b2, b3, w + b_row * ld + (j + b_nt) * ts);
+    mma_bf16(acc[j], a, b0, b1);
+    mma_bf16(acc[j + 1], a, b2, b3);
+  }
+  if constexpr (NT % 2) {
+    uint32_t b0, b1;
+    ldsm_x2_trans(b0, b1, w + (lane & 15) * ld + (NT - 1) * ts);
+    mma_bf16(acc[NT - 1], a, b0, b1);
+  }
+}
+
+template <int C, bool REV, bool PALLAS>
+__global__ void __launch_bounds__(kThreads, 1)
+flow_step_bf16_wide_kernel(const float* __restrict__ x_batch,
+                           const float* __restrict__ cond_batch,
+                           const __nv_bfloat16* __restrict__ wb,
+                           float* __restrict__ out_batch, int B, int H,
+                           int W) {
+  using G = WGeo<C, PALLAS>;
+  using P = Buf<C, PALLAS>;
+  constexpr int NC = G::NC, CN = G::CN, R = P::R;
+  constexpr int TY = G::TY, TX = G::TX, HX = G::HX, WX = G::WX;
+  constexpr int NH = G::NH, NW = G::NW, NO = G::NO;
+  constexpr int HC = G::HC, JC = G::JC, DR = G::DR, N3L = G::N3L;
+  constexpr int L1 = G::L1, L3 = G::L3, SZ = G::SZ, SH = G::SH;
+  constexpr int SX = G::SX, SF = G::SF, ST = G::ST, SA = G::SA, SO = G::SO;
+  constexpr int NT1 = G::NT1, NT3 = G::NT3, NA1 = G::NA1;
+  constexpr int PASSES = PALLAS ? 1 : 3;  // the folds: bf16 values or f32
+  constexpr bool LATE3 = BWide<C>::LATE3[REV];
+  const float* __restrict__ wf = reinterpret_cast<const float*>(wb);
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the exchanges' mbarriers, each completed by the bytes the other CTAs
+  // store into this one: z1 (forward), h1, h2, t and the z1 window
+  // (reverse)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* s_vec = reinterpret_cast<float*>(smem + G::O_V);
+  __nv_bfloat16* s_w1 = reinterpret_cast<__nv_bfloat16*>(smem + G::O_W1);
+  __nv_bfloat16* s_w2 = reinterpret_cast<__nv_bfloat16*>(smem + G::O_W2);
+  __nv_bfloat16* s_w3 = reinterpret_cast<__nv_bfloat16*>(smem + G::O_W3);
+  float* s_f = reinterpret_cast<float*>(smem + G::O_F);
+  __nv_bfloat16* s_z = reinterpret_cast<__nv_bfloat16*>(smem + G::O_M);
+  float* s_t2 = reinterpret_cast<float*>(smem + G::O_M);  // reverse: t
+  float* s_t1 = reinterpret_cast<float*>(smem + G::O_T1);
+  __nv_bfloat16* s_h1 = reinterpret_cast<__nv_bfloat16*>(smem + G::O_H1);
+  __nv_bfloat16* s_h2 = reinterpret_cast<__nv_bfloat16*>(smem + G::O_H2);
+  float* s_a2 = reinterpret_cast<float*>(smem + G::O_A2);  // forward: za2
+  float* s_o = reinterpret_cast<float*>(smem + G::O_O);    // conv3's
+  float* s_c = reinterpret_cast<float*>(smem + G::O_C);    // coupling's
+  float* s_x = reinterpret_cast<float*>(smem + G::O_X);  // the state window
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r = cluster_rank();
+  // reverse: the window's pixels r, r + NC, ... are this CTA's to load
+  const int own = cdiv(NW - r, NC);
+  // a tile's phase of each barrier the direction uses (forward 0-2,
+  // reverse 1-4): the arrival, with the bytes the other CTAs store
+  auto arm = [&] {
+    if (tid < 5 && (REV ? tid > 0 : tid < 3)) {
+      const int xb[5] = {(NC - 1) * NW * JC * 2, (NC - 1) * NH * HC * 2,
+                         (NC - 1) * NH * HC * 2, (NC - 1) * NO * JC * 8,
+                         (NW - own) * CN * 2};
+      mbar_expect_tx(bar + tid, xb[tid]);
+    }
+  };
+  if (tid < 5) mbar_init(bar + tid);
+  arm();
+  // this CTA runs and its barriers are set: waited for before any store
+  // into another CTA
+  cluster_arrive();
+  const int g = lane >> 2, t4 = lane & 3;  // a fragment's row and column
+  const int hi = lane >> 4;                // ldmatrix: this lane's k chunk
+  // the cluster's tiles: image, then rows of tiles, then tiles, every
+  // ncl-th from the cluster's index
+  const int ntx = cdiv(W, TX), nty = cdiv(H, TY);
+  const int ntiles = B * nty * ntx, ncl = gridDim.x / NC;
+  // one tile, ph its barriers' phase parity; the first (Flag<true>) copies
+  // the weights, which stay for the others
+  auto run_tile = [&](auto first_tile, int tile, uint32_t ph) {
+    constexpr bool first = decltype(first_tile)::value;
+    const int img = tile / (nty * ntx), t2 = tile % (nty * ntx);
+    const int y0 = (t2 / ntx) * TY, x0 = (t2 % ntx) * TX;
+    const size_t img_px = static_cast<size_t>(img) * H * W;
+    const float* __restrict__ x = x_batch + img_px * C;
+    const float* __restrict__ cond = cond_batch + img_px * R;
+    float* __restrict__ out = out_batch + img_px * C;
+    auto inside = [&](int gy, int gx) {
+      return gy >= 0 && gy < H && gx >= 0 && gx < W;
+    };
+
+    // the CTA's columns of W1, W2 and W3 and its rows of the fold of the
+    // direction, in cp.async groups in the order of use: what the first
+    // stage needs here (the vectors and, forward, the fold rows and the
+    // state window; reverse, W1 and W2); forward, W1 and W2 by the warps
+    // with a fold fragment fewer; W3 (reverse: and the fold rows) under
+    // conv1's MMAs in NPART parts (LATE3), or right after W1 and W2
+    auto copy_w12 = [&](int t, int nt) {
+      copy_cols<HC>(s_w1, L1, wb + P::W1 + r * HC, kHid, P::K1P, t, nt);
+      copy_cols<HC>(s_w2, L1, wb + P::W2 + r * HC, kHid, kHid, t, nt);
+    };
+    constexpr int NPART = 6;
+    static_assert((9 * kHid) % NPART == 0 && DR % NPART == 0, "parts");
+    auto copy_late = [&](int part, int nparts, int t, int nt) {
+      const int r3 = 9 * kHid / nparts, rf = DR / nparts;
+      copy_cols<N3L>(s_w3 + part * r3 * L3, L3,
+                     wb + P::W3 + part * r3 * P::N3 + r * N3L, P::N3, r3, t,
+                     nt);
+      if constexpr (REV) {
+        copy_f32_rows<C>(s_f + part * rf * SF, SF,
+                         wf + P::WI + (r * DR + part * rf) * C, rf, t, nt);
+      }
+    };
+    for (int e = tid; first && e < P::NVEC / 4; e += kThreads) {
+      cp_async16(s_vec + 4 * e, wf + 4 * e);
+    }
+    if constexpr (REV) {
+      // z1 on the window, rounded (product 2): x's first half, zeros outside
+      // the image, this CTA's pixels, stored here and in every CTA; and t's
+      // first half, x1 / scale_ft - shift_ft, of the CTA's channels (pallas:
+      // rounded, product 5), to every CTA; the loads in flight while the
+      // weights' copies issue
+      constexpr int CH = CN / 8;  // 16-byte pieces of a pixel's bf16 z1
+      constexpr int PZ = cdiv(cdiv(NW, NC) * CH, kThreads);
+      constexpr int PT = cdiv(NO * (JC / 4), kThreads);
+      float4 v[PZ][2], w[PT][3];
+  #pragma unroll
+      for (int u = 0; u < PZ; ++u) {
+        const int i = tid + u * kThreads, p = r + NC * (i / CH);
+        const int gy = y0 - 2 + p / WX, gx = x0 - 2 + p % WX;
+        v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < own * CH && inside(gy, gx)) {
+          const float4* src = reinterpret_cast<const float4*>(
+              x + (static_cast<size_t>(gy) * W + gx) * C + 8 * (i % CH));
+          v[u][0] = __ldg(src);
+          v[u][1] = __ldg(src + 1);
+        }
+      }
+  #pragma unroll
+      for (int u = 0; u < PT; ++u) {
+        const int i = tid + u * kThreads, q = i / (JC / 4);
+        const int c = r * JC + 4 * (i % (JC / 4));
+        const int gy = y0 + q / TX, gx = x0 + q % TX;
+        w[u][0] = w[u][2] = make_float4(0.f, 0.f, 0.f, 0.f);
+        w[u][1] = make_float4(1.f, 1.f, 1.f, 1.f);
+        if (i < NO * (JC / 4) && gy < H && gx < W) {
+          const size_t pix = static_cast<size_t>(gy) * W + gx;
+          w[u][0] = __ldg(reinterpret_cast<const float4*>(x + pix * C + c));
+          w[u][1] = __ldg(reinterpret_cast<const float4*>(cond + pix * R + c));
+          w[u][2] =
+              __ldg(reinterpret_cast<const float4*>(cond + pix * R + C + c));
+        }
+      }
+      if (first) copy_w12(tid, kThreads);
+      cp_async_commit();
+      if constexpr (!LATE3) {
+        if (first) copy_late(0, 1, tid, kThreads);
+        cp_async_commit();
+      }
+      cluster_wait();
+      const uint32_t bz =
+          static_cast<uint32_t>(__cvta_generic_to_shared(bar + 4));
+  #pragma unroll
+      for (int u = 0; u < PZ; ++u) {
+        const int i = tid + u * kThreads, p = r + NC * (i / CH);
+        if (i < own * CH) {
+          const uint4 z = make_uint4(
+              pack_bf16(v[u][0].x, v[u][0].y), pack_bf16(v[u][0].z, v[u][0].w),
+              pack_bf16(v[u][1].x, v[u][1].y), pack_bf16(v[u][1].z, v[u][1].w));
+          __nv_bfloat16* dst = s_z + p * SZ + 8 * (i % CH);
+          *reinterpret_cast<uint4*>(dst) = z;
+          const uint32_t a =
+              static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  #pragma unroll
+          for (int k = 1; k < NC; ++k) st_async(a, z, bz, (r + k) % NC);
+        }
+      }
+  #pragma unroll
+      for (int u = 0; u < PT; ++u) {
+        const int i = tid + u * kThreads, q = i / (JC / 4);
+        if (i < NO * (JC / 4)) {
+          float t1[4] = {w[u][0].x / w[u][1].x - w[u][2].x,
+                         w[u][0].y / w[u][1].y - w[u][2].y,
+                         w[u][0].z / w[u][1].z - w[u][2].z,
+                         w[u][0].w / w[u][1].w - w[u][2].w};
+          if constexpr (PALLAS) {  // product 5
+  #pragma unroll
+            for (int e = 0; e < 4; ++e) t1[e] = round_bf16(t1[e]);
+          }
+          st_vec(s_t1 + q * ST + r * JC + 4 * (i % (JC / 4)), t1);
+        }
+      }
+    } else {
+      // the state on the window, zeros outside
+      for (int i = tid; i < NW * (C / 4); i += kThreads) {
+        const int p = i / (C / 4), c4 = i % (C / 4);
+        const int gy = y0 - 2 + p / WX, gx = x0 - 2 + p % WX;
+        const bool in = inside(gy, gx);
+        cp_async16_zfill(
+            s_x + p * SX + 4 * c4,
+            in ? x + (static_cast<size_t>(gy) * W + gx) * C + 4 * c4 : x,
+            in ? 16 : 0);
+      }
+      if (first) {
+        copy_f32_rows<C>(s_f, SF, wf + P::WF + r * JC * C, JC);
+        copy_f32_rows<C>(s_f + JC * SF, SF, wf + P::WF + (CN + r * JC) * C,
+                         JC);
+      }
+      cp_async_commit();
+      cluster_wait();
+    }
+    cp_async_wait<REV && !LATE3 ? 1 : 0>();
+    __syncthreads();  // the window and the first group
+    if constexpr (REV) mbar_wait(bar + 4, ph);  // the z1 window, whole
+
+    // ---- A (forward): the fold, f32 grade (xla: 3xTF32 on the state;
+    // pallas: the state rounded, product 1), the CTA's JC z1 rows on the
+    // window and its JC za2 rows on the tile ----
+    if constexpr (!REV) {
+      constexpr int MZ = G::MZ, MF = G::MZ + G::MO, MFW = cdiv(MF, kWarps);
+      constexpr int NTF = G::NTF;
+      float acc[MFW][NTF][4];
+      int wrow[MFW][2];  // window pixels of the fragment's rows g, g + 8
+      // the epilogue's scale_ft and shift_ft (zero outside the image), early
+      float2 esc[MFW][2][NTF], esh[MFW][2][NTF];
+  #pragma unroll
+      for (int u = 0; u < MFW; ++u) {
+        const int f = warp + kWarps * u;
+        const int ch0 = (f < MZ ? 0 : CN) + r * JC;
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * (f < MZ ? f : f - MZ) + g + 8 * h;
+          const int q = min(row, NO - 1);
+          wrow[u][h] = f < MZ ? min(row, NW - 1)
+                              : (q / TX + 2) * WX + q % TX + 2;
+          const int gy = y0 - 2 + wrow[u][h] / WX;
+          const int gx = x0 - 2 + wrow[u][h] % WX;
+          const bool in = f < MF && inside(gy, gx);
+          const float* rec =
+              cond + (in ? static_cast<size_t>(gy) * W + gx : 0) * R + ch0;
+  #pragma unroll
+          for (int j = 0; j < NTF; ++j) {
+            const int n = 8 * j + 2 * t4;
+            const bool ok = in && n < JC;
+            esc[u][h][j] = ok ? __ldg(reinterpret_cast<const float2*>(rec + n))
+                              : make_float2(0.f, 0.f);
+            esh[u][h][j] =
+                ok ? __ldg(reinterpret_cast<const float2*>(rec + C + n))
+                   : make_float2(0.f, 0.f);
+          }
+        }
+  #pragma unroll
+        for (int j = 0; j < NTF; ++j) {
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
+        }
+        if (f >= MF) continue;
+        // this lane's ldmatrix rows: window pixel of fragment row lane & 15
+        const int lr = 16 * (f < MZ ? f : f - MZ) + (lane & 15);
+        const int lq = min(lr, NO - 1);
+        const int ap =
+            f < MZ ? min(lr, NW - 1) : (lq / TX + 2) * WX + lq % TX + 2;
+        const float* ar = s_x + ap * SX + fold_a_col(lane);
+        const float* br = s_f + (f < MZ ? 0 : JC * SF) + fold_b_off(lane, SF);
+  #pragma unroll 4
+        for (int k = 0; k < C; k += 8) {
+          fold_k8<NTF, PASSES, PALLAS>(acc[u], ar + k, br + k, SF);
+        }
+      }
+      // za = (fold + b_fold + shift_ft) * scale_ft, zero outside the image
+  #pragma unroll
+      for (int u = 0; u < MFW; ++u) {
+        const int f = warp + kWarps * u;
+        if (f >= MF) continue;
+        const int ch0 = (f < MZ ? 0 : CN) + r * JC;
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+  #pragma unroll
+          for (int j = 0; j < NTF; ++j) {
+            const int n = 8 * j + 2 * t4;
+            if (n >= JC) continue;
+            const float2 bf =
+                *reinterpret_cast<const float2*>(s_vec + P::BF + ch0 + n);
+            acc[u][j][2 * h] =
+                (acc[u][j][2 * h] + bf.x + esh[u][h][j].x) * esc[u][h][j].x;
+            acc[u][j][2 * h + 1] =
+                (acc[u][j][2 * h + 1] + bf.y + esh[u][h][j].y) * esc[u][h][j].y;
+          }
+        }
+      }
+      {
+        // the warps with a fragment fewer (all, if none has)
+        constexpr int FEW = MF % kWarps ? MF % kWarps : 0;
+        if (first && warp >= FEW) {
+          copy_w12(tid - 32 * FEW, kThreads - 32 * FEW);
+        }
+        cp_async_commit();
+        if constexpr (!LATE3) {
+          if (first && warp >= FEW) {
+            copy_late(0, 1, tid - 32 * FEW, kThreads - 32 * FEW);
+          }
+          cp_async_commit();
+        }
+      }
+      if constexpr (!G::ZX) {
+        // every CTA is done with its state window, under the maps
+        cluster_sync();
+      }
+  #pragma unroll
+      for (int u = 0; u < MFW; ++u) {
+        const int f = warp + kWarps * u;
+        if (f >= MF) continue;
+        const bool z = f < MZ;
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * (z ? f : f - MZ) + g + 8 * h;
+          if (row >= (z ? NW : NO)) continue;
+          const int wy = wrow[u][h] / WX, wx = wrow[u][h] % WX;
+          const int gy = y0 - 2 + wy, gx = x0 - 2 + wx;
+          const bool out_px = z && wy >= 2 && wy < TY + 2 && wx >= 2 &&
+                              wx < TX + 2 && inside(gy, gx);
+  #pragma unroll
+          for (int j = 0; j < NTF; ++j) {
+            const int n = 8 * j + 2 * t4;
+            if (n >= JC) continue;
+            const float v[2] = {acc[u][j][2 * h], acc[u][j][2 * h + 1]};
+            if (z) {
+              *reinterpret_cast<uint32_t*>(s_z + row * SZ + r * JC + n) =
+                  pack_bf16(v[0], v[1]);  // product 2
+              if (out_px) {
+                st_vec(out + (static_cast<size_t>(gy) * W + gx) * C + r * JC +
+                           n,
+                       v);
+              }
+            } else {
+              *reinterpret_cast<float2*>(s_a2 + row * SA + n) =
+                  make_float2(v[0], v[1]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the CTA's z1 channels on the window
+      share_rows<NC, 2 * JC>(s_z, 2 * SZ, 2 * r * JC, NW, r, bar, tid,
+                             kThreads);
+      mbar_wait(bar, ph);  // z1 on the window, whole
+      cp_async_wait<LATE3 ? 0 : 1>();
+      __syncthreads();  // W1 and W2
+    }
+
+    // ---- B: conv1 -> actnorm1 + ReLU -> conv2 -> actnorm2 + ReLU + mask,
+    // the CTA's HC hidden channels, a warp an m-fragment of the hidden
+    // region; each map to every CTA ----
+    const int mf1 = warp;
+    int prow[2];
+    bool pin[2];
+  #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      prow[h] = 16 * mf1 + g + 8 * h;
+      pin[h] = prow[h] < NH &&
+               inside(y0 - 1 + prow[h] / HX, x0 - 1 + prow[h] % HX);
+    }
+    if (mf1 < G::MH) {
+      float2 af[2][NT1];  // aff1_ft of the two rows
+  #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gy = y0 - 1 + prow[h] / HX, gx = x0 - 1 + prow[h] % HX;
+        const float* ar =
+            cond + (pin[h] ? (static_cast<size_t>(gy) * W + gx) * R : 0) +
+            2 * C + r * HC + 2 * t4;
+  #pragma unroll
+        for (int j = 0; j < NT1; ++j) {
+          af[h][j] = pin[h] ? __ldg(reinterpret_cast<const float2*>(ar + 8 * j))
+                            : make_float2(0.f, 0.f);
+        }
+      }
+      // A rows: hidden pixels, at the window pixel of tap (0, 0)
+      const int p = min(16 * mf1 + (lane & 15), NH - 1);
+      const __nv_bfloat16* zrow = s_z + ((p / HX) * WX + p % HX) * SZ;
+      float acc[NA1][NT1][4];
+      zero_acc(acc);
+  #pragma unroll
+      for (int ks = 0; ks < G::K1S; ++ks) {
+        // this lane's chunk of 8 channels, k = tap * cn + channel; past K1
+        // (W1's zero rows) any chunk in the window
+        int k8 = 16 * ks + 8 * hi;
+        if (k8 >= G::K1) k8 = 0;
+        const int tap = k8 / CN, c = k8 - tap * CN;
+        uint32_t a[4];
+        ldsm_x4(a, zrow + ((tap / 3) * WX + tap % 3) * SZ + c);
+        mma_k16<NT1>(acc[ks % NA1], a, s_w1 + 16 * ks * L1, L1, 8, lane);
+        if (LATE3 && first && ks % (G::K1S / NPART) == 0 &&
+            ks / (G::K1S / NPART) < NPART) {
+          copy_late(ks / (G::K1S / NPART), NPART, tid, 32 * G::MH);
+        }
+      }
+      sum_sets(acc);
+  #pragma unroll
+      for (int j = 0; j < NT1; ++j) {
+        const int hc = r * HC + 8 * j + 2 * t4;
+        const float2 b = *reinterpret_cast<const float2*>(s_vec + P::AN1B + hc);
+        const float2 e = *reinterpret_cast<const float2*>(s_vec + P::AN1E + hc);
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (prow[h] >= NH) continue;
+          const float v0 =
+              fmaxf((acc[0][j][2 * h] + af[h][j].x + b.x) * e.x, 0.f);
+          const float v1 =
+              fmaxf((acc[0][j][2 * h + 1] + af[h][j].y + b.y) * e.y, 0.f);
+          *reinterpret_cast<uint32_t*>(s_h1 + prow[h] * SH + hc) =
+              pack_bf16(v0, v1);  // product 3
+        }
+      }
+    }
+    if constexpr (LATE3) cp_async_commit();  // W3 (and the fold rows)
+    __syncthreads();  // the CTA's h1 channels
+    share_rows<NC, 2 * HC>(s_h1, 2 * SH, 2 * r * HC, NH, r,
+                                     bar + 1, tid, kThreads);
+    mbar_wait(bar + 1, ph);  // the map after conv1, whole
+    if (mf1 < G::MH) {
+      const int p = min(16 * mf1 + (lane & 15), NH - 1);
+      float acc[1][NT1][4];
+      zero_acc(acc);
+  #pragma unroll
+      for (int kk = 0; kk < kHid / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, s_h1 + p * SH + 16 * kk + 8 * hi);
+        mma_k16<NT1>(acc[0], a, s_w2 + 16 * kk * L1, L1, 8, lane);
+      }
+  #pragma unroll
+      for (int j = 0; j < NT1; ++j) {
+        const int hc = r * HC + 8 * j + 2 * t4;
+        const float2 b = *reinterpret_cast<const float2*>(s_vec + P::AN2B + hc);
+        const float2 e = *reinterpret_cast<const float2*>(s_vec + P::AN2E + hc);
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (prow[h] >= NH) continue;
+          // ZEROED OUTSIDE THE IMAGE: conv3 pads its input with zeros
+          const float v0 =
+              pin[h] ? fmaxf((acc[0][j][2 * h] + b.x) * e.x, 0.f) : 0.f;
+          const float v1 =
+              pin[h] ? fmaxf((acc[0][j][2 * h + 1] + b.y) * e.y, 0.f) : 0.f;
+          *reinterpret_cast<uint32_t*>(s_h2 + prow[h] * SH + hc) =
+              pack_bf16(v0, v1);  // product 4
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the CTA's h2 channels (and W3, the fold rows)
+    share_rows<NC, 2 * HC>(s_h2, 2 * SH, 2 * r * HC, NH, r,
+                                     bar + 2, tid, kThreads);
+    mbar_wait(bar + 2, ph);  // the map after conv2, whole
+
+    // ---- C: conv3 (the CTA's N3L columns: JC channels' (scale, shift)), a
+    // warp an m-fragment of the tile; reverse: the other warps fetch the
+    // coupling's inputs meanwhile ----
+    if (warp < G::MO) {
+      const int o = min(16 * warp + (lane & 15), NO - 1);
+      const __nv_bfloat16* hrow = s_h2 + ((o / TX) * HX + o % TX) * SH + 8 * hi;
+      float acc[2][NT3][4];
+      zero_acc(acc);
+  #pragma unroll 3
+      for (int tap = 0; tap < 9; ++tap) {
+        const int toff = ((tap / 3) * HX + tap % 3) * SH;
+  #pragma unroll
+        for (int kk = 0; kk < kHid / 16; ++kk) {
+          uint32_t a[4];
+          ldsm_x4(a, hrow + toff + 16 * kk);
+          mma_k16<NT3>(acc[kk % 2], a, s_w3 + (tap * kHid + 16 * kk) * L3, L3,
+                       8, lane);
+        }
+      }
+      sum_sets(acc);
+      // columns (2 t4, 2 t4 + 1) of n-tile j: (scale, shift) of the CTA's
+      // channel 4 j + t4
+  #pragma unroll
+      for (int j = 0; j < NT3; ++j) {
+        const int col = r * N3L + 8 * j + 2 * t4;
+        const float2 b3 = *reinterpret_cast<const float2*>(s_vec + P::B3 + col);
+        float2 g3 = make_float2(1.f, 1.f);
+        if constexpr (!PALLAS) {  // the gain after conv3, as the XLA step
+          g3 = *reinterpret_cast<const float2*>(s_vec + P::G3 + col);
+        }
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = 16 * warp + g + 8 * h;
+          if (q >= NO) continue;
+          float as = acc[0][j][2 * h] + b3.x;
+          float at = acc[0][j][2 * h + 1] + b3.y;
+          if constexpr (!PALLAS) {
+            as *= g3.x;
+            at *= g3.y;
+          }
+          const float scale = 1.f / (1.f + expf(-(as + 2.f))) + kAffineEps;
+          *reinterpret_cast<float2*>(s_o + q * SO + 8 * j + 2 * t4) =
+              make_float2(scale, at);
+        }
+      }
+    } else if constexpr (REV) {
+      // x2, scale_ft and shift_ft of the second half, the CTA's channels
+      for (int i = tid - 32 * G::MO; i < NO * (JC / 4);
+           i += kThreads - 32 * G::MO) {
+        const int q = i / (JC / 4), c = CN + r * JC + 4 * (i % (JC / 4));
+        const int gy = y0 + q / TX, gx = x0 + q % TX;
+        if (gy >= H || gx >= W) continue;
+        const size_t pix = static_cast<size_t>(gy) * W + gx;
+        const float* src[3] = {x + pix * C + c, cond + pix * R + c,
+                               cond + pix * R + C + c};
+  #pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          *reinterpret_cast<float4*>(s_c + (q * 3 + k) * JC + c - CN - r * JC) =
+              __ldg(reinterpret_cast<const float4*>(src[k]));
+        }
+      }
+      // and t's first half to every CTA
+      share_rows<NC, 4 * JC>(s_t1, 4 * ST, 4 * r * JC, NO, r, bar + 3,
+                             tid - 32 * G::MO, kThreads - 32 * G::MO);
+    }
+    __syncthreads();  // conv3's (scale, shift) (and the coupling's inputs)
+    // the coupling, 4 of the CTA's channels an item: forward the coupled
+    // half out; reverse t's second half, (x2 / scale - shift) / scale_ft -
+    // shift_ft
+    for (int i = tid; i < NO * (JC / 4); i += kThreads) {
+      const int q = i / (JC / 4), l = 4 * (i % (JC / 4)), c = r * JC + l;
+      const int gy = y0 + q / TX, gx = x0 + q % TX;
+      if (gy >= H || gx >= W) continue;
+      const float4 o0 = ld4(s_o + q * SO + 2 * l);  // (scale, shift) x 2
+      const float4 o1 = ld4(s_o + q * SO + 2 * l + 4);
+      const float sc[4] = {o0.x, o0.z, o1.x, o1.z};
+      const float sf[4] = {o0.y, o0.w, o1.y, o1.w};
+      float y[4];
+      if constexpr (!REV) {
+        const float4 a = ld4(s_a2 + q * SA + l);
+        const float za[4] = {a.x, a.y, a.z, a.w};
+  #pragma unroll
+        for (int e = 0; e < 4; ++e) y[e] = (za[e] + sf[e]) * sc[e];
+        st_vec(out + (static_cast<size_t>(gy) * W + gx) * C + CN + c, y);
+      } else {
+        float in[3][4];
+  #pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float4 v = ld4(s_c + (q * 3 + k) * JC + l);
+          in[k][0] = v.x;
+          in[k][1] = v.y;
+          in[k][2] = v.z;
+          in[k][3] = v.w;
+        }
+  #pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          y[e] = (in[0][e] / sc[e] - sf[e]) / in[1][e] - in[2][e];
+          if constexpr (PALLAS) y[e] = round_bf16(y[e]);  // product 5
+        }
+        st_vec(s_t2 + q * ST + c, y);
+      }
+    }
+
+    // ---- D (reverse): t to every CTA, then the folded inverse 1x1, the
+    // CTA's DR rows (xla: 3xTF32 on t; pallas: t rounded, one pass) ----
+    if constexpr (REV) {
+      __syncthreads();  // the CTA's t channels
+      share_rows<NC, 4 * JC>(s_t2, 4 * ST, 4 * r * JC, NO, r,
+                                       bar + 3, tid, kThreads);
+      mbar_wait(bar + 3, ph);  // t, whole
+      constexpr int NTD = G::NTD, KS = C / 8;
+      for (int u = warp; u < G::MO * NTD; u += kWarps) {
+        const int mf = u / NTD, j = u % NTD;
+        const int ar =
+            min(16 * mf + (lane & 15), NO - 1) * ST + fold_a_col(lane);
+        const float* br = s_f + 8 * j * SF + fold_b_off(lane, SF);
+        // four sums, K steps dealt round robin, added in order at the end;
+        // K: t's first half, then its second
+        float acc[4][1][4];
+        zero_acc(acc);
+  #pragma unroll
+        for (int k = 0; k < KS; ++k) {
+          const float* a = k < KS / 2 ? s_t1 + ar + 8 * k
+                                      : s_t2 + ar + 8 * (k - KS / 2);
+          fold_k8<1, PASSES, false>(acc[k % 4], a, br + 8 * k, SF);
+        }
+        sum_sets(acc);
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = 16 * mf + g + 8 * h;
+          const int gy = y0 + q / TX, gx = x0 + q % TX;
+          if (q >= NO || gy >= H || gx >= W) continue;
+          const int col = r * DR + 8 * j + 2 * t4;
+          const float v[2] = {acc[0][0][2 * h] - s_vec[P::AB + col],
+                              acc[0][0][2 * h + 1] - s_vec[P::AB + col + 1]};
+          st_vec(out + (static_cast<size_t>(gy) * W + gx) * C + col, v);
+        }
+      }
+    }
+  };
+  const int tile0 = blockIdx.x / NC;
+  run_tile(Flag<true>(), tile0, 0);
+  for (int tile = tile0 + ncl, it = 1; tile < ntiles; tile += ncl, ++it) {
+    // the CTA is done with the last tile's maps; this tile's barriers set
+    __syncthreads();
+    arm();
+    cluster_arrive();
+    run_tile(Flag<false>(), tile, it & 1);
+  }
+}
+
+// the clusters of the width resident at once (found once)
+template <int C, bool REV, bool PALLAS>
+int wide_clusters(cudaLaunchConfig_t cfg, int* n) {
+  using G = WGeo<C, PALLAS>;
+  static int max_clusters = 0;
+  if (max_clusters == 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flow_step_bf16_wide_kernel<C, REV, PALLAS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem(REV));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cfg.gridDim = dim3(G::NC, 1, 1);
+    int m = 0;
+    const cudaError_t e2 = cudaOccupancyMaxActiveClusters(
+        &m,
+        reinterpret_cast<const void*>(
+            flow_step_bf16_wide_kernel<C, REV, PALLAS>),
+        &cfg);
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+    if (m < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    max_clusters = m;
+  }
+  *n = max_clusters;
+  return 0;
+}
+
+// a cluster a tile of the batch, at most as many clusters as are resident
+// at once (each takes the tiles its index strides over)
+template <int C, bool REV, bool PALLAS>
+int launch_wide(const float* x, const float* cond, const __nv_bfloat16* wb,
+                float* out, int B, int H, int W, cudaStream_t stream) {
+  using G = WGeo<C, PALLAS>;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G::NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = G::smem(REV);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const int err = wide_clusters<C, REV, PALLAS>(cfg, &clusters);
+  if (err != 0) return err;
+  const long long tiles = static_cast<long long>(B) *
+                          ((H + G::TY - 1) / G::TY) *
+                          ((W + G::TX - 1) / G::TX);
+  if (tiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const int ncl = static_cast<int>(tiles < clusters ? tiles : clusters);
+  cfg.gridDim = dim3(G::NC * ncl, 1, 1);
+  const cudaError_t e2 = cudaLaunchKernelEx(
+      &cfg, flow_step_bf16_wide_kernel<C, REV, PALLAS>, x, cond, wb, out, B,
+      H, W);
+  if (e2 != cudaSuccess) return static_cast<int>(e2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool REV, bool PALLAS>
 int dispatch(const void* x, const void* cond, const void* packed, void* out,
              int B, int H, int W, int C, int hid, void* stream) {
@@ -897,9 +1863,10 @@ int dispatch(const void* x, const void* cond, const void* packed, void* out,
   switch (C) {
     case 12: return launch<12, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
     case 24: return launch<24, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
-    case 48: return launch<48, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
+    case 48: return launch_wide<48, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
     case 96: return launch<96, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
-    case 192: return launch<192, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
+    case 192:
+      return launch_wide<192, REV, PALLAS>(xp, cp, wp, op, B, H, W, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,7 @@
 // 3xTF32 on the tensor cores, shared by K2 (linf_info.cu) and the wide
-// levels of K5 (flow_step.cu): an f32 operand split into a TF32 big part
-// and the rest, and one mma.sync.m16n8k8 with TF32 inputs and f32 sums.
+// levels of K5 (flow_step.cu, and the folds of flow_step_bf16.cu): an f32
+// operand split into a TF32 big part and the rest, and one
+// mma.sync.m16n8k8 with TF32 inputs and f32 sums.
 #pragma once
 
 #include <cstdint>
@@ -16,6 +17,14 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// the same split with small rounded to TF32 as well (to nearest, ties
+// away), not truncated by the tensor cores: x = big + small to ~2^-22 of |x|
+__device__ __forceinline__ void split_tf32_rn(float x, uint32_t& big,
+                                              uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;
 }
 
 // d += a (16x8, row) * b (8x8, col) in TF32, f32 accumulate

@@ -83,6 +83,18 @@ from bfsr_tpu_torch.ops import halo
 # 24 / 48 / 192 of the 8x model's L 4 flow
 KERNEL_CHANNELS = (12, 24, 48, 96, 192)
 KERNEL_HIDDEN = 64
+# the widths both kernel files launch on their wide kernels (the dispatch
+# switch of each: csrc/flow_step.cu Wide<C>, csrc/flow_step_bf16.cu
+# BWide<C>), which run their f32-grade products on the tensor cores: the
+# f32 form every product as 3xTF32, the xla one-pass form its folds; at
+# the other widths those run as f32 SIMT FMA
+WIDE_CHANNELS = (48, 192)
+# H100 SXM published peaks at 700 W (NVIDIA's data sheet), by the
+# instruction that runs a product (3xTF32: three TF32 products each), and
+# its memory rate
+PEAKS = {"f32 SIMT": 67e12, "bf16": 989e12, "TF32": 495e12,
+         "3xTF32": 495e12 / 3}
+PEAK_BYTES = 3.35e12
 # the image is the grid's z
 GRID_Z = 65535
 
@@ -178,6 +190,41 @@ def unpack_step(packed, c, hid):
 
 
 STEP_FORMS = ("xla", "pallas")
+
+
+def k5_cost(c, hid, hw, packed, form="f32", simt=False):
+    """The least time of one K5 launch, either direction, on an (H, W, C)
+    state, ``hw`` = (H, W) (a batch as (B H, W)), in ``form`` ("f32" or
+    one of ``STEP_FORMS``): per pixel the folded 1x1 (2 C^2), conv1 (2 * 9
+    * cn * hid), conv2 (2 hid^2) and conv3 (2 * 9 * hid * C) flops, each
+    product over the peak of what runs it (``PEAKS``): the one-pass tower,
+    and the ``pallas`` form's fold of bf16 values, at the bf16 rate; the
+    f32-grade products (the f32 form's, the ``xla`` fold) at 3xTF32 at
+    ``WIDE_CHANNELS``, else (or with ``simt``) at the f32 SIMT rate.
+    Against the bytes over ``PEAK_BYTES``: the state, its record (2C + hid)
+    and the output moved once, and the step's buffer read once less the
+    fold of the other direction (C x C f32 words; a launch reads one).
+    Returns {flops, bytes, bound_ms, bound_by, bound_rate}."""
+    cn = c // 2
+    px = hw[0] * hw[1]
+    fold = 2 * c * c
+    tower = 2 * 9 * cn * hid + 2 * hid * hid + 2 * 9 * hid * c
+    f32_rate = ("3xTF32" if c in WIDE_CHANNELS and not simt
+                else "f32 SIMT")
+    if form == "f32":
+        prods = [(fold + tower, f32_rate)]
+    elif form == "pallas":
+        prods = [(tower + fold, "bf16")]
+    else:
+        prods = [(tower, "bf16"), (fold, f32_rate)]
+    t_ops = sum(px * f / PEAKS[rate] for f, rate in prods)
+    n_bytes = (4 * px * (c + (2 * c + hid) + c)
+               + packed.numel() * packed.element_size() - 4 * c * c)
+    t_bytes = n_bytes / PEAK_BYTES
+    return {"flops": px * (fold + tower), "bytes": n_bytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_rate": " + ".join(rate for _, rate in prods)}
 
 
 def _check_form(form):

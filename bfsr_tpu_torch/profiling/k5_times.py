@@ -9,23 +9,26 @@ one-pass forms under ``BFSR_PRECISION=default``, ``xla`` (served) or
 2C + 64 channels; ``--levels x8``: the 8x model's levels 3 and 4 at
 512^2 (64^2 x 48, 32^2 x 192; its levels 1 and 2 are the 4x model's),
 the same two at a ``validate`` batch of 2 160^2 crops (B 2 of 20^2 x 48
-and of 10^2 x 192) and at the 8x trainer's batch of 12 (B 12 of the same;
-no path launches K5 there, the base trainer runs its flow unfused), each
-image with its own state and record.
-The step is a ``FlowStep`` with live random weights
-from seed 0, built as ``tests/test_torch_cuda.py:random_flow_step`` builds
-it, and packed with ``pack_step`` (f32) or ``pack_step_bf16`` in the
-form; the state and record come from numpy seed 1.  CUDA events around ``--iters`` back-to-back launches after a
-warm-up, the device held while the host enqueues them (as ``chip_smoke.py``
-times).  Prints one JSON line: ms per launch, the share of the bound (the
-larger of the step's flops over the peak of the instructions the kernel
-runs and its bytes over 3.35 TB/s, as ``chip_smoke.py:k5_work`` counts
-them; f32 SIMT 67 TFLOP/s, at C = 48 and 192 3xTF32 495 / 3 TFLOP/s with
-the SIMT share beside it; one-pass bf16 989), the max abs error against
-the plain twin, and the card's name and power limit.
+and of 10^2 x 192), at the 8x trainer's batch of 12 (B 12 of the same;
+no path launches K5 there, the base trainer runs its flow unfused) and
+at a 2048^2 sample (256^2 x 48, 128^2 x 192: more tiles than the card
+holds clusters), each image with its own state and record.
+The step is a ``FlowStep`` with live random weights from seed 0, built
+as ``tests/test_torch_cuda.py:random_flow_step`` builds it, and packed
+with ``pack_step`` (f32) or ``pack_step_bf16`` in the form; the state and
+record come from numpy seed 1.  CUDA events around ``--iters``
+back-to-back launches after a warm-up, the device held while the host
+enqueues them (as ``chip_smoke.py`` times).  Prints one JSON line: ms
+per launch, the share of the bound (``ops/cuda/flow_step.py:k5_cost``:
+the larger of the step's products, each over the peak of what runs it,
+and its bytes over 3.35 TB/s), the max abs error against the plain twin,
+and the card's name and power limit.  At C = 48 and 192, whose kernels
+run their f32-grade products on the tensor cores, the share with those
+products at the f32 SIMT rate (the instructions of the narrow widths'
+kernels) is beside it (f32 and ``xla``).
 
-It uses only entry points the port has had since K5 came in, so the same
-file times an older checkout of the port:
+It times any checkout of the port that has ``k5_cost``; an older one
+runs its own copy of this file (the same timing, shapes and seeds):
 
     PYTHONPATH=<checkout> python bfsr_tpu_torch/profiling/k5_times.py \
         --form xla
@@ -47,19 +50,16 @@ from bfsr_tpu_torch.ops.cuda import flow_step as k5
 HID = 64
 # (label, C, extent, batch): the first conditional step of each level at
 # 512^2 (x8: and of a validate batch, B 2, and the 8x trainer's B 12 of
-# 160^2)
+# 160^2, and at 2048^2)
 LEVELS = {"x4": [("L1 256^2x12", 12, 256, 1), ("L2 128^2x24", 24, 128, 1),
                  ("L3 64^2x96", 96, 64, 1)],
           "x8": [("L3 64^2x48", 48, 64, 1), ("L4 32^2x192", 192, 32, 1),
                  ("L3 B2 20^2x48", 48, 20, 2),
                  ("L4 B2 10^2x192", 192, 10, 2),
                  ("L3 B12 20^2x48", 48, 20, 12),
-                 ("L4 B12 10^2x192", 192, 10, 12)]}
-PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
-PEAK_3XTF32 = 495e12 / 3
-# the widths whose f32 kernel runs its products as 3xTF32 mma.sync
-# (csrc/flow_step.cu, Wide<C>)
-TF32_WIDTHS = (48, 192)
+                 ("L4 B12 10^2x192", 192, 10, 12),
+                 ("L3 256^2x48", 48, 256, 1),
+                 ("L4 128^2x192", 192, 128, 1)]}
 FORMS = ("f32", "xla", "pallas")
 
 
@@ -79,16 +79,6 @@ def random_step(c, seed=0):
             else:
                 t.copy_(torch.from_numpy(0.1 * g.standard_normal(t.shape)))
     return step
-
-
-def work(c, hw, packed, batch=1):
-    """(flops, bytes) of one launch, as chip_smoke.py:k5_work counts."""
-    cn = c // 2
-    px = batch * hw * hw
-    flops = px * (2 * c * c + 2 * 9 * cn * HID + 2 * HID * HID
-                  + 2 * 9 * HID * c)
-    return flops, (4 * px * (c + (2 * c + HID) + c)
-                   + packed.numel() * packed.element_size())
 
 
 def device_ms(fn, iters):
@@ -145,16 +135,16 @@ def run(iters=50, form="f32", levels="x4"):
             [g.uniform(0.6, 1.0, (*shape, c)),
              0.5 * g.standard_normal((*shape, c)),
              g.standard_normal((*shape, HID))], -1)).float().cuda()
-        flops, n_bytes = work(c, hw, packed, batch)
-        peak = (PEAK_BF16 if form != "f32" else
-                PEAK_3XTF32 if c in TF32_WIDTHS else PEAK_F32)
-        bound_ms = 1e3 * max(flops / peak, n_bytes / PEAK_BYTES)
-        simt_ms = 1e3 * max(flops / PEAK_F32, n_bytes / PEAK_BYTES)
+        bound_ms = k5.k5_cost(c, HID, (batch * hw, hw), packed,
+                              form)["bound_ms"]
+        simt_ms = (k5.k5_cost(c, HID, (batch * hw, hw), packed, form,
+                              simt=True)["bound_ms"]
+                   if c in k5.WIDE_CHANNELS and form != "pallas" else None)
         entries = _entries(form, packed)
         with torch.inference_mode():
             inputs = {"fwd": x, "rev": entries[0][2](x, rec)}
             row = {"bound_ms": bound_ms}
-            if peak == PEAK_3XTF32:
+            if simt_ms is not None:
                 row["simt_bound_ms"] = simt_ms
             for name, fn, plain in entries:
                 inp = inputs[name]
@@ -163,7 +153,7 @@ def run(iters=50, form="f32", levels="x4"):
                 row[name] = {"ms": ms, "bound_share": bound_ms / ms,
                              "max_abs_err": float(err.max()),
                              "mean_abs_err": float(err.mean())}
-                if peak == PEAK_3XTF32:
+                if simt_ms is not None:
                     row[name]["simt_share"] = simt_ms / ms
         out[label] = row
     return out

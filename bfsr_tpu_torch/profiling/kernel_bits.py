@@ -16,7 +16,8 @@ The cases are the main paths' batch-1 shapes: the encoder's conv at LR
 60) and the patch model's 172^2 grid (out 540); K5 forward and reverse,
 f32 and in the ``xla`` and ``pallas`` one-pass forms, at the three flow
 levels of a 512^2 image (256^2 x 12, 128^2 x 24, 64^2 x 96) and level 1 of
-the ragged 404x340 one (204 x 172 x 12), on a random step's buffers.  It
+the ragged 404x340 one (204 x 172 x 12), on a random step's buffers, and
+the f32 form at the 8x flow's wide levels (64^2 x 48, 32^2 x 192).  It
 uses only ``conv3x3_cat``, ``conv3x3_cat_bf16``, ``affine_info`` with 1-D
 grid axes, ``FlowStep`` and the K5 wrappers, so it runs against any
 checkout of the port that has the bf16 K3 and both one-pass K5 forms.
@@ -43,6 +44,9 @@ K2_CASES = [(256, 2, 60, (128, 128), (512, 512)),
             (256, 2, 60, (96, 80), (300, 250))]
 K5_CASES = [(12, (256, 256)), (24, (128, 128)), (96, (64, 64)),
             (12, (204, 172))]
+# the f32 form at the 8x flow's wide levels of a 512^2 sample (64^2 x 48,
+# 32^2 x 192), drawn after every case above
+K5_WIDE_F32_CASES = [(48, (64, 64)), (192, (32, 32))]
 
 
 def random_step(g, c, dev, hid=64):
@@ -119,6 +123,17 @@ def fingerprints(dev):
                     y = fn(x, rec, step.kpacked, 64, pb,
                            "xla" if form == "f32" else form)
                     out[f"k5 {form} {way} C={c} @{hw}"] = digest(y)
+        fnn.set_default_precision("high")
+        for c, hw in K5_WIDE_F32_CASES:
+            step = random_step(g, c, dev)
+            x = t(g.standard_normal((1, *hw, c)))
+            rec = t(np.concatenate([g.uniform(0.6, 1.0, (1, *hw, c)),
+                                    0.5 * g.standard_normal((1, *hw, c)),
+                                    g.standard_normal((1, *hw, 64))], -1))
+            for way, fn in (("forward", flow_step.flow_step_forward),
+                            ("reverse", flow_step.flow_step_reverse)):
+                out[f"k5 f32 {way} C={c} @{hw}"] = digest(
+                    fn(x, rec, step.kpacked, 64))
     finally:
         fnn.set_default_precision(saved)
     return out

@@ -613,16 +613,21 @@ def within(got, ref, tol):
 
 
 def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
-            n_bytes=None, library_fn=None, peak=PEAK_F32_FLOPS, launches=1):
+            n_bytes=None, library_fn=None, peak=PEAK_F32_FLOPS, launches=1,
+            cost=None):
     """Run both once, check agreement (and that ``kernel_fn`` launched
     kernel ``name`` ``launches`` times), time both (and ``library_fn``,
     one PyTorch call computing the same function, where there is one);
     with ``n_bytes`` also the bound at ``peak`` (and, at the 3xTF32 peak,
-    the SIMT f32 bound beside it).  Returns a result dict."""
+    the SIMT f32 bound beside it), or with ``cost`` (K5's
+    ``ops/cuda/flow_step.py:k5_cost``) its flops, bytes and bound.
+    Returns a result dict."""
     import torch
 
     from bfsr_tpu_torch.ops import cuda
 
+    if cost is not None:
+        flops, n_bytes = cost["flops"], cost["bytes"]
     before = dict(cuda.LAUNCHES)
     got = kernel_fn()
     ref = plain_fn()
@@ -647,12 +652,13 @@ def compare(name, kernel_fn, plain_fn, tol, flops=None, label="",
     if library_ms is not None:
         extra += f", library {library_ms:.4f} ms"
     if n_bytes is not None:
-        out.update(bound(flops or 0, n_bytes, peak))
+        out.update({k: cost[k] for k in ("bound_ms", "bound_by", "bound_rate")}
+                   if cost is not None else bound(flops or 0, n_bytes, peak))
         extra += (f", bound {out['bound_ms']:.4f} ms ({out['bound_by']} at "
                   f"{out['bound_rate']}: {(flops or 0) / 1e9:.3f} GFLOP, "
                   f"{n_bytes / 1e6:.2f} MB; the kernel at "
                   f"{out['bound_ms'] / ms:.1%} of it)")
-        if peak == PEAK_3XTF32_FLOPS:
+        if peak == PEAK_3XTF32_FLOPS and cost is None:
             simt = bound(flops or 0, n_bytes)["bound_ms"]
             extra += f"; SIMT f32 bound {simt:.4f} ms ({simt / ms:.1%})"
     log(f"check {name}{label}: max_abs_err {max_abs:.3e} ({tol_s}), max |ref| "
@@ -1047,25 +1053,6 @@ def profile_predict(fn, unprofiled_ms, label, top=14, what="predict"):
 # ---------------------------------------------------------------------------
 
 
-def k5_work(c, hid, hw, packed):
-    """(flops, bytes) of one K5 launch on an (H, W, C) state: per pixel the
-    folded 1x1 (2 C^2), conv1 (2 * 9 * cn * hid), conv2 (2 hid^2) and
-    conv3 (2 * 9 * hid * C); the state, its record (2C + hid) and the
-    output moved once, and the step's weights read once."""
-    cn = c // 2
-    px = hw[0] * hw[1]
-    flops = px * (2 * c * c + 2 * 9 * cn * hid + 2 * hid * hid
-                  + 2 * 9 * hid * c)
-    return flops, 4 * px * (c + (2 * c + hid) + c) + nbytes(packed)
-
-
-def k5_f32_peak(c):
-    """The peak rate of the f32 K5's products at width ``c``: 3xTF32
-    ``mma.sync`` at C = 48 and 192 (csrc/flow_step.cu, Wide<C>), SIMT f32
-    FMA at the other widths."""
-    return PEAK_3XTF32_FLOPS if c in (48, 192) else PEAK_F32_FLOPS
-
-
 def first_steps(model, lr):
     """(plan entry, step, record) of the first conditional step of each
     level, its record for this LR image or batch (computed in the current
@@ -1098,7 +1085,7 @@ def check_srflow_kernels(model, lr):
         c, hid = e["c"], step.hidden
         hw = rec.shape[1:3]
         x = torch.randn((1, *hw, c), generator=gen, device="cuda")
-        flops, n_bytes = k5_work(c, hid, hw, step.kpacked)
+        cost = k5.k5_cost(c, hid, hw, step.kpacked)
         label = f" level {e['level']} ({hw[0]}, {hw[1]}, {c})"
         with torch.inference_mode():
             y = k5.flow_step_forward_plain(x, rec, step.kpacked, hid)
@@ -1110,7 +1097,7 @@ def check_srflow_kernels(model, lr):
                 results.setdefault(name, []).append(compare(
                     name, lambda: fn(inp, rec, step.kpacked, hid),
                     lambda: plain(inp, rec, step.kpacked, hid), TOL[name],
-                    flops, label, n_bytes))
+                    label=label, cost=cost))
     results["conv3x3_cat"] = [check_k3(*case)
                               for case in rrdb_k3_cases(model, lr)]
     return results
@@ -1235,7 +1222,7 @@ def check_srflow_kernels_bf16(model, lr):
     twins at each level's shape under ``default``: the first conditional
     step of each level on its ``default`` record for this LR image, the
     served ``xla`` form on the step's ``kpacked_bf16``, the ``pallas`` form
-    on a buffer packed here; the bound at the bf16 peak.  Then the bf16 K3
+    on a buffer packed here; the bound by ``k5_cost``.  Then the bf16 K3
     at the RRDB's conv4 and conv5."""
     import torch
 
@@ -1253,7 +1240,7 @@ def check_srflow_kernels_bf16(model, lr):
                 pb = (step.kpacked_bf16 if form == step.step_form else
                       k5.pack_step_bf16(step.actnorm, step.invconv,
                                         step.affine, form))
-                flops, n_bytes = k5_work(c, hid, hw, pb)
+                cost = k5.k5_cost(c, hid, hw, pb, form)
                 with torch.inference_mode():
                     fwd = k5.BF16_FORMS[form, False]
                     rev = k5.BF16_FORMS[form, True]
@@ -1265,8 +1252,7 @@ def check_srflow_kernels_bf16(model, lr):
                             name, lambda: fn(inp, rec, step.kpacked, hid, pb,
                                              form),
                             lambda: plain(inp, rec, pb, hid), TOL[name],
-                            flops, f" {form}{label}", n_bytes,
-                            peak=PEAK_BF16_FLOPS))
+                            label=f" {form}{label}", cost=cost))
     results["conv3x3_cat_bf16"] = [check_k3_bf16(*case)
                                    for case in rrdb_k3_cases(model, lr)]
     return results
@@ -2256,7 +2242,7 @@ def check_srflow_train_kernels(model, batch):
     """The prior trainer's kernel shapes: K5 at B = 12 at each level's
     shape (the first conditional step of each level on its records for
     the batch's LQ), forward and reverse, f32 and the served one-pass
-    form, against their twins (the bound from ``k5_work`` over the whole
+    form, against their twins (the bound from ``k5_cost`` over the whole
     batch; no library call computes a FlowStep); FlowStepReverse's
     gradient against autograd through the twin in both forms; and both
     K3s at the RRDB's conv4 and conv5 over the batch's LQ, beside cuDNN.
@@ -2275,16 +2261,17 @@ def check_srflow_train_kernels(model, batch):
                 c, hid = e["c"], step.hidden
                 hw = rec.shape[1:3]
                 if mode == "high":
-                    pk, peak = step.kpacked, k5_f32_peak(c)
+                    pk, form, peak = step.kpacked, "f32", PEAK_F32_FLOPS
                     fwd = ("flow_step_forward", k5.flow_step_forward_plain)
                     rev = ("flow_step_reverse", k5.flow_step_reverse_plain)
                 else:
-                    pk, peak = step.kpacked_bf16, PEAK_BF16_FLOPS
+                    pk, form = step.kpacked_bf16, step.step_form
+                    peak = PEAK_BF16_FLOPS
                     fwd = k5.BF16_FORMS[step.step_form, False]
                     rev = k5.BF16_FORMS[step.step_form, True]
                 x = torch.randn((B, *hw, c), generator=gen, device="cuda")
                 up = torch.randn((B, *hw, c), generator=gen, device="cuda")
-                flops, n_bytes = k5_work(c, hid, (B * hw[0], hw[1]), pk)
+                cost = k5.k5_cost(c, hid, (B * hw[0], hw[1]), pk, form)
                 label = (f" train {mode} B={B} level {e['level']} ({hw[0]}, "
                          f"{hw[1]}, {c})")
                 with torch.no_grad():
@@ -2297,7 +2284,7 @@ def check_srflow_train_kernels(model, batch):
                                              step.kpacked_bf16,
                                              step.step_form),
                             lambda: plain(inp, rec, pk, hid), TOL[name],
-                            flops, label, n_bytes, peak=peak))
+                            label=label, cost=cost))
 
                 def grad(f):
                     yr = y.clone().requires_grad_(True)
@@ -2311,9 +2298,9 @@ def check_srflow_train_kernels(model, batch):
                 out[rev[0]].append(compare(
                     rev[0], lambda: grad(k5.flow_step_reverse_diff),
                     lambda: grad(k5.flow_step_reverse_twin),
-                    TOL[f"{rev[0]}_grad"], 3 * flops,
+                    TOL[f"{rev[0]}_grad"], 3 * cost["flops"],
                     f" gradient (FlowStepReverse){label}",
-                    n_bytes + 2 * nbytes(y), peak=peak))
+                    cost["bytes"] + 2 * nbytes(y), peak=peak))
     cases = rrdb_k3_cases(model, lq)
     out["conv3x3_cat"] = [check_k3(*case) for case in cases]
     out["conv3x3_cat_bf16"] = [check_k3_bf16(*case) for case in cases]
@@ -3954,8 +3941,8 @@ def check_k5_levels(model, lq, tag):
     twins at each level of the flow for ``lq`` (B, h, w, 3): the first
     conditional step of each level on its record (f32 and ``xla`` on the
     step's own buffers, ``pallas`` on one packed here), a random state of
-    the batch; the bound by ``k5_work`` over the batch, at the peak of the
-    f32 form's products (``k5_f32_peak``) or the bf16 peak.  Returns
+    the batch; the bound by ``k5_cost`` over the batch, each product at the
+    peak of what runs it (bf16 values at the bf16 rate).  Returns
     {kernel: [results, each with its width and shape]}."""
     import torch
 
@@ -3968,14 +3955,14 @@ def check_k5_levels(model, lq, tag):
         b, h, w = rec.shape[:3]
         x = torch.randn((b, h, w, c), generator=gen, device="cuda")
         where = f" {tag} level {e['level']} ({b}, {h}, {w}, {c})"
-        forms = [(None, step.kpacked, "high", k5_f32_peak(c))]
+        forms = [(None, step.kpacked, "high")]
         for form in k5.STEP_FORMS:
             pb = (step.kpacked_bf16 if form == step.step_form else
                   k5.pack_step_bf16(step.actnorm, step.invconv, step.affine,
                                     form))
-            forms.append((form, pb, "default", PEAK_BF16_FLOPS))
-        for form, buf, mode, peak in forms:
-            flops, n_bytes = k5_work(c, hid, (b * h, w), buf)
+            forms.append((form, pb, "default"))
+        for form, buf, mode in forms:
+            cost = k5.k5_cost(c, hid, (b * h, w), buf, form or "f32")
             with precision(mode), torch.inference_mode():
                 if form is None:
                     fwd = ("flow_step_forward", k5.flow_step_forward_plain)
@@ -3990,8 +3977,8 @@ def check_k5_levels(model, lq, tag):
                     r = compare(
                         name, lambda: fn(inp, rec, step.kpacked, hid, buf,
                                          form or "xla"),
-                        lambda: plain(inp, rec, buf, hid), TOL[name], flops,
-                        f" {form or 'f32'}{where}", n_bytes, peak=peak)
+                        lambda: plain(inp, rec, buf, hid), TOL[name],
+                        label=f" {form or 'f32'}{where}", cost=cost)
                     results.setdefault(name, []).append(
                         dict(r, width=c, shape=[b, h, w]))
     return results
@@ -4621,11 +4608,10 @@ def check_spatial_kernels(model, img, multiple):
         b, h, w = rec.shape[:3]
         x = torch.randn((b, h, w, c), generator=gen, device="cuda")
         where = f" strip level {e['level']} ({b}, {h}, {w}, {c})"
-        for form, buf, mode, peak in (
-                (None, step.kpacked, "high", k5_f32_peak(c)),
-                (step.step_form, step.kpacked_bf16, "default",
-                 PEAK_BF16_FLOPS)):
-            flops, n_bytes = k5_work(c, hid, (h, w), buf)
+        for form, buf, mode in (
+                (None, step.kpacked, "high"),
+                (step.step_form, step.kpacked_bf16, "default")):
+            cost = k5.k5_cost(c, hid, (h, w), buf, form or "f32")
             with precision(mode), torch.inference_mode():
                 if form is None:
                     fwd = ("flow_step_forward", k5.flow_step_forward_plain)
@@ -4640,8 +4626,8 @@ def check_spatial_kernels(model, img, multiple):
                     r = compare(
                         name, lambda: fn(inp, rec, step.kpacked, hid,
                                          step.kpacked_bf16, step.step_form),
-                        lambda: plain(inp, rec, buf, hid), TOL[name], flops,
-                        f" {form or 'f32'}{where}", n_bytes, peak=peak)
+                        lambda: plain(inp, rec, buf, hid), TOL[name],
+                        label=f" {form or 'f32'}{where}", cost=cost)
                     results.setdefault(name, []).append(
                         dict(r, width=c, shape=[b, h, w]))
     return results

@@ -817,16 +817,36 @@ def _frame(t):
     return t[0][m]
 
 
+# the one-pass K5's output tiles at the wide levels (csrc/flow_step_bf16.cu,
+# BWide<C>): TY x TX of a thread-block cluster (2 CTAs at C = 48, 8 at C =
+# 192); the 8x samples' level shapes there (LR 64^2 and 50 x 42)
+K5_BF16_TILES = {48: (8, 8), 192: (11, 7)}
+K5_BF16_SAMPLE_SHAPES = {48: [(64, 64), (50, 42)], 192: [(32, 32), (25, 21)]}
+
+
+def _k5_bf16_tile_shapes():
+    """At C = 48 and 192: two tiles each way exactly, one pixel more each
+    way, a 1-pixel row and a 1-pixel column, a shape of more tiles than
+    the card holds clusters (``K5_MANY_TILES``: 156 tiles at C = 48, 28 at
+    C = 192), and the 8x samples' level shapes."""
+    out = []
+    for c, (ty, tx) in K5_BF16_TILES.items():
+        out += [(c, (2 * ty, 2 * tx)), (c, (2 * ty + 1, 2 * tx + 1)),
+                (c, (1, 2 * tx + 1)), (c, (2 * ty + 1, 1)),
+                (c, K5_MANY_TILES[c])]
+        out += [(c, hw) for hw in K5_BF16_SAMPLE_SHAPES[c]]
+    return out
+
+
 # shapes that no tile of the one-pass K5 divides, at every level (C = 96
-# and 192 stream W3 through its tap ring; C = 192 reads its folds from
-# global memory)
+# streams W3 through its tap ring)
 K5_BF16_RAGGED = [(c, hw) for c in (12, 24, 96, 48, 192)
                   for hw in ((1, 3), (2, 1), (17, 2), (37, 29), (64, 33))]
 
 
 @pytest.mark.parametrize("form", ["xla", "pallas"])
 @pytest.mark.parametrize("c,hw", [(24, (20, 13)), (96, (15, 9))]
-                         + K5_BF16_RAGGED)
+                         + K5_BF16_RAGGED + _k5_bf16_tile_shapes())
 def test_k5_bf16_forms_match_their_twins(dev, restore_mode, form, c, hw):
     """Each one-pass form against its own twin at each level, forward then
     reverse: the same operands rounded, sums in another order (max 2e-2 for
@@ -864,7 +884,8 @@ def test_k5_bf16_forms_match_their_twins(dev, restore_mode, form, c, hw):
 @pytest.mark.parametrize("form", ["xla", "pallas"])
 @pytest.mark.parametrize("c,hw", [(12, (37, 29)), (24, (20, 13)),
                                   (96, (15, 9)), (96, (64, 33)),
-                                  (48, (20, 13)), (192, (10, 10))])
+                                  (48, (20, 13)), (192, (10, 10))]
+                         + _k5_bf16_tile_shapes())
 def test_k5_bf16_launches_are_bitwise_repeatable(dev, restore_mode, form, c,
                                                  hw):
     """Two launches of a one-pass form on the same inputs give the same
@@ -1141,11 +1162,13 @@ def _k5_batch(c, hw, batch, dev, seed=0):
                                         (96, (15, 9), 5), (96, (1, 3), 2),
                                         (12, (80, 80), 12), (48, (20, 20), 12),
                                         (48, (13, 37), 5), (192, (10, 10), 12),
-                                        (192, (11, 9), 7)])
+                                        (192, (11, 9), 7)]
+                         + [(c, hw, 2) for c, hw in _k5_bf16_tile_shapes()])
 def test_batched_k5_matches_twin_and_batch_1(dev, restore_mode, form, c, hw,
                                              batch):
     """K5 at a batch (the image is the grid's z; at C = 48 and 192 the
-    batch's tiles shared out over the resident thread-block clusters), f32
+    batch's tiles taken by thread-block clusters, the resident ones
+    striding over them, each keeping its weights from its first), f32
     and both one-pass forms, forward and reverse: against the twin (f32:
     2e-4; one-pass: max 2e-2 and mean 1e-4, a tie flip), a second launch
     bit for bit the first, and each image bit for bit its own batch-1
